@@ -11,10 +11,19 @@ Phases, in order; any failure exits non-zero before the result lines:
 2. kernels - runs K1-K4 through ``FusedBNLeakyReLU`` at the shapes the
              flagship serve path gives them (4 tasks x 64 filters folded
              into 256 channels; support N=5 and query N=15 at the 28, 14, 7
-             and 3 pixel stages) and at one north-star shape (25, 96, 84,
-             84). Holds forward y/mean/var and backward dx/dgamma/dbeta to
-             the plain PyTorch version and times each kernel beside its
-             plain version, its bound and the library yardsticks.
+             and 3 pixel stages), at those of the train path (8 tasks, 512
+             channels, N=5) and at one north-star shape (25, 96, 84, 84).
+             Holds forward y/mean/var and backward dx/dgamma/dbeta to the
+             plain PyTorch version and times each kernel beside its plain
+             version, its bound and the library yardsticks.
+   pool    - K5 (``bn_act_pool_apply``) against ``plain_pool_apply`` at the
+             train path's pooled stages (5, 512, 28, 28) and (5, 512, 14,
+             14) and at the north-star shape; the same timings.
+   functions - the any-order Functions on the card: forward, first-order
+             gradients of a loss over y, mean and var, and the
+             reverse-over-reverse composition, against the plain
+             composition differentiated by autograd, at (5, 512, 28, 28)
+             (pooled) and (5, 512, 7, 7) (any order).
 3. serve   - the MAML++ Omniglot flagship config with
              use_pallas_fused_norm=True, random weights from a seed: a
              ServingEngine(meta_batch_size=4) serves 32 binary-image
@@ -24,7 +33,17 @@ Phases, in order; any failure exits non-zero before the result lines:
              finite, the same when served again, and match a
              use_pallas_fused_norm=False engine on the same state (the
              tolerances below say how).
-4. result  - one JSON line listing the kernels, the nvidia-smi line, and
+4. train   - the same flagship config with fused_norm_train=True and
+             fused_norm_pool=True (remat_inner_steps=False), learner from
+             seed 104: 10 second-order ``run_train_iter`` at epoch 0 on one
+             synthetic binary batch of 8 tasks, 5-way 1-shot, 1 target per
+             class, with the launch counts zeroed just before and read
+             just after (K1, K2 and K5 must have run). Losses finite and
+             falling; a rerun from the same state bitwise equal; the first
+             loss and meta-gradient against a plain-norm learner on the
+             same state; one past-horizon iteration's launches; one
+             ``run_validation_iter`` with finite logits.
+5. result  - one JSON line listing the kernels, the nvidia-smi line, and
              the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX; exits non-zero without a CUDA device.
@@ -67,20 +86,47 @@ CLASSIFY_RTOL, CLASSIFY_ATOL = 1e-4, 1e-4
 #   must agree to EPISODE_MEDIAN_ATOL and every episode to EPISODE_MAX_ATOL.
 EPISODE_MEDIAN_ATOL, EPISODE_MAX_ATOL = 1e-4, 5e-2
 
+# Meta-gradient of the fused train step against the plain-norm learner's,
+# per leaf: max|fused - plain| <= GRAD_ATOL + GRAD_RTOL * max|plain|. Where
+# a LeakyReLU branch or a pool argmax routes differently (two values within
+# rounding, see the serve tolerances above) a leaf may move further; it is
+# printed with its gap and held to ROUTING_RTOL * max|plain|.
+GRAD_RTOL, GRAD_ATOL, ROUTING_RTOL = 1e-3, 1e-5, 5e-2
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_ITERS = 10
+
 FLAGSHIP_SHAPES = [
     (n, 256, hw, hw) for n in (5, 15) for hw in (28, 14, 7, 3)
 ]
+# The train path: 8 tasks x 64 filters folded into 512 channels, N=5 for
+# the support and the target set alike.
+TRAIN_SHAPES = [(5, 512, hw, hw) for hw in (28, 14, 7, 3)]
 NORTH_STAR_SHAPE = (25, 96, 84, 84)
-# Flops per element each kernel does, counted from its source.
+POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE]
+SERVE_KERNELS = ("bn_stats", "bn_act_apply", "bn_act_bwd_reduce", "bn_act_bwd_apply")
+TRAIN_KERNELS = ("bn_stats", "bn_act_apply", "bn_act_pool_apply")
+# Flops per input element each kernel does, counted from its source.
 FLOPS_PER_ELEMENT = {
     "bn_stats": 4, "bn_act_apply": 6, "bn_act_bwd_reduce": 8,
-    "bn_act_bwd_apply": 12,
+    "bn_act_bwd_apply": 12, "bn_act_pool_apply": 6,
 }
+# Full-size tensors each kernel reads or writes (the pooled output is a
+# quarter of one), and per-channel vectors.
+TENSORS = {
+    "bn_stats": 1, "bn_act_apply": 2, "bn_act_bwd_reduce": 2,
+    "bn_act_bwd_apply": 3, "bn_act_pool_apply": 1.25,
+}
+VECTORS = {
+    "bn_stats": 2, "bn_act_apply": 4, "bn_act_bwd_reduce": 6,
+    "bn_act_bwd_apply": 6, "bn_act_pool_apply": 4,
+}
+PALLAS = "howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py"
 REPLACES = {
-    "bn_stats": "howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py:93,183",
-    "bn_act_apply": "howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py:93,194",
-    "bn_act_bwd_reduce": "howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py:113,206",
-    "bn_act_bwd_apply": "howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py:113,226",
+    "bn_stats": f"{PALLAS}:93,183,147,248",
+    "bn_act_apply": f"{PALLAS}:93,194",
+    "bn_act_bwd_reduce": f"{PALLAS}:113,206",
+    "bn_act_bwd_apply": f"{PALLAS}:113,226",
+    "bn_act_pool_apply": f"{PALLAS}:147,267",
 }
 
 
@@ -149,11 +195,7 @@ def bound_ms(name: str, shape) -> tuple[float, str]:
     written once, against float32 operations at the non-tensor peak."""
     n, c, h, w = shape
     elems = n * c * h * w
-    tensors = {"bn_stats": 1, "bn_act_apply": 2, "bn_act_bwd_reduce": 2,
-               "bn_act_bwd_apply": 3}[name]
-    vectors = {"bn_stats": 2, "bn_act_apply": 4, "bn_act_bwd_reduce": 6,
-               "bn_act_bwd_apply": 6}[name]
-    t_bytes = 4 * (tensors * elems + vectors * c) / PEAK_BYTES_PER_S * 1e3
+    t_bytes = 4 * (TENSORS[name] * elems + VECTORS[name] * c) / PEAK_BYTES_PER_S * 1e3
     t_ops = FLOPS_PER_ELEMENT[name] * elems / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -257,6 +299,88 @@ def check_and_time_kernels(torch, fn, shape, gen, reps) -> dict:
     return out
 
 
+def check_and_time_pool(torch, fn, shape, gen, reps) -> dict:
+    """K5 against ``plain_pool_apply`` on the same statistics, then times."""
+    dev = torch.device("cuda")
+    x = torch.randn(shape, device=dev, generator=gen)
+    c = shape[1]
+    gamma = torch.rand(c, device=dev, generator=gen) + 0.5
+    beta = 0.1 * torch.randn(c, device=dev, generator=gen)
+    mean, var = fn.bn_stats(x)
+    got = fn.bn_act_pool_apply(x, mean, var, gamma, beta)
+    torch.cuda.synchronize()
+    err, ok = err_ok(got, fn.plain_pool_apply(x, mean, var, gamma, beta))
+    if not ok:
+        fail(f"bn_act_pool_apply at {shape} disagrees with its plain version: "
+             f"max_abs_err {err}")
+    kernel = lambda: fn.bn_act_pool_apply(x, mean, var, gamma, beta)  # noqa: E731
+    plain = lambda: fn.plain_pool_apply(x, mean, var, gamma, beta)  # noqa: E731
+    b, by = bound_ms("bn_act_pool_apply", shape)
+    calls = max(2, reps // 5)
+    return {
+        "max_abs_err": err, "ms": graph_ms(torch, kernel, calls),
+        "plain_ms": graph_ms(torch, plain, calls),
+        "eager_ms": cuda_ms(torch, kernel, reps),
+        "eager_plain_ms": cuda_ms(torch, plain, reps),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+    }
+
+
+def check_functions(torch, fn, gen) -> dict:
+    """Both any-order Functions against the plain composition differentiated
+    by autograd: forward, the first-order gradients of a loss over y, mean
+    and var, and the reverse-over-reverse composition. The plain composition
+    takes the kernels' statistics as values (with its own gradient), so both
+    take the same LeakyReLU branch and window maximum where two values lie
+    within rounding."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+
+    def plain_op(x, gamma, beta, pool, stats):
+        mean, var = fn.plain_stats(x)
+        mean = mean + (stats[0] - mean).detach()
+        var = var + (stats[1] - var).detach()
+        y = fn.plain_apply(x, mean, var, gamma, beta)
+        return (F.max_pool2d(y, 2, 2) if pool else y), mean, var
+
+    out = {}
+    for name, op, shape in (
+        ("pool", fn.fused_bn_leaky_relu_pool, TRAIN_SHAPES[0]),
+        ("ho", fn.fused_bn_leaky_relu_ho, TRAIN_SHAPES[2]),
+    ):
+        pool = name == "pool"
+        x = torch.randn(shape, device=dev, generator=gen)
+        gamma = torch.rand(shape[1], device=dev, generator=gen) + 0.5
+        beta = 0.1 * torch.randn(shape[1], device=dev, generator=gen)
+        stats = fn.bn_stats(x)
+        t = torch.randn_like(op(x, gamma, beta)[0])
+
+        def grads(f):
+            leaves = [a.clone().requires_grad_() for a in (x, gamma, beta)]
+            y, mean, var = f(*leaves)
+            first = torch.autograd.grad(
+                (y * t).sum() + mean.sum() + var.sum(), leaves
+            )
+            xx, gg = (a.clone().requires_grad_() for a in (x, gamma))
+            (g,) = torch.autograd.grad(
+                (f(xx, gg, beta)[0] ** 2).sum(), gg, create_graph=True
+            )
+            (second,) = torch.autograd.grad(f(xx, gg - 0.1 * g, beta)[0].sum(), xx)
+            return [a.detach() for a in (y, *first, second)]
+
+        got = grads(op)
+        want = grads(lambda *a: plain_op(*a, pool, stats))  # noqa: B023
+        torch.cuda.synchronize()
+        errs = [err_ok(a, b) for a, b in zip(got, want)]
+        out[name] = dict(zip(("y", "dx", "dgamma", "dbeta", "rev_over_rev_dx"),
+                             (e for e, _ in errs)))
+        if not all(ok for _, ok in errs):
+            fail(f"the {name} Function at {shape} disagrees with the plain "
+                 f"composition: {out[name]}")
+    return out
+
+
 def make_episodes(rng, count, query=15):
     """Binary 28x28 episodes, sparse strokes on a blank ground like
     Omniglot's 0/1 pixels; episode count // 2 repeats episode 0's support."""
@@ -304,7 +428,7 @@ def serve_phase(torch, fn):
     logits = engine.dispatch(eps)
     wall = time.perf_counter() - t0
     launches = dict(fn.launch_counts)
-    if not all(launches[k] > 0 for k in fn.KERNELS):
+    if not all(launches[k] > 0 for k in SERVE_KERNELS):
         fail(f"the serve path skipped a kernel: launches {launches}")
     stats = engine.stats
     if stats.cache_hits != 1:
@@ -354,6 +478,116 @@ def serve_phase(torch, fn):
     return serve
 
 
+def train_batch(rng, tasks=8):
+    """Binary 28x28 episodes of 5 classes, 1 support and 1 target image
+    each: ``(B, N, K, C, H, W)`` images and ``(B, N, K)`` labels."""
+    xs = (rng.rand(tasks, 5, 1, 1, 28, 28) > 0.8).astype(np.float32)
+    xt = (rng.rand(tasks, 5, 1, 1, 28, 28) > 0.8).astype(np.float32)
+    ys = np.tile(np.arange(5).reshape(1, 5, 1), (tasks, 1, 1))
+    return xs, xt, ys, ys.copy()
+
+
+def train_phase(torch, fn):
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
+        load_maml_config,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    cfg = load_maml_config(FLAGSHIP, fused_norm_train=True, fused_norm_pool=True)
+    cfg = dataclasses.replace(cfg, remat_inner_steps=False)
+    learner = MAMLFewShotLearner(cfg)
+    plain = MAMLFewShotLearner(dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, fused_norm_train=False, fused_norm_pool=False
+    )))
+    state0 = learner.init_state(torch.Generator().manual_seed(104))
+    rng = np.random.RandomState(2)
+    batch = train_batch(rng)
+    learner.run_train_iter(state0, train_batch(rng), epoch=0)  # warm-up
+    torch.cuda.synchronize()
+
+    def run():
+        state, losses, step_ms = state0, [], []
+        for _ in range(TRAIN_ITERS):
+            t0 = time.perf_counter()
+            state, m = learner.run_train_iter(state, batch, epoch=0)
+            losses.append(float(m["loss"]))  # synchronizes
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return state, losses, step_ms
+
+    fn.reset_launch_counts()
+    state, losses, step_ms = run()
+    launches = dict(fn.launch_counts)
+    if not all(launches[k] > 0 for k in TRAIN_KERNELS):
+        fail(f"the train path skipped a kernel: launches {launches}")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"train losses not finite and falling: {losses}")
+    again, losses_again, _ = run()
+    same = losses_again == losses and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(again), tree_leaves(state))
+    )
+    if not same:
+        fail(f"a rerun from the same state differs: {losses} vs {losses_again}")
+
+    # The first step against the plain-norm learner on the same state.
+    dbatch = learner._device_batch(state0, batch)
+    importance = learner._importance(state0, learner._train_importance(0))
+    fused_loss, _, _, fused_grads = learner._meta_grads(
+        state0, dbatch, importance, second_order=True, final_only=False
+    )
+    plain_loss, _, _, plain_grads = plain._meta_grads(
+        state0, dbatch, importance, second_order=True, final_only=False
+    )
+    loss_gap = abs(float(fused_loss) - float(plain_loss)) / abs(float(plain_loss))
+    if loss_gap > TRAIN_LOSS_RTOL:
+        fail(f"first loss {float(fused_loss)} vs plain {float(plain_loss)}")
+    worst, routed = 0.0, []
+    names = ["/".join(p) for p in _paths(plain_grads)]
+    for name, a, b in zip(names, tree_leaves(fused_grads), tree_leaves(plain_grads)):
+        scale = float(b.abs().max())
+        gap = float((a - b).abs().max())
+        worst = max(worst, gap / (GRAD_ATOL + GRAD_RTOL * scale))
+        if gap > GRAD_ATOL + GRAD_RTOL * scale:
+            routed.append((name, gap, scale))
+            print(f"[train] routing gap: {name} max|fused-plain| {gap:.3e} "
+                  f"against max|plain| {scale:.3e}")
+            if gap > ROUTING_RTOL * scale:
+                fail(f"meta-gradient leaf {name} off by {gap} (max|plain| {scale})")
+
+    # One past-horizon iteration: only the last step's target pass runs.
+    fn.reset_launch_counts()
+    learner.run_train_iter(state, batch, epoch=cfg.multi_step_loss_num_epochs)
+    torch.cuda.synchronize()
+    final_only_launches = dict(fn.launch_counts)  # one iteration
+
+    _, vm, logits = learner.run_validation_iter(state, train_batch(rng))
+    if logits.shape != (8, 5, 5) or not torch.isfinite(logits).all():
+        fail(f"validation logits {tuple(logits.shape)} not finite")
+    return {
+        "iterations": TRAIN_ITERS,
+        "meta_iters_per_s": TRAIN_ITERS / (sum(step_ms) / 1e3),
+        "step_p50_ms": float(np.median(step_ms)),
+        "step_ms": step_ms,
+        "losses": losses,
+        "rerun_bitwise_equal": same,
+        "first_loss_rel_gap_vs_plain": loss_gap,
+        "worst_grad_gap_over_tolerance": worst,
+        "routing_gap_leaves": routed,
+        "launches": launches,
+        "launches_per_iter": {k: v / TRAIN_ITERS for k, v in launches.items()},
+        "final_only_launches_per_iter": final_only_launches,
+        "validation_loss": float(vm["loss"]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def _paths(tree, prefix=()):
+    """Key paths of the non-None leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _paths(v, prefix + (k,))]
+    return [] if tree is None else [prefix]
+
+
 def main() -> int:
     import torch
 
@@ -375,7 +609,7 @@ def main() -> int:
     # 2. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_shape = {}
-    for shape in FLAGSHIP_SHAPES + [NORTH_STAR_SHAPE]:
+    for shape in FLAGSHIP_SHAPES + TRAIN_SHAPES + [NORTH_STAR_SHAPE]:
         reps = 20 if shape == NORTH_STAR_SHAPE else 100
         res = check_and_time_kernels(torch, fn, shape, gen, reps)
         per_shape[shape] = res
@@ -389,24 +623,46 @@ def main() -> int:
               f"{cells} | var_mean graph={res['bn_stats']['library_ms']:.4f} "
               f"| eager pairs {pairs}", flush=True)
     errs = {
-        k: max(r[k]["max_abs_err"] for r in per_shape.values()) for k in fn.KERNELS
+        k: max(r[k]["max_abs_err"] for r in per_shape.values()) for k in SERVE_KERNELS
     }
+    pool = {}
+    for shape in POOL_SHAPES:
+        pool[shape] = r = check_and_time_pool(
+            torch, fn, shape, gen, 20 if shape == NORTH_STAR_SHAPE else 100
+        )
+        print(f"[pool] {shape} bn_act_pool_apply ms graph/plain graph/bound/"
+              f"eager/plain eager {r['ms']:.4f}/{r['plain_ms']:.4f}/"
+              f"{r['bound_ms']:.4f}/{r['eager_ms']:.4f}/{r['eager_plain_ms']:.4f}"
+              f" max_abs_err {r['max_abs_err']:.3e}", flush=True)
+    errs["bn_act_pool_apply"] = max(r["max_abs_err"] for r in pool.values())
     print(f"[kernels] max_abs_err over all shapes {errs}")
+    functions = check_functions(torch, fn, gen)
+    print(f"[functions] max_abs_err vs plain composition {json.dumps(functions)}",
+          flush=True)
 
     # 3. serve
     serve = serve_phase(torch, fn)
     print(f"[serve] {json.dumps(serve)}", flush=True)
 
-    # 4. result: kernel numbers at the support stage-0 shape, the serve
-    # path's most launched and largest adapt shape.
-    main_shape = FLAGSHIP_SHAPES[0]
+    # 4. train
+    train = train_phase(torch, fn)
+    print(f"[train] meta_iters_per_s {train['meta_iters_per_s']:.3f} step_p50_ms "
+          f"{train['step_p50_ms']:.2f} | {json.dumps(train)}", flush=True)
+
+    # 5. result: K1-K4 at the serve path's support stage-0 shape, its most
+    # launched and largest adapt shape; K5 at the train path's stage 0.
+    # Launches are those of the serve run and the train run together.
     kernels = []
     for name in fn.KERNELS:
-        r = per_shape[main_shape][name]
+        if name == "bn_act_pool_apply":
+            r = pool[POOL_SHAPES[0]]
+        else:
+            r = per_shape[FLAGSHIP_SHAPES[0]][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_norm.cu",
-            "replaces": REPLACES[name], "launches": serve["launches"][name],
+            "replaces": REPLACES[name],
+            "launches": serve["launches"][name] + train["launches"][name],
             "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

@@ -1,10 +1,15 @@
-"""Moves inference states and fast-weight trees between numpy and the port.
+"""Moves train states, inference states and fast-weight trees between numpy
+and the port.
 
 The numpy side is plain nested dicts and tuples of arrays: what
 ``jax.tree.map(np.asarray, istate)`` gives for a JAX ``MAMLInferenceState``
-once its ``BatchNormState``s are ``(running_mean, running_var)`` tuples. No
-JAX type is read, so this module needs neither JAX nor the JAX package.
-Leaves are carried over one by one; ``None`` stays ``None``.
+once its ``BatchNormState``s are ``(running_mean, running_var)`` tuples. A
+train state is ``(theta, lslr, bn_state, (mu, nu, count), iteration)``:
+the optimizer reduced to Adam's moments over ``{"theta", "lslr"}``
+(``None`` at frozen leaves, where optax keeps a ``MaskedNode``) and its
+update count. No JAX type is read, so this module needs neither JAX nor
+the JAX package. Leaves are carried over one by one; ``None`` stays
+``None``.
 """
 
 from __future__ import annotations
@@ -12,7 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.maml import MAMLInferenceState
+from .models.common import AdamState
+from .models.maml import MAMLInferenceState, TrainState
 from .ops.norm import BatchNormState
 from .utils.platform import resolve_device
 from .utils.trees import Tree, tree_map
@@ -54,3 +60,37 @@ def inference_state_from_numpy(tree, device=None) -> MAMLInferenceState:
 def inference_state_to_numpy(state: MAMLInferenceState) -> tuple:
     """The inverse of :func:`inference_state_from_numpy`."""
     return tuple(tree_to_numpy(t) for t in state)
+
+
+def train_state_from_numpy(tree, learning_rate: float, device=None) -> TrainState:
+    """``(theta, lslr, bn_state, (mu, nu, count), iteration)`` of numpy
+    arrays -> ``TrainState`` on ``device``, the optimizer's learning rate
+    at ``learning_rate`` (``run_train_iter`` sets it every step)."""
+    theta, lslr, bn_state, (mu, nu, count), iteration = tree
+    istate = inference_state_from_numpy((theta, lslr, bn_state), device)
+    count, iteration = (
+        tree_from_numpy(np.asarray(a, np.int32), device) for a in (count, iteration)
+    )
+    return TrainState(
+        *istate,
+        opt_state=AdamState(
+            count=count,
+            mu=tree_from_numpy(mu, device),
+            nu=tree_from_numpy(nu, device),
+            learning_rate=torch.tensor(
+                learning_rate, dtype=torch.float32, device=count.device
+            ),
+        ),
+        iteration=iteration,
+    )
+
+
+def train_state_to_numpy(state: TrainState) -> tuple:
+    """The inverse of :func:`train_state_from_numpy` (the learning rate is
+    not carried)."""
+    opt = state.opt_state
+    return (
+        *inference_state_to_numpy(MAMLInferenceState(*state[:3])),
+        tuple(tree_to_numpy(t) for t in (opt.mu, opt.nu, opt.count)),
+        tree_to_numpy(state.iteration),
+    )

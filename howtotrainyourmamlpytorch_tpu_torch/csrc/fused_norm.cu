@@ -1,13 +1,21 @@
 // Fused batch norm (batch statistics) + LeakyReLU for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of
-// howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py that the one-level
-// op fused_bn_leaky_relu reaches:
+// howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py, all nine:
 //
-//   bn_stats           <- _fwd_kernel (:93, statistics half), _stats_block_kernel (:183)
+//   bn_stats           <- _fwd_kernel (:93, statistics half), _stats_block_kernel (:183),
+//                         _fwd_pool_kernel (:147, statistics half), _stats_pool_block_kernel (:248)
 //   bn_act_apply       <- _fwd_kernel (:93, apply half),      _apply_block_kernel (:194)
 //   bn_act_bwd_reduce  <- _bwd_kernel (:113, reduce half),    _bwd_stats_block_kernel (:206)
 //   bn_act_bwd_apply   <- _bwd_kernel (:113, apply half),     _bwd_apply_block_kernel (:226)
+//   bn_act_pool_apply  <- _fwd_pool_kernel (:147, apply half), _apply_pool_block_kernel (:267)
+//
+// The pooled TPU kernels take the four strided views of the 2x2 windows;
+// together those views are the whole pre-pool activation, so their
+// statistics are bn_stats of x itself. bn_act_pool_apply reads each window
+// from NCHW and writes only the pooled (N, C, H/2, W/2) activation: it
+// reads 4*R*C bytes and writes R*C, against bn_act_apply's 4*R*C each way
+// plus a separate pool's 4*R*C in and R*C out.
 //
 // The TPU kernels see the activation as a padded (R, C) matrix, R = N*H*W,
 // after an NCHW -> NHWC transpose. These kernels read the NCHW tensor in
@@ -18,7 +26,8 @@
 // far below the card's ratio of flops to bytes, so memory bounds each: in
 // float32, bn_stats reads 4*R*C bytes, bn_act_apply moves 8*R*C (x in, y
 // out), bn_act_bwd_reduce 8*R*C (x and the cotangent in), bn_act_bwd_apply
-// 12*R*C. At the flagship shapes (a few MB per tensor) the launch itself
+// 12*R*C, bn_act_pool_apply 5*R*C (x in, the pooled quarter out). At the
+// flagship shapes (a few MB per tensor) the launch itself
 // costs more than the traffic. Design: each element is read once per
 // kernel, consecutive threads read consecutive addresses, and the grid is
 // sized from the SM count; nothing here is tuned yet.
@@ -217,6 +226,49 @@ __global__ void bn_act_bwd_apply_kernel(
   }
 }
 
+// Elementwise over the pooled (N, C, H/2, W/2) output (grid-stride): each
+// thread reads its 2x2 window straight from the NCHW input as two float2
+// rows, normalizes, applies the affine and LeakyReLU per element with K2's
+// arithmetic, and writes the window's max. The full-size activation is
+// never written. H and W are even, so every window's first element sits at
+// an even offset and both float2 loads are 8-byte aligned.
+__global__ void bn_act_pool_apply_kernel(const float* __restrict__ x,
+                                         const float* __restrict__ mean,
+                                         const float* __restrict__ var,
+                                         const float* __restrict__ gamma,
+                                         const float* __restrict__ beta,
+                                         float* __restrict__ y, long long total,
+                                         int C, int H, int W, float eps,
+                                         float slope) {
+  const int OH = H >> 1;
+  const int OW = W >> 1;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += stride) {
+    const int ow = (int)(e % OW);
+    const long long t = e / OW;
+    const int oh = (int)(t % OH);
+    const long long nc = t / OH;
+    const int c = (int)(nc % C);
+    const long long base = nc * H * W + (long long)(2 * oh) * W + 2 * ow;
+    const float2 top = *reinterpret_cast<const float2*>(x + base);
+    const float2 bot = *reinterpret_cast<const float2*>(x + base + W);
+    const float m = mean[c];
+    const float inv = rsqrtf(var[c] + eps);
+    const float ga = gamma[c];
+    const float be = beta[c];
+    const float v[4] = {top.x, top.y, bot.x, bot.y};
+    float best = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float pre = (v[k] - m) * inv * ga + be;
+      const float act = pre >= 0.0f ? pre : slope * pre;
+      best = k == 0 ? act : fmaxf(best, act);
+    }
+    y[e] = best;
+  }
+}
+
 int finalize_blocks(int C) { return (C + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -268,6 +320,18 @@ int bn_act_bwd_apply(const float* x, const float* g, const float* mean,
   bn_act_bwd_apply_kernel<<<blocks, kThreads, 0, st>>>(
       x, g, mean, var, gamma, beta, dgamma, dbeta, dx, total, N, C, HW, eps,
       slope);
+  return (int)cudaGetLastError();
+}
+
+// y: (N, C, H/2, W/2); H and W even, x 8-byte aligned (checked by the caller).
+int bn_act_pool_apply(const float* x, const float* mean, const float* var,
+                      const float* gamma, const float* beta, float* y, int N,
+                      int C, int H, int W, float eps, float slope, int blocks,
+                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long total = (long long)N * C * (H / 2) * (W / 2);
+  bn_act_pool_apply_kernel<<<blocks, kThreads, 0, st>>>(
+      x, mean, var, gamma, beta, y, total, C, H, W, eps, slope);
   return (int)cudaGetLastError();
 }
 

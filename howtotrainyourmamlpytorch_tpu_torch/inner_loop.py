@@ -1,14 +1,18 @@
-"""The MAML++ LSLR inner-loop rule
-(``howtotrainyourmamlpytorch_tpu/inner_loop.py:35-56``): one learnable
-learning-rate vector over inner steps per adapted parameter tensor,
-``(num_steps + 1,)`` long (the last row is allocated, as in the reference,
-and never read)."""
+"""Inner-loop rules (``howtotrainyourmamlpytorch_tpu/inner_loop.py``): plain
+SGD and MAML++'s LSLR, one learnable learning-rate vector over inner steps
+per adapted parameter tensor, ``(num_steps + 1,)`` long (the last row is
+allocated, as in the reference, and never read)."""
 
 from __future__ import annotations
 
 import torch
 
 from .utils.trees import Tree, tree_map
+
+
+def sgd_update(params: Tree, grads: Tree, learning_rate) -> Tree:
+    """Differentiable SGD: ``w' = w - lr * g`` per leaf."""
+    return tree_map(lambda w, g: w - learning_rate * g, params, grads)
 
 
 def init_lslr(

@@ -30,7 +30,11 @@ from typing import Any
 import torch
 
 from ..ops.conv import conv2d
-from ..ops.fused_norm import fused_bn_leaky_relu
+from ..ops.fused_norm import (
+    fused_bn_leaky_relu,
+    fused_bn_leaky_relu_ho,
+    fused_bn_leaky_relu_pool,
+)
 from ..ops.initializers import xavier_uniform
 from ..ops.linear import linear
 from ..ops.norm import (
@@ -41,6 +45,7 @@ from ..ops.norm import (
     update_running,
 )
 from ..ops.pool import max_pool2d
+from ..utils.trees import tree_map_with_path
 
 Params = dict[str, Any]
 
@@ -50,9 +55,9 @@ SLOPE = 0.01
 @dataclasses.dataclass(frozen=True)
 class BackboneConfig:
     """Architecture hyperparameters, field for field the JAX package's. The
-    port's VGG takes the values the serve slice runs: ``vgg``,
-    ``batch_norm``, ``conv_norm``, max pooling, no lane padding, no pool
-    fusion; the rest raise ``NotImplementedError`` naming their slice."""
+    port's VGG takes the values the flagship runs: ``vgg``, ``batch_norm``,
+    ``conv_norm``, max pooling, no lane padding; the rest raise
+    ``NotImplementedError`` naming their slice."""
 
     architecture: str = "vgg"
     num_stages: int = 4
@@ -115,8 +120,6 @@ _UNPORTED = (
     ("block_order", "conv_norm", "norm_conv is ROADMAP item A3"),
     ("max_pooling", True, "stride-2 convs with average pooling are ROADMAP item A3"),
     ("lane_pad_channels", False, "lane padding is ROADMAP item A8"),
-    ("fused_norm_pool", False,
-     "the pooled fused kernels (#7-9) come with the second-order train slice"),
 )
 
 
@@ -206,19 +209,15 @@ class VGGBackbone:
             or ``None`` to skip their update (they never reach an output).
           x: images ``(T, N, C, H, W)``.
           step: inner-loop step; selects per-step BN rows, clamped.
-          fused: ``None`` (config default), ``"off"``/``False`` or
-            ``"vjp"``/``True`` (the Hopper kernels).
+          fused: ``None`` (config default), ``"off"``/``False``,
+            ``"vjp"``/``True`` (the one-level kernel pair) or ``"jvp"`` (the
+            any-order op, for the train path).
 
         Returns:
           ``(logits (T, N, num_classes), new_bn_state or None)``.
         """
         cfg = self.cfg
         variant = resolve_fused_variant(cfg, fused)
-        if variant == "jvp":
-            raise NotImplementedError(
-                "the second-order fused norm (fused_bn_leaky_relu_ho) comes "
-                "with the second-order train slice"
-            )
         tasks, n = x.shape[:2]
         out = x.transpose(0, 1).reshape(n, tasks * x.shape[2], *x.shape[3:])
         new_bn_state: Params | None = None if bn_state is None else {}
@@ -238,10 +237,19 @@ class VGGBackbone:
             state = None
             if bn_state is not None:
                 state = BatchNormState(*(_fold(a) for a in bn_state[f"conv{i}"]))
-            if variant == "vjp":
+            # Fuse the 2x2 max pool into the norm where it is exact: floor-mode
+            # pooling drops an odd trailing row or column that the
+            # statistics still cover (JAX backbone.py:369-386). The conv's
+            # output is the pre-pool shape.
+            pool = (
+                cfg.fused_norm_pool and variant != "off"
+                and out.shape[2] % 2 == 0 and out.shape[3] % 2 == 0
+            )
+            if variant != "off":
                 out, state = fused_norm_act(
                     out, gamma, beta, state, step,
                     eps=cfg.bn_eps, momentum=cfg.bn_momentum,
+                    variant=variant, pool=pool,
                 )
             else:
                 out, state = batch_norm(
@@ -253,7 +261,8 @@ class VGGBackbone:
                 new_bn_state[f"conv{i}"] = BatchNormState(
                     *(_unfold(a, tasks) for a in state)
                 )
-            out = max_pool2d(out, 2, 2)
+            if not pool:
+                out = max_pool2d(out, 2, 2)
         features = out.reshape(n, tasks, -1).transpose(0, 1)
         logits = linear(
             features, params["linear"]["weight"], params["linear"]["bias"]
@@ -264,13 +273,9 @@ class VGGBackbone:
         """True on the leaves the inner loop adapts: everything but the
         norm parameters, unless ``enable_inner_loop_optimizable_bn_params``."""
         enable_bn = self.cfg.enable_inner_loop_optimizable_bn_params
-
-        def mark(tree, path):
-            if isinstance(tree, dict):
-                return {k: mark(v, path + (k,)) for k, v in tree.items()}
-            return enable_bn or "norm" not in path
-
-        return mark(params, ())
+        return tree_map_with_path(
+            lambda path, _: enable_bn or "norm" not in path, params
+        )
 
 
 def resolve_fused_variant(cfg: BackboneConfig, fused) -> str:
@@ -290,18 +295,32 @@ def resolve_fused_variant(cfg: BackboneConfig, fused) -> str:
     raise ValueError(f"unknown fused variant {fused!r}")
 
 
-def fused_norm_act(x, gamma, beta, state, step, *, eps, momentum, slope=SLOPE):
-    """Fused norm + LeakyReLU on the per-step row of ``gamma``/``beta``,
-    plus the running-stat update of ``ops/norm.batch_norm`` when ``state``
-    is given."""
-    out, mean, var = fused_bn_leaky_relu(
+def fused_norm_act(x, gamma, beta, state, step, *, eps, momentum, slope=SLOPE,
+                   variant="vjp", pool=False):
+    """Fused norm + LeakyReLU [+ 2x2 max pool] on the per-step row of
+    ``gamma``/``beta``, plus the running-stat update of
+    ``ops/norm.batch_norm`` when ``state`` is given.
+
+    ``variant``: ``"vjp"``, the one-level kernel pair; ``"jvp"``, the
+    any-order op. The pooled op is any-order and serves both, as in JAX
+    (``backbone.py:457-510``)."""
+    if pool:
+        op = fused_bn_leaky_relu_pool
+    elif variant == "jvp":
+        op = fused_bn_leaky_relu_ho
+    else:
+        op = fused_bn_leaky_relu
+    out, mean, var = op(
         x, step_row(gamma, step).float(), step_row(beta, step).float(),
         eps, slope,
     )
     if state is None:
         return out, None
+    # The running statistics never reach an output: no graph for them.
     n = x.shape[0] * x.shape[2] * x.shape[3]
-    return out, update_running(state, step, mean, var, n, momentum)
+    return out, update_running(
+        state, step, mean.detach(), var.detach(), n, momentum
+    )
 
 
 def build_backbone(cfg: BackboneConfig) -> VGGBackbone:

@@ -1,14 +1,18 @@
-"""Dtype casts and the uint8 image wire format
-(``howtotrainyourmamlpytorch_tpu/models/common.py:39-57,130-204``)."""
+"""Trainer plumbing shared by the learners
+(``howtotrainyourmamlpytorch_tpu/models/common.py:39-259``): dtype casts,
+the divergence sentinel, the epoch-wise cosine LR, the outer Adam with an
+injected learning rate, the uint8 image wire format and batch preparation.
+"""
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils.trees import tree_map
+from ..utils.trees import Tree, tree_leaves, tree_map
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -19,6 +23,123 @@ def cast_floats(tree, dtype):
     if dtype == torch.float32:
         return tree
     return tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, tree)
+
+
+def nonfinite_flag(*values) -> torch.Tensor:
+    """``0.0`` when every entry of every value is finite, else ``1.0``, as a
+    float32 scalar on the values' device: no host sync."""
+    ok = torch.stack([torch.isfinite(v).all() for v in values]).all()
+    return (~ok).to(torch.float32)
+
+
+def discard_nonfinite_update(flag, new_tree, old_tree):
+    """Leafwise ``new`` where ``flag`` is 0, else ``old``, on the device."""
+    keep_new = flag == 0.0
+    return tree_map(lambda n, o: torch.where(keep_new, n, o), new_tree, old_tree)
+
+
+def guard_nonfinite_update(skip: bool, nonfinite, new_state, old_state):
+    """The sentinel's ``skip`` policy (train steps only): a tripped step
+    keeps ``old_state`` whole while the iteration counter still advances.
+    Both states are NamedTuples with an ``iteration`` field."""
+    if not skip:
+        return new_state
+    return discard_nonfinite_update(nonfinite, new_state, old_state)._replace(
+        iteration=old_state.iteration + 1
+    )
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """``sqrt`` of the sum of squares over every leaf, in float32."""
+    return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(tree)))
+
+
+def cosine_epoch_lr(
+    epoch: int, meta_learning_rate: float, min_learning_rate: float, total_epochs: int
+) -> float:
+    """``eta_min + (lr0 - eta_min) * (1 + cos(pi * epoch / T_max)) / 2``:
+    torch ``CosineAnnealingLR``'s closed form, constant within an epoch."""
+    frac = min(epoch / total_epochs, 1.0)
+    return min_learning_rate + 0.5 * (meta_learning_rate - min_learning_rate) * (
+        1.0 + math.cos(math.pi * frac)
+    )
+
+
+class AdamState(NamedTuple):
+    """optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``; the moments
+    are ``None`` at frozen leaves) and the injected learning rate, a
+    float32 scalar."""
+
+    count: torch.Tensor
+    mu: Tree
+    nu: Tree
+    learning_rate: torch.Tensor
+
+
+class InjectedAdam:
+    """Functional Adam with torch's defaults and optax's formula, over any
+    tree; the learning rate is read from the state (``set_injected_lr``).
+    An optional elementwise clip of the gradients comes first (the
+    reference's +-10 on ImageNet). Leaves without moments are frozen: they
+    get no update, like ``optax.set_to_zero``."""
+
+    def __init__(self, learning_rate: float, clip_grad_value: float | None = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.learning_rate = learning_rate
+        self.clip_grad_value = clip_grad_value
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: Tree, trainable: Tree | None = None) -> AdamState:
+        """Zero moments for the leaves ``trainable`` marks (all by default)."""
+        if trainable is None:
+            trainable = tree_map(lambda _: True, params)
+        zeros = lambda m, p: torch.zeros_like(p) if m else None  # noqa: E731
+        device = tree_leaves(params)[0].device
+        return AdamState(
+            count=torch.zeros((), dtype=torch.int32, device=device),
+            mu=tree_map(zeros, trainable, params),
+            nu=tree_map(zeros, trainable, params),
+            learning_rate=torch.tensor(
+                self.learning_rate, dtype=torch.float32, device=device
+            ),
+        )
+
+    def step(self, params: Tree, grads: Tree, state: AdamState):
+        """``(new_params, new_state)`` after one update."""
+        b1, b2 = self.b1, self.b2
+        if self.clip_grad_value is not None:
+            c = self.clip_grad_value
+            grads = tree_map(lambda g: g.clamp(-c, c), grads)
+        count = state.count + 1
+        c32 = count.to(torch.float32)
+        bias1 = 1 - torch.full_like(c32, b1) ** c32
+        bias2 = 1 - torch.full_like(c32, b2) ** c32
+        mu = tree_map(lambda m, g: (1 - b1) * g + b1 * m, state.mu, grads)
+        nu = tree_map(lambda v, g: (1 - b2) * g.square() + b2 * v, state.nu, grads)
+        step_size = -state.learning_rate
+
+        def update(p, m, v):
+            if m is None:
+                return p
+            return p + (m / bias1) / (torch.sqrt(v / bias2) + self.eps) * step_size
+
+        params = tree_map(update, params, mu, nu)
+        return params, state._replace(count=count, mu=mu, nu=nu)
+
+
+def make_injected_adam(
+    learning_rate: float, clip_grad_value: float | None = None
+) -> InjectedAdam:
+    """Adam (torch defaults) with a runtime-settable learning rate and an
+    optional elementwise clip first."""
+    return InjectedAdam(learning_rate, clip_grad_value)
+
+
+def set_injected_lr(state: AdamState, lr: float) -> AdamState:
+    """The state with its learning rate set to ``lr``."""
+    return state._replace(learning_rate=torch.tensor(
+        lr, dtype=torch.float32, device=state.learning_rate.device
+    ))
 
 
 class WireCodec(NamedTuple):
@@ -59,3 +180,24 @@ def decode_images(x: torch.Tensor, codec: WireCodec | None, dtype) -> torch.Tens
         std = torch.tensor(codec.std, dtype=torch.float32, device=x.device)
         x = (x - mean.reshape(shape)) / std.reshape(shape)
     return x.to(dtype)
+
+
+def prepare_batch(data_batch, codec: WireCodec | None = None):
+    """``(B, N, K, C, H, W)`` numpy episode batch -> ``(x_support,
+    x_target, y_support, y_target)`` numpy arrays with the shots flattened:
+    ``(B, N*K, C, H, W)`` images (uint8 wire with ``codec``) and
+    ``(B, N*K)`` int32 labels."""
+    if len(data_batch) != 4:
+        raise NotImplementedError(
+            "an on-device augmentation operand is ROADMAP item A7"
+        )
+    xs, xt, ys, yt = data_batch
+    if codec is not None:
+        xs, xt = encode_images(xs, codec), encode_images(xt, codec)
+    else:
+        xs, xt = np.asarray(xs, np.float32), np.asarray(xt, np.float32)
+    ys, yt = np.asarray(ys, np.int32), np.asarray(yt, np.int32)
+    b = xs.shape[0]
+    xs = xs.reshape(b, -1, *xs.shape[-3:])
+    xt = xt.reshape(b, -1, *xt.shape[-3:])
+    return xs, xt, ys.reshape(b, -1), yt.reshape(b, -1)

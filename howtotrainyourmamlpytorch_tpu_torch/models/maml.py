@@ -1,16 +1,25 @@
-"""MAML / MAML++ serving: configuration, inference state, and the learner's
-adapt and classify (``howtotrainyourmamlpytorch_tpu/models/maml.py:75-195,
-238-248,563-572,1130-1241``). Training comes with a later slice.
+"""MAML / MAML++: configuration, train state, the meta-train and eval steps,
+and the serving half (``howtotrainyourmamlpytorch_tpu/models/maml.py``).
 
-``serve_adapt`` runs the inner loop of an eval episode: per step a support
-forward, the inner gradient and the LSLR update, at first order (the
-gradient is taken without a graph, the counterpart of ``lax.stop_gradient``
-at ``maml.py:1214``). ``serve_classify`` runs the query forward with the
-adapted fast weights at step ``serve_adapt_steps - 1``. Both take the task
-axis explicitly (JAX vmaps a one-task function): ``T`` tasks go through the
-backbone at once, their statistics kept apart (``models/backbone.py``).
-The inner loss is the sum of the per-task mean losses, so its gradient with
-respect to task ``t``'s fast weights is task ``t``'s own gradient.
+The task axis is written out (JAX vmaps a one-task function): ``T`` tasks
+go through the backbone at once, their statistics kept apart
+(``models/backbone.py``). The inner loss is the sum of the per-task mean
+losses, so its gradient with respect to task ``t``'s fast weights is task
+``t``'s own gradient.
+
+Training (``run_train_iter``): per inner step a support forward, the inner
+gradient by ``torch.autograd.grad`` with ``create_graph`` at second order
+(without it at first order, the counterpart of ``lax.stop_gradient`` at
+``maml.py:740-741``), the LSLR update, and a target forward weighted by the
+MSL importance vector. The fast weights start as the ``theta`` leaves
+``expand``ed over tasks, so the outer gradient reaches ``theta`` and the
+LSLR rates through every step. The outer loss is the task mean of the
+weighted target losses; outer Adam updates the trainable leaves. Past the
+MSL horizon (``final_only``) only the last step's target pass runs.
+
+Serving (``serve_adapt``/``serve_classify``) and eval
+(``run_validation_iter``) adapt at first order with the fast weights
+detached every step.
 """
 
 from __future__ import annotations
@@ -18,23 +27,42 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..inner_loop import init_lslr, lslr_update
 from ..ops.losses import nll
-from ..utils.platform import resolve_device
-from ..utils.trees import merge, partition, tree_leaves, tree_map, tree_unflatten
+from ..utils.platform import resolve_device, set_f32_numerics
+from ..utils.trees import (
+    merge,
+    partition,
+    tree_leaves,
+    tree_map,
+    tree_map_with_path,
+    tree_unflatten,
+)
 from .backbone import BackboneConfig, build_backbone
-from .common import DTYPES, WireCodec, cast_floats, decode_images
+from .common import (
+    DTYPES,
+    WireCodec,
+    cast_floats,
+    cosine_epoch_lr,
+    decode_images,
+    global_norm,
+    guard_nonfinite_update,
+    make_injected_adam,
+    nonfinite_flag,
+    prepare_batch,
+    set_injected_lr,
+)
 
 Tree = Any
 
 
 @dataclasses.dataclass(frozen=True)
 class MAMLConfig:
-    """The JAX ``MAMLConfig``'s fields and checks, less four that only the
-    train path reads and that arrive with it: ``remat_inner_steps``,
-    ``task_chunk``, ``collective_fusion`` and ``device_augment``."""
+    """The JAX ``MAMLConfig``'s fields, defaults and checks."""
 
     backbone: BackboneConfig = dataclasses.field(default_factory=BackboneConfig)
 
@@ -62,8 +90,17 @@ class MAMLConfig:
     learnable_bn_beta: bool = True
 
     skip_nonfinite_updates: bool = False
+    # Each inner step under torch.utils.checkpoint: its activations are
+    # recomputed in the outer backward instead of kept.
+    remat_inner_steps: bool = True
     compute_dtype: str = "float32"
+    # 0 only (ROADMAP item A8).
+    task_chunk: int = 0
+    # Multi-device reduction form; no effect on one device, as in JAX.
+    collective_fusion: str = "bucketed"
     wire_codec: WireCodec | None = None
+    # None only (ROADMAP item A7).
+    device_augment: Any = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -95,11 +132,54 @@ class MAMLConfig:
                 f" ({self.number_of_training_steps_per_iter}) by at most 1"
                 " (the LSLR table has training_steps + 1 rows)"
             )
+        if self.task_chunk < 0:
+            raise ValueError(f"task_chunk must be >= 0, got {self.task_chunk}")
+        if self.collective_fusion not in ("bucketed", "per_leaf"):
+            raise ValueError(
+                "collective_fusion must be bucketed | per_leaf, got"
+                f" {self.collective_fusion!r}"
+            )
         if self.compute_dtype not in DTYPES:
             raise ValueError(
                 "compute_dtype must be float32 | bfloat16, got"
                 f" {self.compute_dtype!r}"
             )
+
+
+def per_step_loss_importance(
+    epoch: int, num_steps: int, msl_num_epochs: int
+) -> np.ndarray:
+    """MSL importance vector with the reference's annealing: early-step
+    weights decay linearly to a floor while the final step's grows."""
+    weights = np.ones(num_steps, np.float32) * (1.0 / num_steps)
+    decay = 1.0 / num_steps / msl_num_epochs
+    min_nonfinal = 0.03 / num_steps
+    for i in range(num_steps - 1):
+        weights[i] = max(weights[i] - epoch * decay, min_nonfinal)
+    weights[-1] = min(
+        weights[-1] + epoch * (num_steps - 1) * decay,
+        1.0 - (num_steps - 1) * min_nonfinal,
+    )
+    return weights
+
+
+def final_step_importance(num_steps: int, final_index: int | None = None) -> np.ndarray:
+    """One-hot importance on a single step's target loss."""
+    weights = np.zeros(num_steps, np.float32)
+    weights[final_index if final_index is not None else num_steps - 1] = 1.0
+    return weights
+
+
+class TrainState(NamedTuple):
+    """Everything a train step reads and writes. ``opt_state`` is an
+    ``AdamState`` over ``{"theta", "lslr"}``; ``iteration`` an int32
+    scalar."""
+
+    theta: Tree
+    lslr: Tree
+    bn_state: Tree
+    opt_state: Any
+    iteration: torch.Tensor
 
 
 class MAMLInferenceState(NamedTuple):
@@ -112,19 +192,49 @@ class MAMLInferenceState(NamedTuple):
 
 
 class MAMLFewShotLearner:
-    """The serving half of the MAML/MAML++ learner."""
+    """The MAML/MAML++ learner: the train and eval steps of the reference
+    trainer contract, and the serving half."""
 
     def __init__(self, cfg: MAMLConfig):
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
-                "bfloat16 compute is ROADMAP item A8; the port serves float32"
+                "bfloat16 compute is ROADMAP item A8; the port runs float32"
+            )
+        if cfg.task_chunk != 0:
+            raise NotImplementedError("task_chunk is ROADMAP item A8")
+        if cfg.device_augment is not None:
+            raise NotImplementedError(
+                "on-device augmentation is ROADMAP item A7"
             )
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone)
+        self.tx = make_injected_adam(cfg.meta_learning_rate, cfg.clip_grad_value)
+        self.current_epoch = 0
+        set_f32_numerics()
 
     def adapt_mask(self, theta: Tree) -> Tree:
         """True on the leaves the inner loop adapts."""
         return self.backbone.inner_loop_mask(theta)
+
+    def trainable_mask(self, outer: Tree) -> Tree:
+        """True on the ``{"theta", "lslr"}`` leaves outer Adam updates: BN
+        gamma/beta unless frozen by config, the LSLR rates when learnable
+        (``maml.py:622-648``)."""
+        cfg = self.cfg
+
+        def theta_label(path, _):
+            if "norm" in path:
+                if path[-1] == "gamma":
+                    return cfg.learnable_bn_gamma
+                if path[-1] == "beta":
+                    return cfg.learnable_bn_beta
+            return True
+
+        lslr_on = cfg.learnable_per_layer_per_step_inner_loop_learning_rate
+        return {
+            "theta": tree_map_with_path(theta_label, outer["theta"]),
+            "lslr": tree_map(lambda _: lslr_on, outer["lslr"]),
+        }
 
     @property
     def serve_adapt_steps(self) -> int:
@@ -133,6 +243,10 @@ class MAMLFewShotLearner:
             self.cfg.number_of_training_steps_per_iter,
             self.cfg.number_of_evaluation_steps_per_iter,
         )
+
+    # ------------------------------------------------------------------
+    # State
+    # ------------------------------------------------------------------
 
     def init_inference_state(
         self, generator: torch.Generator, device=None
@@ -152,8 +266,270 @@ class MAMLFewShotLearner:
         )
         return MAMLInferenceState(theta=theta, lslr=lslr, bn_state=bn_state)
 
+    def init_state(self, generator: torch.Generator, device=None) -> TrainState:
+        """``init_inference_state`` plus zero Adam moments for the trainable
+        leaves and iteration 0."""
+        istate = self.init_inference_state(generator, device)
+        outer = {"theta": istate.theta, "lslr": istate.lslr}
+        device = tree_leaves(istate.theta)[0].device
+        return TrainState(
+            theta=istate.theta,
+            lslr=istate.lslr,
+            bn_state=istate.bn_state,
+            opt_state=self.tx.init(outer, self.trainable_mask(outer)),
+            iteration=torch.zeros((), dtype=torch.int32, device=device),
+        )
+
     def inference_state(self, state) -> MAMLInferenceState:
         return MAMLInferenceState(state.theta, state.lslr, state.bn_state)
+
+    # ------------------------------------------------------------------
+    # Inner loop over all tasks
+    # ------------------------------------------------------------------
+
+    def _meta_loss(
+        self, outer, bn_state, batch, importance, num_steps, second_order,
+        pred_step=None, final_only=False, outer_grad=True,
+    ):
+        """Inner-loop adaptation and target losses of ``T`` tasks at once
+        (``maml.py:654-879``, the task axis written out).
+
+        ``outer``: ``{"theta", "lslr"}``. ``batch``: ``(x_support (T, S, C,
+        H, W), x_target (T, Q, C, H, W), y_support (T, S), y_target (T,
+        Q))`` on the device. Returns ``(task mean of the weighted target
+        losses, aux)``, aux holding the prediction step's target ``logits``
+        (float32), per-task ``accuracy`` and the evolved ``bn_state``
+        (leading ``T`` axis). Without ``outer_grad`` (eval) no graph
+        outlives a step."""
+        cfg = self.cfg
+        theta, lslr = outer["theta"], outer["lslr"]
+        xs, xt, ys, yt = batch
+        tasks = xs.shape[0]
+        adapt0, frozen = partition(theta, self.adapt_mask(theta))
+        adapt0 = cast_floats(adapt0, cfg.dtype)
+        frozen = tree_map(
+            lambda a: a.expand(tasks, *a.shape), cast_floats(frozen, cfg.dtype)
+        )
+        xs = decode_images(xs, cfg.wire_codec, cfg.dtype)
+        xt = decode_images(xt, cfg.wire_codec, cfg.dtype)
+        ys, yt = ys.long(), yt.long()
+        # The any-order op on train paths (even first order differentiates
+        # through the fast weights), the one-level pair on eval (JAX
+        # maml.py:710-724).
+        bb = self.backbone.cfg
+        if outer_grad:
+            fused = "jvp" if bb.fused_norm_train else "off"
+        else:
+            fused = "vjp" if bb.use_pallas_fused_norm else "off"
+        bn = tree_map(lambda a: a.expand(tasks, *a.shape), bn_state)
+
+        def forward(leaves, bn, x, step):
+            fast = tree_unflatten(adapt0, leaves)
+            return self.backbone.apply(merge(fast, frozen), bn, x, step, fused=fused)
+
+        def inner_update(step, bn, *leaves):
+            if not outer_grad:
+                leaves = [a.detach().requires_grad_() for a in leaves]
+            logits, bn = forward(leaves, bn, xs, step)
+            loss = nll(logits, ys).mean(dim=-1).sum()
+            grads = torch.autograd.grad(loss, leaves, create_graph=second_order)
+            fast = lslr_update(
+                tree_unflatten(adapt0, leaves), tree_unflatten(adapt0, grads),
+                lslr, step,
+            )
+            return bn, *tree_leaves(fast)
+
+        def target(step, bn, *leaves):
+            logits, bn = forward(leaves, bn, xt, step)
+            return bn, logits
+
+        def run(fn, *args):
+            # Checkpointed steps keep only their inputs for the outer
+            # backward; without an outer gradient there is nothing to keep.
+            if cfg.remat_inner_steps and outer_grad:
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        leaves = [a.expand(tasks, *a.shape) for a in tree_leaves(adapt0)]
+        target_logits = []
+        with torch.enable_grad():
+            for step in range(num_steps):
+                bn, *leaves = run(inner_update, step, bn, *leaves)
+                if final_only:
+                    continue
+                with torch.set_grad_enabled(outer_grad):
+                    bn, logits = run(target, step, bn, *leaves)
+                target_logits.append(logits)
+            if final_only:
+                with torch.set_grad_enabled(outer_grad):
+                    bn, logits = target(num_steps - 1, bn, *leaves)
+                target_logits = [logits]
+                pred_step = 0
+        t_losses = torch.stack([nll(lg, yt).mean(dim=-1) for lg in target_logits])
+        if final_only:
+            weighted = t_losses[0]
+        else:
+            weighted = (importance[:, None] * t_losses).sum(dim=0)
+            pred_step = num_steps - 1 if pred_step is None else pred_step
+        logits = target_logits[pred_step].float()
+        accuracy = (logits.argmax(-1) == yt).float().mean(dim=-1)
+        return weighted.mean(), dict(logits=logits, accuracy=accuracy, bn_state=bn)
+
+    # ------------------------------------------------------------------
+    # Meta step
+    # ------------------------------------------------------------------
+
+    def _meta_grads(self, state: TrainState, batch, importance, *,
+                    second_order, final_only):
+        """``(loss, accuracy_mean, bn_state_mean, grads)`` of one meta-step
+        (``maml.py:881-918``, off-mesh); ``grads`` over ``{"theta",
+        "lslr"}``, the BN state averaged over tasks."""
+        outer = {"theta": state.theta, "lslr": state.lslr}
+        leaves = [a.detach().requires_grad_() for a in tree_leaves(outer)]
+        with torch.enable_grad():
+            loss, aux = self._meta_loss(
+                tree_unflatten(outer, leaves), state.bn_state, batch,
+                importance, self.cfg.number_of_training_steps_per_iter,
+                second_order, None, final_only,
+            )
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [
+            torch.zeros_like(a) if g is None else g for a, g in zip(leaves, grads)
+        ]
+        bn_mean = tree_map(lambda s: s.mean(dim=0), aux["bn_state"])
+        return (
+            loss.detach(), aux["accuracy"].mean(), bn_mean,
+            tree_unflatten(outer, grads),
+        )
+
+    @torch.no_grad()
+    def _train_step(self, state: TrainState, batch, importance, *,
+                    second_order, final_only=False):
+        """One meta-update (``maml.py:964-996``): meta-gradients, Adam on
+        the trainable leaves, the divergence sentinel."""
+        loss, accuracy, bn_state, grads = self._meta_grads(
+            state, batch, importance,
+            second_order=second_order, final_only=final_only,
+        )
+        outer = {"theta": state.theta, "lslr": state.lslr}
+        outer, opt_state = self.tx.step(outer, grads, state.opt_state)
+        new_state = TrainState(
+            theta=outer["theta"],
+            lslr=outer["lslr"],
+            bn_state=bn_state,
+            opt_state=opt_state,
+            iteration=state.iteration + 1,
+        )
+        # The classic second-order failure is a non-finite meta-gradient
+        # under a finite loss, so both are checked.
+        nonfinite = nonfinite_flag(loss, global_norm(grads))
+        new_state = guard_nonfinite_update(
+            self.cfg.skip_nonfinite_updates, nonfinite, new_state, state
+        )
+        return new_state, dict(loss=loss, accuracy=accuracy, nonfinite=nonfinite)
+
+    def _evaluation_step(self, state, batch, importance, *, final_only=False):
+        """Adaptation and target evaluation at first order; the BN state
+        is discarded (``maml.py:998-1019``)."""
+        cfg = self.cfg
+        loss, aux = self._meta_loss(
+            {"theta": state.theta, "lslr": state.lslr}, state.bn_state, batch,
+            importance, cfg.number_of_evaluation_steps_per_iter, False,
+            None if final_only else self.serve_adapt_steps - 1, final_only,
+            outer_grad=False,
+        )
+        metrics = dict(loss=loss.detach(), accuracy=aux["accuracy"].mean())
+        return metrics, aux["logits"]
+
+    # ------------------------------------------------------------------
+    # Reference trainer contract
+    # ------------------------------------------------------------------
+
+    def _use_second_order(self, epoch: int) -> bool:
+        return self.cfg.second_order and epoch > self.cfg.first_order_to_second_order_epoch
+
+    def _train_importance(self, epoch: int) -> np.ndarray:
+        cfg = self.cfg
+        n = cfg.number_of_training_steps_per_iter
+        if cfg.use_multi_step_loss_optimization and epoch < cfg.multi_step_loss_num_epochs:
+            return per_step_loss_importance(epoch, n, cfg.multi_step_loss_num_epochs)
+        return final_step_importance(n)
+
+    def _eval_importance(self) -> np.ndarray:
+        # Only the target loss at the training final-step index counts.
+        n_eval = self.cfg.number_of_evaluation_steps_per_iter
+        return final_step_importance(n_eval, self.serve_adapt_steps - 1)
+
+    def _epoch_lr(self, epoch: int) -> float:
+        cfg = self.cfg
+        return cosine_epoch_lr(
+            epoch, cfg.meta_learning_rate, cfg.min_learning_rate, cfg.total_epochs
+        )
+
+    def _device_batch(self, state, data_batch):
+        """``prepare_batch`` on the host, then onto the state's device."""
+        device = tree_leaves(state.theta)[0].device
+        return tuple(
+            torch.from_numpy(a).to(device)
+            for a in prepare_batch(data_batch, codec=self.cfg.wire_codec)
+        )
+
+    def _importance(self, state, weights: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(weights).to(tree_leaves(state.theta)[0].device)
+
+    def run_train_iter(self, state: TrainState, data_batch, epoch):
+        """One meta-update on a ``(x_support, x_target, y_support,
+        y_target)`` numpy episode batch of shape ``(B, N, K, C, H, W)`` /
+        ``(B, N, K)``. Returns ``(new_state, losses)``: ``loss``,
+        ``accuracy`` and ``nonfinite`` as device scalars (no host sync),
+        the MSL importance vector and the learning rate as floats
+        (``maml.py:1047-1086``)."""
+        epoch = int(epoch)
+        self.current_epoch = epoch
+        cfg = self.cfg
+        batch = self._device_batch(state, data_batch)
+        importance = self._importance(state, self._train_importance(epoch))
+        lr = self._epoch_lr(epoch)
+        state = state._replace(opt_state=set_injected_lr(state.opt_state, lr))
+        # Past the MSL horizon the importance is one-hot on the last step:
+        # only that step's target pass runs.
+        final_only = not (
+            cfg.use_multi_step_loss_optimization
+            and epoch < cfg.multi_step_loss_num_epochs
+        )
+        new_state, metrics = self._train_step(
+            state, batch, importance,
+            second_order=self._use_second_order(epoch), final_only=final_only,
+        )
+        losses = dict(metrics)
+        msl_vector = per_step_loss_importance(
+            epoch, cfg.number_of_training_steps_per_iter,
+            cfg.multi_step_loss_num_epochs,
+        )
+        for i, v in enumerate(msl_vector):
+            losses[f"loss_importance_vector_{i}"] = float(v)
+        losses["learning_rate"] = lr
+        return new_state, losses
+
+    def run_validation_iter(self, state: TrainState, data_batch):
+        """Evaluation episode batch -> ``(state, losses, logits (B, Q,
+        classes))``; the state is returned unchanged
+        (``maml.py:1088-1119``)."""
+        cfg = self.cfg
+        batch = self._device_batch(state, data_batch)
+        final_only = (
+            cfg.number_of_evaluation_steps_per_iter
+            <= cfg.number_of_training_steps_per_iter
+        )
+        metrics, logits = self._evaluation_step(
+            state, batch, self._importance(state, self._eval_importance()),
+            final_only=final_only,
+        )
+        return state, metrics, logits
+
+    # ------------------------------------------------------------------
+    # Serving
+    # ------------------------------------------------------------------
 
     def _fused(self) -> str:
         return "vjp" if self.cfg.backbone.use_pallas_fused_norm else "off"

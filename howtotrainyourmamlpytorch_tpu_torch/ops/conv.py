@@ -1,7 +1,7 @@
 """2D convolution, NCHW/OIHW (``howtotrainyourmamlpytorch_tpu/ops/conv.py``;
 the JAX package's NHWC layout switch is a TPU experiment and is not
 ported). cuDNN on the card, with TF32 off and deterministic algorithms on
-the serve path (``utils/platform.set_serve_numerics``)."""
+the serve and train paths (``utils/platform.set_f32_numerics``)."""
 
 from __future__ import annotations
 

@@ -1,23 +1,26 @@
 """Fused batch norm (batch statistics) + LeakyReLU: Hopper kernels, their
 plain PyTorch version, and the autograd Function that joins them.
 
-This replaces ``fused_bn_leaky_relu`` of the JAX package
-(``howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py:555-598``), a
-``custom_vjp`` whose forward and backward are Pallas kernels (#1-6 of the
-kernel table in PERF.md). On Hopper the six kernel bodies become four CUDA
-kernels in ``csrc/fused_norm.cu``:
+This replaces the three ops of the JAX package's
+``howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py``, whose nine
+Pallas kernel bodies (the kernel table in PERF.md) become five CUDA kernels
+in ``csrc/fused_norm.cu``:
 
 =====================  ==========================================  =========
 kernel                 replaces (pallas_fused_norm.py)             bytes
 =====================  ==========================================  =========
 ``bn_stats``           ``_fwd_kernel`` stats half (:93),           4·R·C
-                       ``_stats_block_kernel`` (:183)
+                       ``_stats_block_kernel`` (:183),
+                       ``_fwd_pool_kernel`` stats half (:147),
+                       ``_stats_pool_block_kernel`` (:248)
 ``bn_act_apply``       ``_fwd_kernel`` apply half (:93),           8·R·C
                        ``_apply_block_kernel`` (:194)
 ``bn_act_bwd_reduce``  ``_bwd_kernel`` reduce half (:113),         8·R·C
                        ``_bwd_stats_block_kernel`` (:206)
 ``bn_act_bwd_apply``   ``_bwd_kernel`` apply half (:113),          12·R·C
                        ``_bwd_apply_block_kernel`` (:226)
+``bn_act_pool_apply``  ``_fwd_pool_kernel`` apply half (:147),     5·R·C
+                       ``_apply_pool_block_kernel`` (:267)
 =====================  ==========================================  =========
 
 R = N·H·W, float32. Each kernel streams its tensors once at a few flops per
@@ -27,11 +30,26 @@ design does about both, how its reductions stay deterministic (no float
 atomics: per-channel partials and a fixed-order second pass), and which
 variance formula it uses (a shifted single pass).
 
-``fused_bn_leaky_relu`` is the entry point. For a CPU tensor it runs the
-plain version (torch ops, differentiated by autograd); for a CUDA tensor it
-runs ``FusedBNLeakyReLU`` (the kernels) or raises. There is no fallback
-from one to the other. Each kernel wrapper counts its launches in
-``launch_counts``.
+Three entry points, one per JAX op:
+
+- ``fused_bn_leaky_relu`` (``custom_vjp``, :555): one reverse level, the
+  eval path. A CPU tensor runs the plain version differentiated by
+  autograd; a CUDA tensor runs ``FusedBNLeakyReLU`` (K1 + K2 forward, K3 +
+  K4 backward).
+- ``fused_bn_leaky_relu_ho`` (recursive ``custom_jvp``, :633): any order,
+  the train path. ``FusedBNLeakyReLUHO`` runs K1 + K2 forward; its backward
+  is differentiable torch ops, as the JAX op's tangents are lax.
+- ``fused_bn_leaky_relu_pool`` (``custom_jvp``, :666): the same with the
+  2x2 max pool fused in, K1 + K5 forward (``FusedBNLeakyReLUPool``).
+
+The two any-order Functions save their ``mean``/``var`` outputs and read
+them in the backward, so a second differentiation routes the statistics'
+cotangents back through the same backward: the torch form of the JAX op's
+recursion (its primal re-enters the op, :652). For a CPU tensor they run
+the plain bodies in place of the kernels, so the CPU tests exercise their
+autograd structure; any other device than the CPU or CUDA raises. There is
+no fallback from one to the other. Each kernel wrapper counts its launches
+in ``launch_counts``.
 
 The library is built with ``nvcc`` on first use into ``_build/`` next to the
 package (listed in ``.gitignore``), keyed by a hash of the source and the
@@ -55,7 +73,10 @@ from torch.autograd.function import once_differentiable
 EPS = 1e-5
 SLOPE = 0.01
 
-KERNELS = ("bn_stats", "bn_act_apply", "bn_act_bwd_reduce", "bn_act_bwd_apply")
+KERNELS = (
+    "bn_stats", "bn_act_apply", "bn_act_bwd_reduce", "bn_act_bwd_apply",
+    "bn_act_pool_apply",
+)
 
 #: Launches per kernel since the last ``reset_launch_counts``. Only the
 #: kernel wrappers below add to it, once per launch of their C entry.
@@ -123,6 +144,22 @@ def plain_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta, eps=EPS,
     return b(inv) * (
         dpre * ga - inv_n * ga * b(dbeta) - xhat * inv_n * ga * b(dgamma)
     )
+
+
+def _pool_views(x):
+    """The four strided views partitioning the 2x2/2 windows, in the JAX
+    op's order (``pallas_fused_norm.py:540-547``)."""
+    return (
+        x[:, :, 0::2, 0::2], x[:, :, 0::2, 1::2],
+        x[:, :, 1::2, 0::2], x[:, :, 1::2, 1::2],
+    )
+
+
+def plain_pool_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
+    """``plain_apply`` followed by the 2x2/2 max pool, as the max over the
+    four views: ``(N, C, H/2, W/2)``."""
+    views = _pool_views(plain_apply(x, mean, var, gamma, beta, eps, slope))
+    return functools.reduce(torch.maximum, views)
 
 
 def fused_bn_leaky_relu_reference(x, gamma, beta, eps=EPS, slope=SLOPE):
@@ -193,6 +230,7 @@ def _load():
             "bn_act_apply": [p, p, p, p, p, p, i, i, i, f, f, i, p],
             "bn_act_bwd_reduce": [p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
             "bn_act_bwd_apply": [p, p, p, p, p, p, p, p, p, i, i, i, f, f, i, p],
+            "bn_act_pool_apply": [p, p, p, p, p, p, i, i, i, i, f, f, i, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -334,6 +372,31 @@ def bn_act_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta, eps=EPS,
     return dx
 
 
+def _check_even(x):
+    h, w = x.shape[2:]
+    if h % 2 or w % 2:
+        raise ValueError(
+            f"the pooled fused norm needs even H, W (got {h}x{w}); use "
+            "fused_bn_leaky_relu_ho + max_pool2d for odd stages"
+        )
+
+
+def bn_act_pool_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
+    """Kernel K5: ``plain_pool_apply`` on the card -> ``(N, C, H/2, W/2)``."""
+    _check(x, mean, var, gamma, beta)
+    _check_even(x)
+    if x.data_ptr() % 8:
+        raise ValueError("bn_act_pool_apply reads float2 pairs: x must be "
+                         "8-byte aligned")
+    n, c, h, w = x.shape
+    y = torch.empty((n, c, h // 2, w // 2), device=x.device, dtype=x.dtype)
+    with torch.cuda.device(x.device):
+        _launch("bn_act_pool_apply", _ptr(x), _ptr(mean), _ptr(var),
+                _ptr(gamma), _ptr(beta), _ptr(y), n, c, h, w, eps, slope,
+                _elementwise_blocks(y), _stream(x))
+    return y
+
+
 class FusedBNLeakyReLU(torch.autograd.Function):
     """K1 + K2 forward, K3 + K4 backward. One level of reverse mode, the
     contract of the JAX ``custom_vjp``; the batch statistics are outputs
@@ -371,3 +434,126 @@ def fused_bn_leaky_relu(x, gamma, beta, eps=EPS, slope=SLOPE):
     if x.device.type == "cpu":
         return fused_bn_leaky_relu_reference(x, gamma, beta, eps, slope)
     return FusedBNLeakyReLU.apply(x, gamma, beta, eps, slope)
+
+
+# ---------------------------------------------------------------------------
+# Any-order Functions (the train path)
+# ---------------------------------------------------------------------------
+
+
+def _stats(x):
+    """K1 on the card; the plain statistics for a CPU tensor only."""
+    return plain_stats(x) if x.device.type == "cpu" else bn_stats(x)
+
+
+def _first_max_route(y, gyp):
+    """Sends each pooled cotangent to the first maximum of its 2x2 window
+    of ``y``, in the view order of :func:`_pool_views` (row-major), and
+    zero elsewhere: the JAX op's tangent selection (:712-718) transposed."""
+    n, c, h, w = y.shape
+    windows = (
+        y.reshape(n, c, h // 2, 2, w // 2, 2).permute(0, 1, 2, 4, 3, 5)
+        .reshape(n, c, h // 2, w // 2, 4)
+    )
+    # argmax returns the first maximal index. (A cumsum over the 4-wide
+    # axis took 60 ms of device time per flagship train step on an H100.)
+    first = windows.argmax(dim=-1, keepdim=True)
+    lanes = torch.arange(4, device=y.device)
+    g = torch.where(lanes == first, gyp[..., None], 0.0)
+    return (
+        g.reshape(n, c, h // 2, w // 2, 2, 2).permute(0, 1, 2, 4, 3, 5)
+        .reshape(n, c, h, w)
+    )
+
+
+def _norm_act_vjp(x, gamma, beta, mean, var, gy, gmean, gvar, eps, slope,
+                  pooled):
+    """``(dx, dgamma, dbeta)`` of ``(y, mean, var)`` in differentiable torch
+    ops: the transpose of the JAX op's tangents (``_stat_tangents`` and
+    ``_norm_act_tangent``, :606-630). The LeakyReLU mask (and, when
+    ``pooled``, each window's winner) comes from the pre-activation
+    recomputed here, as JAX takes it from its lax recomputation.
+
+    ``mean``/``var`` are the Function's own outputs: differentiating this
+    again sends their cotangents back through the Function, which is how
+    the second derivative sees the statistics' dependence on ``x``."""
+    b = lambda a: a[None, :, None, None]  # noqa: E731
+    dims = (0, 2, 3)
+    n = x.numel() // x.shape[1]
+    xc = x - b(mean)
+    inv = torch.rsqrt(var + eps)
+    xhat = xc * b(inv)
+    pre = xhat * b(gamma) + b(beta)
+    pos = pre >= 0
+    if pooled:
+        gy = _first_max_route(torch.where(pos, pre, slope * pre).detach(), gy)
+    dpre = torch.where(pos, gy, slope * gy)
+    dgamma = (dpre * xhat).sum(dims)
+    dbeta = dpre.sum(dims)
+    dxhat = dpre * b(gamma)
+    # Cotangents of the statistics: from y through x-hat, plus their own.
+    gmean = gmean - dxhat.sum(dims) * inv
+    gvar = gvar - 0.5 * inv * inv * inv * (dxhat * xc).sum(dims)
+    dx = dxhat * b(inv) + b(gmean / n) + xc * b(gvar * (2.0 / n))
+    return dx, dgamma, dbeta
+
+
+class FusedBNLeakyReLUHO(torch.autograd.Function):
+    """K1 + K2 forward, differentiable to any order: the counterpart of
+    ``fused_bn_leaky_relu_ho`` (``pallas_fused_norm.py:633-658``). ``mean``
+    and ``var`` are differentiable outputs, as they carry tangents there."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, slope):
+        mean, var = _stats(x)
+        if x.device.type == "cpu":
+            y = plain_apply(x, mean, var, gamma, beta, eps, slope)
+        else:
+            y = bn_act_apply(x, mean, var, gamma, beta, eps, slope)
+        ctx.save_for_backward(x, gamma, beta, mean, var)
+        ctx.eps, ctx.slope = eps, slope
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        x, gamma, beta, mean, var = ctx.saved_tensors
+        return (*_norm_act_vjp(x, gamma, beta, mean, var, gy, gmean, gvar,
+                               ctx.eps, ctx.slope, pooled=False), None, None)
+
+
+class FusedBNLeakyReLUPool(torch.autograd.Function):
+    """K1 over the whole pre-pool ``x`` + K5 forward, differentiable to any
+    order: the counterpart of ``fused_bn_leaky_relu_pool``
+    (``pallas_fused_norm.py:666-719``). H and W must be even."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, slope):
+        _check_even(x)
+        mean, var = _stats(x)
+        if x.device.type == "cpu":
+            y = plain_pool_apply(x, mean, var, gamma, beta, eps, slope)
+        else:
+            y = bn_act_pool_apply(x, mean, var, gamma, beta, eps, slope)
+        ctx.save_for_backward(x, gamma, beta, mean, var)
+        ctx.eps, ctx.slope = eps, slope
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, gmean, gvar):
+        x, gamma, beta, mean, var = ctx.saved_tensors
+        return (*_norm_act_vjp(x, gamma, beta, mean, var, gy, gmean, gvar,
+                               ctx.eps, ctx.slope, pooled=True), None, None)
+
+
+def fused_bn_leaky_relu_ho(x, gamma, beta, eps=EPS, slope=SLOPE):
+    """``fused_bn_leaky_relu``'s any-order twin: the same ``(y, mean,
+    var)``, differentiable under ``create_graph=True`` and again."""
+    return FusedBNLeakyReLUHO.apply(x, gamma, beta, eps, slope)
+
+
+def fused_bn_leaky_relu_pool(x, gamma, beta, eps=EPS, slope=SLOPE):
+    """``max_pool2d(leaky_relu(bn(x) * gamma + beta), 2, 2)`` and the batch
+    statistics of the whole ``x``; any order. Needs even H and W: floor-mode
+    pooling drops an odd trailing row or column that the statistics still
+    cover, so odd stages take the ``_ho`` op and a separate pool."""
+    return FusedBNLeakyReLUPool.apply(x, gamma, beta, eps, slope)

@@ -10,7 +10,7 @@ Adapted fast weights are cached by support-set digest.
 
 The engine runs on the card unless built with ``device="cpu"``, and serves
 in float32 with TF32 off and deterministic cuDNN algorithms
-(``utils/platform.set_serve_numerics``). Stage timings and
+(``utils/platform.set_f32_numerics``). Stage timings and
 counts go to the plain ``ServeStats`` on ``engine.stats``. Geometry
 coarsening, the durable tier, the batcher, the HTTP API, metrics and
 telemetry come with the later serving slice.
@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..models.common import encode_images
-from ..utils.platform import resolve_device, set_serve_numerics
+from ..utils.platform import resolve_device, set_f32_numerics
 from ..utils.trees import tree_map
 from .cache import AdaptedParamsCache, support_digest
 
@@ -109,7 +109,7 @@ class ServingEngine:
         self.learner = learner
         self.config = config or ServeConfig()
         self.device = resolve_device(device)
-        set_serve_numerics()
+        set_f32_numerics()
         self.istate = tree_map(
             lambda a: a.to(self.device), learner.inference_state(state)
         )

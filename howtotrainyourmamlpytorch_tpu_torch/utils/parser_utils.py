@@ -51,6 +51,8 @@ DEFAULTS = {
     "on_nonfinite": "halt",
     "compute_dtype": "auto",
     "transfer_dtype": "float32",
+    "task_chunk": 0,
+    "device_augment": "False",
 }
 
 # data/augment.py's ImageNet statistics, as float32 values.
@@ -100,6 +102,19 @@ def wire_codec_for(args: dict) -> WireCodec | None:
             255.0,
             tuple(float(v) for v in args["classification_mean"]),
             tuple(float(v) for v in args["classification_std"]),
+        )
+    return None
+
+
+def device_augment_for(args: dict):
+    """``None``: on-device augmentation is not ported. The JAX parser
+    ignores the flag on ImageNet, so only omniglot and cifar raise."""
+    if not bool(args.get("device_augment", False)):
+        return None
+    name = args["dataset_name"].lower()
+    if "omniglot" in name or "cifar10" in name or "cifar100" in name:
+        raise NotImplementedError(
+            "on-device augmentation (device_augment) is ROADMAP item A7"
         )
     return None
 
@@ -177,7 +192,9 @@ def args_to_maml_config(args: dict) -> MAMLConfig:
         learnable_bn_beta=bool(args["learnable_bn_beta"]),
         skip_nonfinite_updates=str(args["on_nonfinite"]).lower() == "skip",
         compute_dtype=resolve_compute_dtype(args["compute_dtype"]),
+        task_chunk=int(args.get("task_chunk", 0) or 0),
         wire_codec=wire_codec_for(args),
+        device_augment=device_augment_for(args),
     )
 
 

@@ -21,13 +21,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def set_serve_numerics() -> None:
-    """Full float32 and reproducible results for cuDNN and cuBLAS.
+def set_f32_numerics() -> None:
+    """Full float32 and reproducible results for cuDNN and cuBLAS, on the
+    serve and the train path.
 
     cuDNN runs float32 convolutions in TF32 by default, which keeps about
-    three decimal digits; the serve path is held to the JAX package in
-    float32. cuDNN may also pick algorithms that add in a different order on
-    every run, so the same episode could be served other logits; with
+    three decimal digits; the port is held to the JAX package in float32.
+    cuDNN may also pick algorithms that add in a different order on every
+    run, so the same episode could be served other logits; with
     deterministic algorithms (and the fused-norm kernels' fixed-order sums)
     it gets the same logits every time (``tools/port_serve_determinism.py``
     measures both)."""

@@ -33,6 +33,14 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Tree, path: tuple = ()) -> Tree:
+    """``fn(path, leaf)`` over the dict leaves of ``tree``; ``path`` is the
+    tuple of keys down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
 def tree_leaves(tree: Tree) -> list:
     """The non-``None`` leaves, dicts in key-insertion order."""
     if isinstance(tree, (dict, tuple)):

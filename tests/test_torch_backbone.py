@@ -1,8 +1,10 @@
 """The port's VGG backbone against the JAX package's, and its folded task
 axis against a loop over tasks (CPU, float32).
 
-The JAX backbone with ``fused="vjp"`` runs the Pallas kernels in interpret
-mode; the port's runs the plain version of its Hopper kernels on the CPU.
+The JAX backbone with ``fused="vjp"`` or ``"jvp"`` (and, with
+``fused_norm_pool``, the pooled op on even stages) runs the Pallas kernels
+in interpret mode; the port's runs the plain version of its Hopper kernels
+on the CPU.
 """
 
 import dataclasses
@@ -38,6 +40,8 @@ SMALL = dict(num_stages=2, num_filters=8, per_step_bn_statistics=True,
 # 28 -> 14 -> 7 -> 3: the flagship's stage shapes, odd ones included.
 ODD = dict(num_stages=4, num_filters=4, per_step_bn_statistics=True,
            num_steps=2, num_classes=5, image_height=28, image_width=28)
+# The same with the pool fused into the norm on the even stages (28, 14).
+ODD_POOL = dict(ODD, fused_norm_pool=True)
 
 
 def _numpy(tree):
@@ -84,8 +88,10 @@ def _setup(kw, rng, n=5):
     return jnet, params, bn, net, x, y
 
 
-@pytest.mark.parametrize("fused", ["off", "vjp"])
-@pytest.mark.parametrize("kw", [SMALL, ODD], ids=["small", "odd-stages"])
+@pytest.mark.parametrize("fused", ["off", "vjp", "jvp"])
+@pytest.mark.parametrize(
+    "kw", [SMALL, ODD, ODD_POOL], ids=["small", "odd-stages", "odd-stages-pool"]
+)
 def test_apply_and_inner_grad_match_jax(kw, fused, rng):
     jnet, jparams, jbn, net, x, y = _setup(kw, rng)
     params = tree_from_numpy(_numpy(jparams), "cpu")
@@ -118,12 +124,12 @@ def test_apply_and_inner_grad_match_jax(kw, fused, rng):
                 )
 
 
-@pytest.mark.parametrize("fused", ["off", "vjp"])
+@pytest.mark.parametrize("fused", ["off", "vjp", "jvp"])
 def test_folded_tasks_equal_per_task_loop(fused, rng):
     """Three tasks with their own weights and images, folded into channels,
     give each task's own logits, running stats and inner gradient: the
     batch statistics never span tasks."""
-    _, jparams, jbn, net, _, _ = _setup(SMALL, rng)
+    _, jparams, jbn, net, _, _ = _setup(dict(SMALL, fused_norm_pool=True), rng)
     tasks, n = 3, 5
     base = tree_from_numpy(_numpy(jparams), "cpu")
     params = tree_map(
@@ -158,14 +164,16 @@ def test_folded_tasks_equal_per_task_loop(fused, rng):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="layer_norm"):
         VGGBackbone(BackboneConfig(norm_layer="layer_norm"))
-    with pytest.raises(NotImplementedError, match="pooled"):
-        VGGBackbone(BackboneConfig(fused_norm_pool=True))
-    net = VGGBackbone(BackboneConfig(**SMALL))
+    with pytest.raises(NotImplementedError, match="A3"):
+        VGGBackbone(BackboneConfig(block_order="norm_conv"))
+    with pytest.raises(NotImplementedError, match="A8"):
+        VGGBackbone(BackboneConfig(lane_pad_channels=True))
+    net = VGGBackbone(BackboneConfig(**SMALL, fused_norm_pool=True))
     params, _ = net.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="second-order"):
+    with pytest.raises(ValueError, match="sideways"):
         net.apply(
             _with_task_axis(params), None, torch.zeros(1, 2, 1, 8, 8), 0,
-            fused="jvp",
+            fused="sideways",
         )
 
 

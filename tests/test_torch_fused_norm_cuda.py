@@ -94,11 +94,65 @@ def test_function_matches_plain_and_is_deterministic(cuda):
     _close(dx, tfn.plain_bwd_apply(x, g, mean, var, gamma, beta, p_dgamma, p_dbeta))
 
 
+@pytest.mark.parametrize("shape", [(5, 512, 28, 28), (5, 512, 14, 14), (3, 5, 6, 10)])
+def test_pool_kernel_matches_plain(shape, cuda):
+    x, gamma, beta, _ = _inputs(shape, cuda)
+    mean, var = tfn.plain_stats(x)
+    got = tfn.bn_act_pool_apply(x, mean, var, gamma, beta)
+    torch.cuda.synchronize()
+    _close(got, tfn.plain_pool_apply(x, mean, var, gamma, beta))
+
+
+def _plain_op(x, gamma, beta, pool, stats):
+    """The plain composition, differentiated by autograd, with the values
+    of ``stats`` (the kernels') in place of its own statistics but their
+    gradient: both versions then take the same LeakyReLU branch and the
+    same window maximum where two values lie within rounding."""
+    mean, var = tfn.plain_stats(x)
+    mean = mean + (stats[0] - mean).detach()
+    var = var + (stats[1] - var).detach()
+    y = tfn.plain_apply(x, mean, var, gamma, beta)
+    return (torch.nn.functional.max_pool2d(y, 2, 2) if pool else y), mean, var
+
+
+@pytest.mark.parametrize(
+    "pool,shape", [(False, (5, 512, 7, 7)), (True, (5, 512, 28, 28))],
+    ids=["ho", "pool"],
+)
+def test_any_order_functions_match_plain(pool, shape, cuda):
+    """Forward, first-order grads of a loss over y, mean and var, and the
+    reverse-over-reverse composition, against the plain composition."""
+    op = tfn.fused_bn_leaky_relu_pool if pool else tfn.fused_bn_leaky_relu_ho
+    x, gamma, beta, _ = _inputs(shape, cuda)
+    stats = tfn.bn_stats(x)
+    t = torch.randn_like(op(x, gamma, beta)[0])
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (x, gamma, beta)]
+        y, mean, var = fn(*leaves)
+        first = torch.autograd.grad(
+            (y * t).sum() + mean.sum() + var.sum(), leaves
+        )
+        xx, gg = (a.clone().requires_grad_() for a in (x, gamma))
+        (g,) = torch.autograd.grad((fn(xx, gg, beta)[0] ** 2).sum(), gg,
+                                   create_graph=True)
+        (second,) = torch.autograd.grad(fn(xx, gg - 0.1 * g, beta)[0].sum(), xx)
+        return (y, mean, var, *first, second)
+
+    got = grads(op)
+    for a, b in zip(got, grads(lambda *a: _plain_op(*a, pool, stats))):
+        _close(a.detach(), b.detach())
+    assert torch.equal(got[-1], grads(op)[-1])  # deterministic
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         tfn.bn_stats(torch.zeros((2, 3, 4, 4), device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="contiguous"):
         tfn.bn_stats(torch.zeros((2, 4, 4, 3), device=cuda).permute(0, 3, 1, 2))
+    v = torch.ones(3, device=cuda)
+    with pytest.raises(ValueError, match="even"):
+        tfn.bn_act_pool_apply(torch.zeros((2, 3, 5, 4), device=cuda), v, v, v, v)
 
 
 def test_served_episodes_run_the_kernels(cuda):
@@ -127,8 +181,41 @@ def test_served_episodes_run_the_kernels(cuda):
     )
     tfn.reset_launch_counts()
     got = engine.dispatch([engine.prepare_episode(*e) for e in raw])
-    assert all(tfn.launch_counts[k] > 0 for k in tfn.KERNELS), tfn.launch_counts
+    assert all(tfn.launch_counts[k] > 0 for k in tfn.KERNELS[:4]), tfn.launch_counts
     want = plain.dispatch([plain.prepare_episode(*e) for e in raw])
     for a, b in zip(got, want):
         assert np.isfinite(a).all()
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_train_step_runs_the_kernels(cuda):
+    """A second-order meta-step with the any-order op and the pooled op
+    launches K1, K2 and K5 and gives the plain-norm learner's loss."""
+    cfg = MAMLConfig(
+        backbone=BackboneConfig(
+            num_stages=4, num_filters=8, per_step_bn_statistics=True,
+            num_steps=2, num_classes=5, fused_norm_train=True,
+            fused_norm_pool=True,
+        ),
+        number_of_training_steps_per_iter=2,
+        number_of_evaluation_steps_per_iter=2,
+        remat_inner_steps=False,
+    )
+    plain_cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, fused_norm_train=False, fused_norm_pool=False
+    ))
+    learner = MAMLFewShotLearner(cfg)
+    state = learner.init_state(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    xs = (rng.rand(2, 5, 1, 1, 28, 28) > 0.8).astype(np.float32)
+    ys = np.tile(np.arange(5)[None, :, None], (2, 1, 1))
+    batch = (xs, xs.copy(), ys, ys.copy())
+    tfn.reset_launch_counts()
+    _, losses = learner.run_train_iter(state, batch, epoch=0)
+    counts = dict(tfn.launch_counts)
+    # 2 steps x (support + target) x 4 stages; stages 0-1 pool (28, 14).
+    assert counts["bn_stats"] == 16, counts
+    assert counts["bn_act_pool_apply"] == 8 and counts["bn_act_apply"] == 8, counts
+    _, plain = MAMLFewShotLearner(plain_cfg).run_train_iter(state, batch, epoch=0)
+    np.testing.assert_allclose(float(losses["loss"]), float(plain["loss"]),
+                               rtol=1e-4)

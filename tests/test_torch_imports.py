@@ -48,8 +48,27 @@ def test_importing_every_port_module_loads_no_jax():
     assert "LEAKED []" in proc.stdout, proc.stdout
 
 
+def test_train_slice_modules_are_in_the_import_check():
+    """The modules of the train slice are among those the import check
+    walks, and the entry points it adds exist."""
+    from howtotrainyourmamlpytorch_tpu_torch.models import TrainState
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_norm
+
+    modules = _port_modules()
+    for name in ("models.maml", "models.common", "ops.fused_norm", "convert",
+                 "inner_loop"):
+        assert f"{port.__name__}.{name}" in modules
+    assert {"fused_bn_leaky_relu_ho", "fused_bn_leaky_relu_pool",
+            "bn_act_pool_apply", "plain_pool_apply"} <= set(dir(fused_norm))
+    assert TrainState._fields[-1] == "iteration"
+
+
 def test_no_port_source_imports_the_jax_package():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tools", f)
+        for f in os.listdir(os.path.join(REPO, "tools"))
+        if f.startswith("port_") and f.endswith(".py")
+    ]
     for root, _, files in os.walk(PORT_DIR):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     offenders = []
