@@ -492,7 +492,10 @@ def train_phase(torch, fn):
     from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
         load_maml_config,
     )
-    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import (
+        tree_leaves,
+        tree_map_with_path,
+    )
 
     cfg = load_maml_config(FLAGSHIP, fused_norm_train=True, fused_norm_pool=True)
     cfg = dataclasses.replace(cfg, remat_inner_steps=False)
@@ -542,7 +545,9 @@ def train_phase(torch, fn):
     if loss_gap > TRAIN_LOSS_RTOL:
         fail(f"first loss {float(fused_loss)} vs plain {float(plain_loss)}")
     worst, routed = 0.0, []
-    names = ["/".join(p) for p in _paths(plain_grads)]
+    names = tree_leaves(tree_map_with_path(
+        lambda p, a: None if a is None else "/".join(p), plain_grads
+    ))
     for name, a, b in zip(names, tree_leaves(fused_grads), tree_leaves(plain_grads)):
         scale = float(b.abs().max())
         gap = float((a - b).abs().max())
@@ -579,13 +584,6 @@ def train_phase(torch, fn):
         "validation_loss": float(vm["loss"]),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-
-
-def _paths(tree, prefix=()):
-    """Key paths of the non-None leaves, in ``tree_leaves`` order."""
-    if isinstance(tree, dict):
-        return [p for k, v in tree.items() for p in _paths(v, prefix + (k,))]
-    return [] if tree is None else [prefix]
 
 
 def main() -> int:

@@ -316,11 +316,10 @@ class MAMLFewShotLearner:
         # The any-order op on train paths (even first order differentiates
         # through the fast weights), the one-level pair on eval (JAX
         # maml.py:710-724).
-        bb = self.backbone.cfg
         if outer_grad:
-            fused = "jvp" if bb.fused_norm_train else "off"
+            fused = "jvp" if self.backbone.cfg.fused_norm_train else "off"
         else:
-            fused = "vjp" if bb.use_pallas_fused_norm else "off"
+            fused = self._fused()
         bn = tree_map(lambda a: a.expand(tasks, *a.shape), bn_state)
 
         def forward(leaves, bn, x, step):
@@ -532,6 +531,8 @@ class MAMLFewShotLearner:
     # ------------------------------------------------------------------
 
     def _fused(self) -> str:
+        """The fused-norm variant of the paths without an outer gradient
+        (serve and eval): the one-level kernel pair or none."""
         return "vjp" if self.cfg.backbone.use_pallas_fused_norm else "off"
 
     def serve_adapt(self, istate: MAMLInferenceState, x_support, y_support):

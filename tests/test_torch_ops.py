@@ -161,6 +161,36 @@ def test_lslr_matches_jax(rng):
     close(ours["a"]["w"], theirs["a"]["w"], rtol=0, atol=0)
 
 
+def test_sgd_update_matches_jax(rng):
+    w, g = rng.randn(3, 4).astype(np.float32), rng.randn(3, 4).astype(np.float32)
+    ours = t_inner.sgd_update({"a": {"w": T(w)}, "b": None},
+                              {"a": {"w": T(g)}, "b": None}, 0.3)
+    theirs = j_inner.sgd_update({"a": {"w": jnp.asarray(w)}, "b": None},
+                                {"a": {"w": jnp.asarray(g)}, "b": None}, 0.3)
+    assert ours["b"] is None
+    close(ours["a"]["w"], theirs["a"]["w"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("codec", [None, (1.0, None, None)], ids=["f32", "uint8"])
+def test_prepare_batch_matches_jax(codec, rng):
+    """Shots flattened into the class axis, labels int32, images float32 or
+    on the uint8 wire: the same arrays as the JAX package's."""
+    xs = (rng.rand(2, 5, 3, 1, 4, 4) > 0.5).astype(np.float32)
+    xt = (rng.rand(2, 5, 2, 1, 4, 4) > 0.5).astype(np.float32)
+    ys = np.tile(np.arange(5)[None, :, None], (2, 1, 3))
+    yt = np.tile(np.arange(5)[None, :, None], (2, 1, 2))
+    tc = None if codec is None else t_common.WireCodec(*codec)
+    jc = None if codec is None else j_common.WireCodec(*codec)
+    ours = t_common.prepare_batch((xs, xt, ys, yt), tc)
+    theirs = j_common.prepare_batch((xs, xt, ys, yt), jc)
+    assert len(ours) == len(theirs) == 4
+    for a, b in zip(ours, theirs):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(NotImplementedError, match="A7"):
+        t_common.prepare_batch((xs, xt, ys, yt, np.zeros((2, 5), np.int32)))
+
+
 def test_partition_merge_match_jax():
     tree = {"conv0": {"conv": {"weight": 1.0, "bias": 2.0},
                       "norm": {"gamma": 3.0, "beta": 4.0}},

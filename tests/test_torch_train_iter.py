@@ -47,9 +47,22 @@ def test_run_train_iter_matches_jax(fused, epoch, rng):
     Adam moves them by up to the learning rate per step on rounding noise
     in either framework: they are held to 2 * iterations * meta_lr; the
     rest to the gradient bar."""
-    jcfg = jax_config(fused, first_order_to_second_order_epoch=25 if epoch else -1)
+    _check_trajectory(fused, epoch, second_order=epoch == 0, rng=rng)
+
+
+def test_final_only_second_order_matches_jax(rng):
+    """Past the MSL horizon at second order: the flagship's setting from
+    its epoch 10 on (plain norm; the fused ops' final-only pass is in the
+    first-order case above)."""
+    _check_trajectory(False, 20, second_order=True, rng=rng)
+
+
+def _check_trajectory(fused, epoch, second_order, rng):
+    jcfg = jax_config(
+        fused, first_order_to_second_order_epoch=-1 if second_order else 25
+    )
     jlearner, jstate, learner, state = learner_pair(jcfg)
-    assert learner._use_second_order(epoch) == (epoch == 0)
+    assert learner._use_second_order(epoch) == second_order
     jlosses, losses = [], []
     for _ in range(ITERS):
         batch = episode_batch(rng)
