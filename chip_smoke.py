@@ -8,14 +8,19 @@ Phases, in order; any failure exits non-zero before the result lines:
 1. build   - compiles the Hopper kernels (csrc/fused_norm.cu) with nvcc for
              sm_90a; prints the build seconds and the card's name and power
              limit.
-2. kernels - runs K1-K4 through ``FusedBNLeakyReLU`` at the shapes the
+2. kernels - runs the forward (``bn_stats_act``, and ``bn_stats`` alone)
+             and K3-K4 through ``FusedBNLeakyReLU`` at the shapes the
              flagship serve path gives them (4 tasks x 64 filters folded
              into 256 channels; support N=5 and query N=15 at the 28, 14, 7
              and 3 pixel stages), at those of the train path (8 tasks, 512
-             channels, N=5) and at one north-star shape (25, 96, 84, 84).
-             Holds forward y/mean/var and backward dx/dgamma/dbeta to the
-             plain PyTorch version and times each kernel beside its plain
-             version, its bound and the library yardsticks.
+             channels, N=5) and at the north-star support and target
+             stage-0 shapes (25|75, 96, 84, 84); the forward also on its
+             streamed path, forced, at (25, 96, 84, 84). Holds forward
+             y/mean/var and backward dx/dgamma/dbeta to the plain PyTorch
+             version, the forward's two calls and its two entries' statistics
+             to each other bitwise, and times each kernel beside its plain
+             version, its bound and the library yardsticks, with the
+             forward's launch plan.
    pool    - K5 (``bn_act_pool_apply``) against ``plain_pool_apply`` at the
              train path's pooled stages (5, 512, 28, 28) and (5, 512, 14,
              14) and at the north-star shape; the same timings.
@@ -29,7 +34,9 @@ Phases, in order; any failure exits non-zero before the result lines:
              ServingEngine(meta_batch_size=4) serves 32 binary-image
              episodes of bucket 5x1x15 (one support set repeated, so one is
              a cache hit). The launch counts are zeroed just before and
-             read just after; every kernel must have run. Logits must be
+             read just after; each kernel must have run as often as the
+             path calls it (per dispatch: bn_stats_act 24, K3 20, K4 20,
+             bn_stats 0). Logits must be
              finite, the same when served again, and match a
              use_pallas_fused_norm=False engine on the same state (the
              tolerances below say how).
@@ -38,7 +45,8 @@ Phases, in order; any failure exits non-zero before the result lines:
              seed 104: 10 second-order ``run_train_iter`` at epoch 0 on one
              synthetic binary batch of 8 tasks, 5-way 1-shot, 1 target per
              class, with the launch counts zeroed just before and read
-             just after (K1, K2 and K5 must have run). Losses finite and
+             just after (per iteration bn_stats 20, bn_stats_act 20, K5 20).
+             Losses finite and
              falling; a rerun from the same state bitwise equal; the first
              loss and meta-gradient against a plain-norm learner on the
              same state; one past-horizon iteration's launches; one
@@ -102,28 +110,39 @@ FLAGSHIP_SHAPES = [
 # the support and the target set alike.
 TRAIN_SHAPES = [(5, 512, hw, hw) for hw in (28, 14, 7, 3)]
 NORTH_STAR_SHAPE = (25, 96, 84, 84)
+# The north-star target set: 15 queries x 5 classes, 2 tasks folded.
+NORTH_STAR_TARGET = (75, 96, 84, 84)
+# The forward forced onto its streamed path (no shape of the repo takes it).
+STREAMED_SHAPE = NORTH_STAR_SHAPE
 POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE]
-SERVE_KERNELS = ("bn_stats", "bn_act_apply", "bn_act_bwd_reduce", "bn_act_bwd_apply")
-TRAIN_KERNELS = ("bn_stats", "bn_act_apply", "bn_act_pool_apply")
+FORWARD = ("bn_stats", "bn_stats_act")
+# Launches of each kernel per serve dispatch of 4 episodes (4 stages x (5
+# adapt steps + 1 classify) forwards, 5 x 4 backwards) and per flagship
+# MSL train iteration (5 steps x support and target x 4 stages; stages 0-1
+# pooled).
+SERVE_LAUNCHES = {"bn_stats": 0, "bn_stats_act": 24, "bn_act_bwd_reduce": 20,
+                  "bn_act_bwd_apply": 20, "bn_act_pool_apply": 0}
+TRAIN_LAUNCHES = {"bn_stats": 20, "bn_stats_act": 20, "bn_act_bwd_reduce": 0,
+                  "bn_act_bwd_apply": 0, "bn_act_pool_apply": 20}
 # Flops per input element each kernel does, counted from its source.
 FLOPS_PER_ELEMENT = {
-    "bn_stats": 4, "bn_act_apply": 6, "bn_act_bwd_reduce": 8,
+    "bn_stats": 4, "bn_stats_act": 8, "bn_act_bwd_reduce": 8,
     "bn_act_bwd_apply": 12, "bn_act_pool_apply": 6,
 }
 # Full-size tensors each kernel reads or writes (the pooled output is a
 # quarter of one), and per-channel vectors.
 TENSORS = {
-    "bn_stats": 1, "bn_act_apply": 2, "bn_act_bwd_reduce": 2,
+    "bn_stats": 1, "bn_stats_act": 2, "bn_act_bwd_reduce": 2,
     "bn_act_bwd_apply": 3, "bn_act_pool_apply": 1.25,
 }
 VECTORS = {
-    "bn_stats": 2, "bn_act_apply": 4, "bn_act_bwd_reduce": 6,
+    "bn_stats": 2, "bn_stats_act": 4, "bn_act_bwd_reduce": 6,
     "bn_act_bwd_apply": 6, "bn_act_pool_apply": 4,
 }
 PALLAS = "howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py"
 REPLACES = {
-    "bn_stats": f"{PALLAS}:93,183,147,248",
-    "bn_act_apply": f"{PALLAS}:93,194",
+    "bn_stats": f"{PALLAS}:147,248",
+    "bn_stats_act": f"{PALLAS}:93,183,194",
     "bn_act_bwd_reduce": f"{PALLAS}:113,206",
     "bn_act_bwd_apply": f"{PALLAS}:113,226",
     "bn_act_pool_apply": f"{PALLAS}:147,267",
@@ -200,37 +219,87 @@ def bound_ms(name: str, shape) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_and_time_kernels(torch, fn, shape, gen, reps) -> dict:
-    """K1-K4 through the Function against the plain version, then times."""
-    import torch.nn.functional as F
-
+def _inputs(torch, shape, gen):
     dev = torch.device("cuda")
     x = torch.randn(shape, device=dev, generator=gen)
     c = shape[1]
     gamma = torch.rand(c, device=dev, generator=gen) + 0.5
     beta = 0.1 * torch.randn(c, device=dev, generator=gen)
-    g = torch.randn(shape, device=dev, generator=gen)
+    return x, gamma, beta
 
-    # Through the Function: forward K1+K2, backward K3+K4.
+
+def check_and_time_forward(torch, fn, x, gamma, beta, reps, streamed=False):
+    """``bn_stats_act`` and ``bn_stats`` on ``x`` against the plain version,
+    two calls bitwise equal and both entries' statistics bitwise equal;
+    then times, with the launch plan."""
+    plan = fn.fwd_plan(x, streamed=streamed)
+    y, mean, var = fn.bn_stats_act(x, gamma, beta, plan=plan)
+    again = fn.bn_stats_act(x, gamma, beta, plan=plan)
+    stats = fn.bn_stats(x, plan=plan)
+    torch.cuda.synchronize()
+    shape = tuple(x.shape)
+    if not all(torch.equal(a, b) for a, b in zip((y, mean, var), again)):
+        fail(f"bn_stats_act at {shape} ({plan}) differs between two calls")
+    if not all(torch.equal(a, b) for a, b in zip((mean, var), stats)):
+        fail(f"bn_stats and bn_stats_act statistics differ at {shape} ({plan})")
+    p_mean, p_var = fn.plain_stats(x)
+    p_y = fn.plain_apply(x, p_mean, p_var, gamma, beta)
+    out = {}
+    for name, pairs in (
+        ("bn_stats", [(mean, p_mean), (var, p_var)]),
+        ("bn_stats_act", [(y, p_y), (mean, p_mean), (var, p_var)]),
+    ):
+        errs = [err_ok(a, b) for a, b in pairs]
+        if not all(ok for _, ok in errs):
+            fail(f"{name} at {shape} ({plan}) disagrees with its plain version: "
+                 f"max_abs_err {[e for e, _ in errs]}")
+        out[name] = {"max_abs_err": max(e for e, _ in errs), "plan": plan._asdict()}
+    runs = {
+        "bn_stats": (lambda: fn.bn_stats(x, plan=plan), lambda: fn.plain_stats(x)),
+        "bn_stats_act": (
+            lambda: fn.bn_stats_act(x, gamma, beta, plan=plan),
+            lambda: fn.plain_apply(x, *fn.plain_stats(x), gamma, beta),
+        ),
+    }
+    calls = max(2, reps // 5)
+    for name, (kernel, plain) in runs.items():
+        b, by = bound_ms(name, shape)
+        out[name].update(
+            ms=graph_ms(torch, kernel, calls),
+            plain_ms=graph_ms(torch, plain, calls),
+            eager_ms=cuda_ms(torch, kernel, reps),
+            eager_plain_ms=cuda_ms(torch, plain, reps),
+            bound_ms=b, bound_by=by, library_ms=None,
+        )
+    out["bn_stats"]["library_ms"] = graph_ms(
+        torch, lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0), calls
+    )
+    return out
+
+
+def check_and_time_kernels(torch, fn, shape, gen, reps) -> dict:
+    """The forward (above), then K3-K4 through the Function against the
+    plain version, then times."""
+    import torch.nn.functional as F
+
+    x, gamma, beta = _inputs(torch, shape, gen)
+    g = torch.randn(shape, device=x.device, generator=gen)
+    out = check_and_time_forward(torch, fn, x, gamma, beta, reps)
+
+    # Through the Function: forward bn_stats_act, backward K3+K4.
     xk, gk, bk = (t.clone().requires_grad_() for t in (x, gamma, beta))
     y, mean, var = fn.FusedBNLeakyReLU.apply(xk, gk, bk, fn.EPS, fn.SLOPE)
     dx, dgamma, dbeta = torch.autograd.grad(y, (xk, gk, bk), g)
     torch.cuda.synchronize()
-    # Plain version: its own statistics for the forward; for the backward
-    # the Function's saved statistics, so that both take the same LeakyReLU
-    # branch where pre lies within rounding of 0.
-    p_mean, p_var = fn.plain_stats(x)
-    p_y = fn.plain_apply(x, p_mean, p_var, gamma, beta)
+    # The plain backward from the Function's saved statistics, so that both
+    # take the same LeakyReLU branch where pre lies within rounding of 0.
     mean, var = mean.detach(), var.detach()
     p_dgamma, p_dbeta = fn.plain_bwd_reduce(x, g, mean, var, gamma, beta)
     p_dx = fn.plain_bwd_apply(x, g, mean, var, gamma, beta, p_dgamma, p_dbeta)
     checks = {
-        "bn_stats": [(mean, p_mean), (var, p_var)],
-        "bn_act_apply": [(y.detach(), p_y)],
         "bn_act_bwd_reduce": [(dgamma, p_dgamma), (dbeta, p_dbeta)],
         "bn_act_bwd_apply": [(dx, p_dx)],
     }
-    out = {}
     for name, pairs in checks.items():
         errs = [err_ok(a, b) for a, b in pairs]
         if not all(ok for _, ok in errs):
@@ -239,11 +308,6 @@ def check_and_time_kernels(torch, fn, shape, gen, reps) -> dict:
         out[name] = {"max_abs_err": max(e for e, _ in errs)}
 
     runs = {
-        "bn_stats": (lambda: fn.bn_stats(x), lambda: fn.plain_stats(x)),
-        "bn_act_apply": (
-            lambda: fn.bn_act_apply(x, mean, var, gamma, beta),
-            lambda: fn.plain_apply(x, mean, var, gamma, beta),
-        ),
         "bn_act_bwd_reduce": (
             lambda: fn.bn_act_bwd_reduce(x, g, mean, var, gamma, beta),
             lambda: fn.plain_bwd_reduce(x, g, mean, var, gamma, beta),
@@ -263,9 +327,6 @@ def check_and_time_kernels(torch, fn, shape, gen, reps) -> dict:
             eager_plain_ms=cuda_ms(torch, plain, reps),
             bound_ms=b, bound_by=by, library_ms=None,
         )
-    out["bn_stats"]["library_ms"] = graph_ms(
-        torch, lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0), calls
-    )
 
     # Pair yardsticks: the whole forward and backward against PyTorch's
     # batch norm (training mode) + LeakyReLU and their autograd backward.
@@ -301,11 +362,7 @@ def check_and_time_kernels(torch, fn, shape, gen, reps) -> dict:
 
 def check_and_time_pool(torch, fn, shape, gen, reps) -> dict:
     """K5 against ``plain_pool_apply`` on the same statistics, then times."""
-    dev = torch.device("cuda")
-    x = torch.randn(shape, device=dev, generator=gen)
-    c = shape[1]
-    gamma = torch.rand(c, device=dev, generator=gen) + 0.5
-    beta = 0.1 * torch.randn(c, device=dev, generator=gen)
+    x, gamma, beta = _inputs(torch, shape, gen)
     mean, var = fn.bn_stats(x)
     got = fn.bn_act_pool_apply(x, mean, var, gamma, beta)
     torch.cuda.synchronize()
@@ -428,9 +485,11 @@ def serve_phase(torch, fn):
     logits = engine.dispatch(eps)
     wall = time.perf_counter() - t0
     launches = dict(fn.launch_counts)
-    if not all(launches[k] > 0 for k in SERVE_KERNELS):
-        fail(f"the serve path skipped a kernel: launches {launches}")
     stats = engine.stats
+    want = {k: n * stats.batches_dispatched for k, n in SERVE_LAUNCHES.items()}
+    if launches != want:
+        fail(f"serve launches {launches} over {stats.batches_dispatched} "
+             f"dispatches, expected {SERVE_LAUNCHES} per dispatch")
     if stats.cache_hits != 1:
         fail(f"expected one cache hit, got {stats.cache_hits}")
     got = np.stack(logits)
@@ -474,6 +533,9 @@ def serve_phase(torch, fn):
         "episodes_over_1e-4": int((per_episode > 1e-4).sum()),
         "max_abs_logit": float(np.abs(ref).max()),
         "launches": launches,
+        "launches_per_dispatch": {
+            k: v / stats.batches_dispatched for k, v in launches.items()
+        },
     }
     return serve
 
@@ -521,8 +583,9 @@ def train_phase(torch, fn):
     fn.reset_launch_counts()
     state, losses, step_ms = run()
     launches = dict(fn.launch_counts)
-    if not all(launches[k] > 0 for k in TRAIN_KERNELS):
-        fail(f"the train path skipped a kernel: launches {launches}")
+    if launches != {k: n * TRAIN_ITERS for k, n in TRAIN_LAUNCHES.items()}:
+        fail(f"train launches {launches} over {TRAIN_ITERS} iterations, "
+             f"expected {TRAIN_LAUNCHES} per iteration")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         fail(f"train losses not finite and falling: {losses}")
     again, losses_again, _ = run()
@@ -607,9 +670,9 @@ def main() -> int:
     # 2. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_shape = {}
-    for shape in FLAGSHIP_SHAPES + TRAIN_SHAPES + [NORTH_STAR_SHAPE]:
-        reps = 20 if shape == NORTH_STAR_SHAPE else 100
-        res = check_and_time_kernels(torch, fn, shape, gen, reps)
+    big = (NORTH_STAR_SHAPE, NORTH_STAR_TARGET)
+    for shape in FLAGSHIP_SHAPES + TRAIN_SHAPES + list(big):
+        res = check_and_time_kernels(torch, fn, shape, gen, 20 if shape in big else 100)
         per_shape[shape] = res
         cells = " ".join(
             f"{k}={v['ms']:.4f}/{v['plain_ms']:.4f}/{v['bound_ms']:.4f}"
@@ -619,9 +682,22 @@ def main() -> int:
         pairs = " ".join(f"{k}={v:.4f}" for k, v in res["pairs"].items())
         print(f"[kernels] {shape} ms graph/plain graph/bound/eager/plain eager "
               f"{cells} | var_mean graph={res['bn_stats']['library_ms']:.4f} "
+              f"| plan {tuple(res['bn_stats']['plan'].values())} "
               f"| eager pairs {pairs}", flush=True)
+    streamed = check_and_time_forward(
+        torch, fn, *_inputs(torch, STREAMED_SHAPE, gen), 20, streamed=True
+    )
+    cells = " ".join(
+        f"{k}={v['ms']:.4f}/{v['plain_ms']:.4f}/{v['bound_ms']:.4f}"
+        f"/{v['eager_ms']:.4f}/{v['eager_plain_ms']:.4f}" for k, v in streamed.items()
+    )
+    print(f"[kernels] {STREAMED_SHAPE} streamed ms graph/plain graph/bound/eager/"
+          f"plain eager {cells} | var_mean graph="
+          f"{streamed['bn_stats']['library_ms']:.4f} | plan "
+          f"{tuple(streamed['bn_stats']['plan'].values())}", flush=True)
     errs = {
-        k: max(r[k]["max_abs_err"] for r in per_shape.values()) for k in SERVE_KERNELS
+        k: max(r[k]["max_abs_err"] for r in [*per_shape.values(), streamed] if k in r)
+        for k in fn.KERNELS if k != "bn_act_pool_apply"
     }
     pool = {}
     for shape in POOL_SHAPES:
@@ -647,13 +723,16 @@ def main() -> int:
     print(f"[train] meta_iters_per_s {train['meta_iters_per_s']:.3f} step_p50_ms "
           f"{train['step_p50_ms']:.2f} | {json.dumps(train)}", flush=True)
 
-    # 5. result: K1-K4 at the serve path's support stage-0 shape, its most
-    # launched and largest adapt shape; K5 at the train path's stage 0.
-    # Launches are those of the serve run and the train run together.
+    # 5. result: bn_stats_act, K3 and K4 at the serve path's support stage-0
+    # shape, its most launched and largest adapt shape; bn_stats and K5 at
+    # the train path's stage 0, where they run together. Launches are those
+    # of the serve run and the train run together.
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":
             r = pool[POOL_SHAPES[0]]
+        elif name == "bn_stats":
+            r = per_shape[TRAIN_SHAPES[0]][name]
         else:
             r = per_shape[FLAGSHIP_SHAPES[0]][name]
         kernels.append({

@@ -9,12 +9,11 @@ in ``csrc/fused_norm.cu``:
 =====================  ==========================================  =========
 kernel                 replaces (pallas_fused_norm.py)             bytes
 =====================  ==========================================  =========
-``bn_stats``           ``_fwd_kernel`` stats half (:93),           4·R·C
-                       ``_stats_block_kernel`` (:183),
-                       ``_fwd_pool_kernel`` stats half (:147),
-                       ``_stats_pool_block_kernel`` (:248)
-``bn_act_apply``       ``_fwd_kernel`` apply half (:93),           8·R·C
+``bn_stats_act``       ``_fwd_kernel`` (:93),                      8·R·C
+                       ``_stats_block_kernel`` (:183) +
                        ``_apply_block_kernel`` (:194)
+``bn_stats``           ``_fwd_pool_kernel`` stats half (:147),     4·R·C
+                       ``_stats_pool_block_kernel`` (:248)
 ``bn_act_bwd_reduce``  ``_bwd_kernel`` reduce half (:113),         8·R·C
                        ``_bwd_stats_block_kernel`` (:206)
 ``bn_act_bwd_apply``   ``_bwd_kernel`` apply half (:113),          12·R·C
@@ -25,22 +24,29 @@ kernel                 replaces (pallas_fused_norm.py)             bytes
 
 R = N·H·W, float32. Each kernel streams its tensors once at a few flops per
 element, so memory bandwidth bounds it (3.35 TB/s on an H100 SXM); at the
-flagship shapes launch latency dominates. The CUDA source says what the
-design does about both, how its reductions stay deterministic (no float
-atomics: per-channel partials and a fixed-order second pass), and which
-variance formula it uses (a shifted single pass).
+flagship shapes launch latency dominates. ``bn_stats`` and ``bn_stats_act``
+are one forward template: a grid over channels, each channel reduced by a
+thread-block cluster that stages it in shared memory and adds its blocks'
+partial sums through distributed shared memory in rank order, in one
+launch. :func:`_fwd_plan` picks the cluster size, the channels per block
+and the staged or streamed path from the shape and the device. The CUDA
+source says what the design does about the launch floor and the re-read,
+how the reductions stay deterministic (no float atomics), and which
+variance formula each path uses (two-pass staged, shifted single pass
+streamed).
 
 Three entry points, one per JAX op:
 
 - ``fused_bn_leaky_relu`` (``custom_vjp``, :555): one reverse level, the
   eval path. A CPU tensor runs the plain version differentiated by
-  autograd; a CUDA tensor runs ``FusedBNLeakyReLU`` (K1 + K2 forward, K3 +
-  K4 backward).
+  autograd; a CUDA tensor runs ``FusedBNLeakyReLU`` (``bn_stats_act``
+  forward, K3 + K4 backward).
 - ``fused_bn_leaky_relu_ho`` (recursive ``custom_jvp``, :633): any order,
-  the train path. ``FusedBNLeakyReLUHO`` runs K1 + K2 forward; its backward
-  is differentiable torch ops, as the JAX op's tangents are lax.
+  the train path. ``FusedBNLeakyReLUHO`` runs ``bn_stats_act`` forward;
+  its backward is differentiable torch ops, as the JAX op's tangents are
+  lax.
 - ``fused_bn_leaky_relu_pool`` (``custom_jvp``, :666): the same with the
-  2x2 max pool fused in, K1 + K5 forward (``FusedBNLeakyReLUPool``).
+  2x2 max pool fused in, ``bn_stats`` + K5 forward (``FusedBNLeakyReLUPool``).
 
 The two any-order Functions save their ``mean``/``var`` outputs and read
 them in the backward, so a second differentiation routes the statistics'
@@ -49,7 +55,8 @@ recursion (its primal re-enters the op, :652). For a CPU tensor they run
 the plain bodies in place of the kernels, so the CPU tests exercise their
 autograd structure; any other device than the CPU or CUDA raises. There is
 no fallback from one to the other. Each kernel wrapper counts its launches
-in ``launch_counts``.
+in ``launch_counts``: one device launch per call, two for
+``bn_act_bwd_reduce``.
 
 The library is built with ``nvcc`` on first use into ``_build/`` next to the
 package (listed in ``.gitignore``), keyed by a hash of the source and the
@@ -66,6 +73,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -74,12 +82,14 @@ EPS = 1e-5
 SLOPE = 0.01
 
 KERNELS = (
-    "bn_stats", "bn_act_apply", "bn_act_bwd_reduce", "bn_act_bwd_apply",
+    "bn_stats", "bn_stats_act", "bn_act_bwd_reduce", "bn_act_bwd_apply",
     "bn_act_pool_apply",
 )
 
 #: Launches per kernel since the last ``reset_launch_counts``. Only the
-#: kernel wrappers below add to it, once per launch of their C entry.
+#: kernel wrappers below add to it, once per call of their C entry. Every
+#: entry is one device launch, but ``bn_act_bwd_reduce``, which is two
+#: (partials, then their fixed-order sum).
 launch_counts: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -225,9 +235,12 @@ def _load():
             return _lib
         lib = ctypes.CDLL(build()[0])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        plan = [i, i, i, i, i, i]  # cluster, cpb, staged, threads, blocks, smem
         signatures = {
-            "bn_stats": [p, p, p, p, i, i, i, i, p],
-            "bn_act_apply": [p, p, p, p, p, p, i, i, i, f, f, i, p],
+            "bn_fwd_setup": [p, p],
+            "bn_fwd_active_clusters": [i, i, i, i, p],
+            "bn_stats": [p, p, p, i, i, i, *plan, p],
+            "bn_stats_act": [p, p, p, p, p, p, i, i, i, f, f, *plan, p],
             "bn_act_bwd_reduce": [p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
             "bn_act_bwd_apply": [p, p, p, p, p, p, p, p, p, i, i, i, f, f, i, p],
             "bn_act_pool_apply": [p, p, p, p, p, p, i, i, i, i, f, f, i, p],
@@ -291,21 +304,16 @@ def _dims(x):
     return n, c, h * w
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _splits(x) -> int:
     """Row splits per channel: enough blocks for ~4 per SM, each block over
     at least 2048 rows."""
     n, c, hw = _dims(x)
-    want_blocks = 4 * _sm_count(x.device)
+    want_blocks = 4 * _limits(x.device)[0]
     return max(1, min(-(-want_blocks // c), -(-(n * hw) // 2048)))
 
 
 def _elementwise_blocks(x) -> int:
-    return max(1, min(-(-x.numel() // 256), 8 * _sm_count(x.device)))
+    return max(1, min(-(-x.numel() // 256), 8 * _limits(x.device)[0]))
 
 
 def _stream(x):
@@ -316,30 +324,183 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def bn_stats(x):
-    """Kernel K1: per-channel ``(mean, biased var)`` of NCHW ``x``."""
+# ---------------------------------------------------------------------------
+# The forward's plan
+# ---------------------------------------------------------------------------
+
+#: Cluster sizes the forward takes; 16 is non-portable (opted into at load).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+#: A channel of at most this many rows (N·H·W) is taken by one warp.
+WARP_ROWS = 2048
+#: Staged bytes per block the plan aims under with a portable cluster, so
+#: that two blocks share an SM and one loads while the other reduces.
+BLOCK_SLICE_BYTES = 96 * 1024
+FWD_THREADS = 256
+
+
+class FwdPlan(NamedTuple):
+    """How one forward launch covers an ``(N, C, H, W)`` tensor.
+
+    ``cluster`` blocks reduce one channel (``channels_per_block`` is then
+    1), or, with ``cluster`` 1, each warp of a block of
+    ``channels_per_block`` warps takes a channel. ``staged``: each block
+    holds its slice of the channel in ``smem_bytes`` of shared memory;
+    otherwise it streams its slice from device memory twice."""
+
+    cluster: int
+    channels_per_block: int
+    staged: bool
+    smem_bytes: int
+    threads: int
+    blocks: int
+
+
+def _slice_floats(rows: int, cluster: int) -> int:
+    """Rows of a channel per block, rounded up to 4 (the kernel's ``per``)."""
+    return (-(-rows // cluster) + 3) // 4 * 4
+
+
+def _staged_plan(shape, cluster: int) -> FwdPlan:
+    """The staged plan of ``cluster`` blocks a channel, one channel a block."""
+    n, c, h, w = shape
+    return FwdPlan(cluster, 1, True, 4 * _slice_floats(n * h * w, cluster),
+                   FWD_THREADS, c * cluster)
+
+
+def _fwd_plan(shape, sm_count: int, max_smem: int, max_cluster: int = 16,
+              streamed: bool = False) -> FwdPlan:
+    """The launch plan of ``bn_stats``/``bn_stats_act`` for ``shape``.
+
+    ``max_smem`` is the dynamic shared memory a block may take and
+    ``max_cluster`` the largest cluster the card can hold at that size.
+    ``streamed=True`` forces the streamed path (for tests). A channel of at
+    most ``WARP_ROWS`` rows goes to a warp, ``min(8, C // sm_count)``
+    channels to a block. A larger one is staged by the smallest portable
+    cluster whose slices fit ``BLOCK_SLICE_BYTES``, else by the smallest
+    cluster up to ``max_cluster`` whose slices fit ``max_smem``: the
+    north-star target stage (75, 96, 84, 84), 2.1 MB a channel, takes a
+    16-block cluster of 129 KB slices on an H100, which keeps x read once,
+    where the streamed path would read it twice. Past that it streams, with
+    enough clusters for two blocks per SM where the channels allow."""
+    n, c, h, w = shape
+    rows = n * h * w
+    if rows <= WARP_ROWS and not streamed:
+        cpb = max(1, min(8, c // sm_count))
+        return FwdPlan(1, cpb, True, 4 * cpb * _slice_floats(rows, 1),
+                       32 * cpb, -(-c // cpb))
+    if not streamed:
+        sizes = [k for k in CLUSTER_SIZES if k <= max_cluster]
+        for limit, ks in (
+            (min(BLOCK_SLICE_BYTES, max_smem), [k for k in sizes if k <= 8]),
+            (max_smem, sizes),
+        ):
+            for k in ks:
+                plan = _staged_plan(shape, k)
+                if plan.smem_bytes <= limit:
+                    return plan
+    k = next((k for k in CLUSTER_SIZES[:4] if c * k >= 2 * sm_count), 8)
+    return FwdPlan(k, 1, False, 0, FWD_THREADS, c * k)
+
+
+_device_limits: dict[int, tuple[int, int]] = {}
+_checked_plans: dict[tuple, int] = {}
+_plans: dict[tuple, FwdPlan] = {}
+
+
+def _limits(device) -> tuple[int, int]:
+    """``(sm_count, max dynamic shared memory)`` of the card, from the
+    library's one-time set-up, which also sets the forward's attributes."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _device_limits:
+        sm, smem = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(index):
+            rc = _load().bn_fwd_setup(ctypes.byref(sm), ctypes.byref(smem))
+        if rc != 0:
+            raise RuntimeError(f"bn_fwd_setup failed: cudaError {rc}")
+        _device_limits[index] = (sm.value, smem.value)
+    return _device_limits[index]
+
+
+def _active_clusters(device, plan: FwdPlan, apply: bool) -> int:
+    """Clusters of ``plan`` the card holds at once, asked once per plan."""
+    key = (device.index, plan, apply)
+    if key not in _checked_plans:
+        _limits(device)  # the kernels' attributes are set before the query
+        active = ctypes.c_int()
+        with torch.cuda.device(device):
+            rc = _load().bn_fwd_active_clusters(
+                int(apply), plan.cluster, plan.threads, plan.smem_bytes,
+                ctypes.byref(active),
+            )
+        if rc != 0:
+            raise RuntimeError(
+                f"bn_fwd_active_clusters failed for {plan}: cudaError {rc}"
+            )
+        _checked_plans[key] = active.value
+    return _checked_plans[key]
+
+
+def fwd_plan(x, streamed: bool = False) -> FwdPlan:
+    """The plan the forward kernels take for CUDA tensor ``x``: ``_fwd_plan``
+    on this card's limits, with a 16-block cluster only where the card can
+    hold one at its shared memory, checked once per shape."""
+    key = (x.device.index, tuple(x.shape), streamed)
+    plan = _plans.get(key)
+    if plan is None:
+        sm, smem = _limits(x.device)
+        plan = _fwd_plan(x.shape, sm, smem, 16, streamed)
+        if plan.cluster == 16 and min(
+            _active_clusters(x.device, plan, a) for a in (False, True)
+        ) == 0:
+            plan = _fwd_plan(x.shape, sm, smem, 8, streamed)
+        _plans[key] = plan
+    return plan
+
+
+def _check_plan(name, x, plan):
+    n, c, hw = _dims(x)
+    if n * hw >= 2**31:
+        raise ValueError(f"{name}: a channel of {n * hw} elements exceeds int32")
+    if _active_clusters(x.device, plan, name == "bn_stats_act") == 0:
+        raise RuntimeError(f"{name}: the card holds no cluster of {plan}")
+
+
+def _plan_args(plan):
+    return (plan.cluster, plan.channels_per_block, int(plan.staged),
+            plan.threads, plan.blocks, plan.smem_bytes)
+
+
+def bn_stats(x, plan: FwdPlan | None = None):
+    """Per-channel ``(mean, biased var)`` of NCHW ``x``: one launch of the
+    forward template without the apply. ``plan`` overrides
+    :func:`fwd_plan` (tests force the streamed path with it)."""
     _check(x)
     n, c, hw = _dims(x)
-    splits = _splits(x)
+    plan = plan or fwd_plan(x)
+    _check_plan("bn_stats", x, plan)
     mean = torch.empty(c, device=x.device, dtype=torch.float32)
     var = torch.empty_like(mean)
-    partials = torch.empty((c, splits, 2), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        _launch("bn_stats", _ptr(x), _ptr(mean), _ptr(var), _ptr(partials),
-                n, c, hw, splits, _stream(x))
+        _launch("bn_stats", _ptr(x), _ptr(mean), _ptr(var), n, c, hw,
+                *_plan_args(plan), _stream(x))
     return mean, var
 
 
-def bn_act_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
-    """Kernel K2: ``plain_apply`` on the card."""
-    _check(x, mean, var, gamma, beta)
+def bn_stats_act(x, gamma, beta, eps=EPS, slope=SLOPE, plan: FwdPlan | None = None):
+    """``(y, mean, var)`` in one launch: ``bn_stats``'s statistics, bitwise,
+    and ``plain_apply`` with them."""
+    _check(x, gamma, beta)
     n, c, hw = _dims(x)
+    plan = plan or fwd_plan(x)
+    _check_plan("bn_stats_act", x, plan)
     y = torch.empty_like(x)
+    mean = torch.empty(c, device=x.device, dtype=torch.float32)
+    var = torch.empty_like(mean)
     with torch.cuda.device(x.device):
-        _launch("bn_act_apply", _ptr(x), _ptr(mean), _ptr(var), _ptr(gamma),
-                _ptr(beta), _ptr(y), n, c, hw, eps, slope,
-                _elementwise_blocks(x), _stream(x))
-    return y
+        _launch("bn_stats_act", _ptr(x), _ptr(gamma), _ptr(beta), _ptr(y),
+                _ptr(mean), _ptr(var), n, c, hw, eps, slope,
+                *_plan_args(plan), _stream(x))
+    return y, mean, var
 
 
 def bn_act_bwd_reduce(x, g, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
@@ -398,14 +559,13 @@ def bn_act_pool_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
 
 
 class FusedBNLeakyReLU(torch.autograd.Function):
-    """K1 + K2 forward, K3 + K4 backward. One level of reverse mode, the
+    """``bn_stats_act`` forward, K3 + K4 backward. One level of reverse mode, the
     contract of the JAX ``custom_vjp``; the batch statistics are outputs
     without gradient, as ``_fused_vjp_bwd`` drops their cotangents."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, slope):
-        mean, var = bn_stats(x)
-        y = bn_act_apply(x, mean, var, gamma, beta, eps, slope)
+        y, mean, var = bn_stats_act(x, gamma, beta, eps, slope)
         ctx.save_for_backward(x, gamma, beta, mean, var)
         ctx.eps, ctx.slope = eps, slope
         ctx.mark_non_differentiable(mean, var)
@@ -442,7 +602,7 @@ def fused_bn_leaky_relu(x, gamma, beta, eps=EPS, slope=SLOPE):
 
 
 def _stats(x):
-    """K1 on the card; the plain statistics for a CPU tensor only."""
+    """``bn_stats`` on the card; the plain statistics for a CPU tensor only."""
     return plain_stats(x) if x.device.type == "cpu" else bn_stats(x)
 
 
@@ -499,17 +659,17 @@ def _norm_act_vjp(x, gamma, beta, mean, var, gy, gmean, gvar, eps, slope,
 
 
 class FusedBNLeakyReLUHO(torch.autograd.Function):
-    """K1 + K2 forward, differentiable to any order: the counterpart of
+    """``bn_stats_act`` forward, differentiable to any order: the counterpart of
     ``fused_bn_leaky_relu_ho`` (``pallas_fused_norm.py:633-658``). ``mean``
     and ``var`` are differentiable outputs, as they carry tangents there."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, slope):
-        mean, var = _stats(x)
         if x.device.type == "cpu":
+            mean, var = plain_stats(x)
             y = plain_apply(x, mean, var, gamma, beta, eps, slope)
         else:
-            y = bn_act_apply(x, mean, var, gamma, beta, eps, slope)
+            y, mean, var = bn_stats_act(x, gamma, beta, eps, slope)
         ctx.save_for_backward(x, gamma, beta, mean, var)
         ctx.eps, ctx.slope = eps, slope
         return y, mean, var
@@ -522,7 +682,7 @@ class FusedBNLeakyReLUHO(torch.autograd.Function):
 
 
 class FusedBNLeakyReLUPool(torch.autograd.Function):
-    """K1 over the whole pre-pool ``x`` + K5 forward, differentiable to any
+    """``bn_stats`` over the whole pre-pool ``x`` + K5 forward, differentiable to any
     order: the counterpart of ``fused_bn_leaky_relu_pool``
     (``pallas_fused_norm.py:666-719``). H and W must be even."""
 

@@ -59,8 +59,8 @@ def test_kernels_match_plain(shape, cuda):
     dgamma, dbeta = tfn.plain_bwd_reduce(x, g, mean, var, gamma, beta)
     pairs = [
         (tfn.bn_stats(x), (mean, var)),
-        ((tfn.bn_act_apply(x, mean, var, gamma, beta),),
-         (tfn.plain_apply(x, mean, var, gamma, beta),)),
+        (tfn.bn_stats_act(x, gamma, beta),
+         (tfn.plain_apply(x, mean, var, gamma, beta), mean, var)),
         (tfn.bn_act_bwd_reduce(x, g, mean, var, gamma, beta), (dgamma, dbeta)),
         ((tfn.bn_act_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta),),
          (tfn.plain_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta),)),
@@ -69,6 +69,40 @@ def test_kernels_match_plain(shape, cuda):
     for got, want in pairs:
         for a, b in zip(got, want):
             _close(a, b)
+
+
+@pytest.mark.parametrize(
+    "shape,streamed",
+    [
+        ((5, 512, 7, 7), False),   # H*W 49: scalar copies, 3 channels a block
+        ((15, 256, 3, 3), False),  # H*W 9
+        ((1, 8, 28, 28), False),   # N = 1
+        ((4, 1, 14, 14), False),   # C = 1
+        ((3, 5, 7, 9), False),
+        ((25, 96, 84, 84), False),  # a cluster of 8 blocks
+        ((5, 256, 28, 28), True),  # forced onto the streamed path
+        ((3, 5, 7, 9), True),
+    ],
+)
+def test_forward_kernels_match_plain(shape, streamed, cuda):
+    """bn_stats_act and bn_stats against plain_stats + plain_apply; two
+    calls bitwise equal, and both entries' statistics bitwise equal."""
+    x, gamma, beta, _ = _inputs(shape, cuda)
+    x = 2 * x + 3  # a mean far from 0 against the spread
+    plan = tfn.fwd_plan(x, streamed=streamed)
+    assert plan.staged != streamed
+    if shape == (5, 512, 7, 7):
+        assert plan.channels_per_block > 1, plan
+    y, mean, var = tfn.bn_stats_act(x, gamma, beta, plan=plan)
+    again = tfn.bn_stats_act(x, gamma, beta, plan=plan)
+    stats = tfn.bn_stats(x, plan=plan)
+    torch.cuda.synchronize()
+    for a, b in zip((y, mean, var, mean, var), (*again, *stats)):
+        assert torch.equal(a, b)
+    p_mean, p_var = tfn.plain_stats(x)
+    _close(mean, p_mean)
+    _close(var, p_var)
+    _close(y, tfn.plain_apply(x, p_mean, p_var, gamma, beta))
 
 
 def test_function_matches_plain_and_is_deterministic(cuda):
@@ -181,7 +215,12 @@ def test_served_episodes_run_the_kernels(cuda):
     )
     tfn.reset_launch_counts()
     got = engine.dispatch([engine.prepare_episode(*e) for e in raw])
-    assert all(tfn.launch_counts[k] > 0 for k in tfn.KERNELS[:4]), tfn.launch_counts
+    # One dispatch: 4 stages x (2 adapt steps + classify) forwards, 2 x 4
+    # backwards.
+    assert tfn.launch_counts == {
+        "bn_stats": 0, "bn_stats_act": 12, "bn_act_bwd_reduce": 8,
+        "bn_act_bwd_apply": 8, "bn_act_pool_apply": 0,
+    }, tfn.launch_counts
     want = plain.dispatch([plain.prepare_episode(*e) for e in raw])
     for a, b in zip(got, want):
         assert np.isfinite(a).all()
@@ -190,7 +229,8 @@ def test_served_episodes_run_the_kernels(cuda):
 
 def test_fused_train_step_runs_the_kernels(cuda):
     """A second-order meta-step with the any-order op and the pooled op
-    launches K1, K2 and K5 and gives the plain-norm learner's loss."""
+    launches bn_stats, bn_stats_act and K5 and gives the plain-norm
+    learner's loss."""
     cfg = MAMLConfig(
         backbone=BackboneConfig(
             num_stages=4, num_filters=8, per_step_bn_statistics=True,
@@ -214,8 +254,8 @@ def test_fused_train_step_runs_the_kernels(cuda):
     _, losses = learner.run_train_iter(state, batch, epoch=0)
     counts = dict(tfn.launch_counts)
     # 2 steps x (support + target) x 4 stages; stages 0-1 pool (28, 14).
-    assert counts["bn_stats"] == 16, counts
-    assert counts["bn_act_pool_apply"] == 8 and counts["bn_act_apply"] == 8, counts
+    assert counts["bn_stats"] == 8 and counts["bn_stats_act"] == 8, counts
+    assert counts["bn_act_pool_apply"] == 8, counts
     _, plain = MAMLFewShotLearner(plain_cfg).run_train_iter(state, batch, epoch=0)
     np.testing.assert_allclose(float(losses["loss"]), float(plain["loss"]),
                                rtol=1e-4)

@@ -13,8 +13,7 @@ ends in a synchronize) with the peak device memory, then traces ITERS more
 with ``torch.profiler``. Prints the wall time per iteration, the device's
 busy time (the union of traced kernel intervals) and idle share, the
 operators and kernels by device time, and the share of the fused-norm
-kernels K1 (``bn_stats``), K2 (``bn_act_apply``) and K5
-(``bn_act_pool_apply``). If the trace holds no device time it says so and
+kernels ``bn_stats``, ``bn_stats_act`` and K5 (``bn_act_pool_apply``). If the trace holds no device time it says so and
 times the iterations with CUDA events instead. Needs a CUDA device;
 imports nothing of JAX.
 """
@@ -46,8 +45,8 @@ FLAGSHIP = os.path.join(
 ITERS = 3
 # Kernel-name fragments of the fused-norm kernels in csrc/fused_norm.cu.
 FUSED = {
-    "K1 bn_stats": ("bn_stats_partial_kernel", "bn_stats_finalize_kernel"),
-    "K2 bn_act_apply": ("bn_act_apply_kernel",),
+    "bn_stats": ("bn_fwd_kernel<false>",),
+    "bn_stats_act": ("bn_fwd_kernel<true>",),
     "K5 bn_act_pool_apply": ("bn_act_pool_apply_kernel",),
 }
 
