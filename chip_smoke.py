@@ -9,18 +9,19 @@ Phases, in order; any failure exits non-zero before the result lines:
              sm_90a; prints the build seconds and the card's name and power
              limit.
 2. kernels - runs the forward (``bn_stats_act``, and ``bn_stats`` alone)
-             and K3-K4 through ``FusedBNLeakyReLU`` at the shapes the
-             flagship serve path gives them (4 tasks x 64 filters folded
-             into 256 channels; support N=5 and query N=15 at the 28, 14, 7
-             and 3 pixel stages), at those of the train path (8 tasks, 512
-             channels, N=5) and at the north-star support and target
-             stage-0 shapes (25|75, 96, 84, 84); the forward also on its
-             streamed path, forced, at (25, 96, 84, 84). Holds forward
-             y/mean/var and backward dx/dgamma/dbeta to the plain PyTorch
-             version, the forward's two calls and its two entries' statistics
-             to each other bitwise, and times each kernel beside its plain
-             version, its bound and the library yardsticks, with the
-             forward's launch plan.
+             and the backward (``bn_act_bwd``, directly and through
+             ``FusedBNLeakyReLU``, from the Function's saved statistics) at
+             the shapes the flagship serve path gives them (4 tasks x 64
+             filters folded into 256 channels; support N=5 and query N=15
+             at the 28, 14, 7 and 3 pixel stages), at those of the train
+             path (8 tasks, 512 channels, N=5) and at the north-star
+             support and target stage-0 shapes (25|75, 96, 84, 84); both
+             also on their streamed path, forced, at (25, 96, 84, 84).
+             Holds forward y/mean/var and backward dx/dgamma/dbeta to the
+             plain PyTorch version, each kernel's two calls, the forward's
+             two entries' statistics and the backward's two routes to each
+             other bitwise, and times each kernel beside its plain version,
+             its bound and the library yardsticks, with its launch plan.
    pool    - K5 (``bn_act_pool_apply``) against ``plain_pool_apply`` at the
              train path's pooled stages (5, 512, 28, 28) and (5, 512, 14,
              14) and at the north-star shape; the same timings.
@@ -35,7 +36,7 @@ Phases, in order; any failure exits non-zero before the result lines:
              episodes of bucket 5x1x15 (one support set repeated, so one is
              a cache hit). The launch counts are zeroed just before and
              read just after; each kernel must have run as often as the
-             path calls it (per dispatch: bn_stats_act 24, K3 20, K4 20,
+             path calls it (per dispatch: bn_stats_act 24, bn_act_bwd 20,
              bn_stats 0). Logits must be
              finite, the same when served again, and match a
              use_pallas_fused_norm=False engine on the same state (the
@@ -112,7 +113,8 @@ TRAIN_SHAPES = [(5, 512, hw, hw) for hw in (28, 14, 7, 3)]
 NORTH_STAR_SHAPE = (25, 96, 84, 84)
 # The north-star target set: 15 queries x 5 classes, 2 tasks folded.
 NORTH_STAR_TARGET = (75, 96, 84, 84)
-# The forward forced onto its streamed path (no shape of the repo takes it).
+# Both kernels forced onto their streamed path (the backward takes it at
+# NORTH_STAR_TARGET; the forward at no shape of the repo).
 STREAMED_SHAPE = NORTH_STAR_SHAPE
 POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE]
 FORWARD = ("bn_stats", "bn_stats_act")
@@ -120,31 +122,25 @@ FORWARD = ("bn_stats", "bn_stats_act")
 # adapt steps + 1 classify) forwards, 5 x 4 backwards) and per flagship
 # MSL train iteration (5 steps x support and target x 4 stages; stages 0-1
 # pooled).
-SERVE_LAUNCHES = {"bn_stats": 0, "bn_stats_act": 24, "bn_act_bwd_reduce": 20,
-                  "bn_act_bwd_apply": 20, "bn_act_pool_apply": 0}
-TRAIN_LAUNCHES = {"bn_stats": 20, "bn_stats_act": 20, "bn_act_bwd_reduce": 0,
-                  "bn_act_bwd_apply": 0, "bn_act_pool_apply": 20}
-# Flops per input element each kernel does, counted from its source.
+SERVE_LAUNCHES = {"bn_stats": 0, "bn_stats_act": 24, "bn_act_bwd": 20,
+                  "bn_act_pool_apply": 0}
+TRAIN_LAUNCHES = {"bn_stats": 20, "bn_stats_act": 20, "bn_act_bwd": 0,
+                  "bn_act_pool_apply": 20}
+# Flops per input element each kernel does, counted from its source
+# (bn_act_bwd: 8 in the reduce, 10 in the apply, the LeakyReLU's slope
+# product counted on every element).
 FLOPS_PER_ELEMENT = {
-    "bn_stats": 4, "bn_stats_act": 8, "bn_act_bwd_reduce": 8,
-    "bn_act_bwd_apply": 12, "bn_act_pool_apply": 6,
+    "bn_stats": 4, "bn_stats_act": 8, "bn_act_bwd": 18, "bn_act_pool_apply": 6,
 }
 # Full-size tensors each kernel reads or writes (the pooled output is a
 # quarter of one), and per-channel vectors.
-TENSORS = {
-    "bn_stats": 1, "bn_stats_act": 2, "bn_act_bwd_reduce": 2,
-    "bn_act_bwd_apply": 3, "bn_act_pool_apply": 1.25,
-}
-VECTORS = {
-    "bn_stats": 2, "bn_stats_act": 4, "bn_act_bwd_reduce": 6,
-    "bn_act_bwd_apply": 6, "bn_act_pool_apply": 4,
-}
+TENSORS = {"bn_stats": 1, "bn_stats_act": 2, "bn_act_bwd": 3, "bn_act_pool_apply": 1.25}
+VECTORS = {"bn_stats": 2, "bn_stats_act": 4, "bn_act_bwd": 6, "bn_act_pool_apply": 4}
 PALLAS = "howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py"
 REPLACES = {
     "bn_stats": f"{PALLAS}:147,248",
     "bn_stats_act": f"{PALLAS}:93,183,194",
-    "bn_act_bwd_reduce": f"{PALLAS}:113,206",
-    "bn_act_bwd_apply": f"{PALLAS}:113,226",
+    "bn_act_bwd": f"{PALLAS}:113,206,226",
     "bn_act_pool_apply": f"{PALLAS}:147,267",
 }
 
@@ -277,59 +273,55 @@ def check_and_time_forward(torch, fn, x, gamma, beta, reps, streamed=False):
     return out
 
 
+def check_and_time_backward(torch, fn, x, gamma, beta, g, reps, streamed=False):
+    """``bn_act_bwd`` from the statistics ``FusedBNLeakyReLU`` saved, called
+    directly and (on its own plan) through the Function's backward, against
+    ``plain_bwd`` on the same statistics, so that both take the same
+    LeakyReLU branch where pre lies within rounding of 0; two calls and the
+    two routes bitwise equal; then times, with the launch plan."""
+    shape = tuple(x.shape)
+    plan = fn.bwd_plan(x, streamed=streamed)
+    leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    y, mean, var = fn.FusedBNLeakyReLU.apply(*leaves, fn.EPS, fn.SLOPE)
+    through = torch.autograd.grad(y, leaves, g)
+    mean, var = mean.detach(), var.detach()
+    got = fn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=plan)
+    again = fn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=plan)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"bn_act_bwd at {shape} ({plan}) differs between two calls")
+    if not streamed and not all(torch.equal(a, b) for a, b in zip(got, through)):
+        fail(f"bn_act_bwd at {shape} ({plan}) differs from the Function's backward")
+    want = fn.plain_bwd(x, g, mean, var, gamma, beta)
+    errs = [err_ok(a, b) for a, b in zip((*got, *through), (*want, *want))]
+    if not all(ok for _, ok in errs):
+        fail(f"bn_act_bwd at {shape} ({plan}) disagrees with its plain version: "
+             f"max_abs_err {[e for e, _ in errs]}")
+    kernel = lambda: fn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=plan)  # noqa: E731
+    plain = lambda: fn.plain_bwd(x, g, mean, var, gamma, beta)  # noqa: E731
+    b, by = bound_ms("bn_act_bwd", shape)
+    calls = max(2, reps // 5)
+    return {
+        "max_abs_err": max(e for e, _ in errs), "plan": plan._asdict(),
+        "ms": graph_ms(torch, kernel, calls), "plain_ms": graph_ms(torch, plain, calls),
+        "eager_ms": cuda_ms(torch, kernel, reps),
+        "eager_plain_ms": cuda_ms(torch, plain, reps),
+        "bound_ms": b, "bound_by": by, "library_ms": None,
+    }
+
+
 def check_and_time_kernels(torch, fn, shape, gen, reps) -> dict:
-    """The forward (above), then K3-K4 through the Function against the
-    plain version, then times."""
+    """The forward and the backward (above), then the pair yardsticks."""
     import torch.nn.functional as F
 
     x, gamma, beta = _inputs(torch, shape, gen)
     g = torch.randn(shape, device=x.device, generator=gen)
     out = check_and_time_forward(torch, fn, x, gamma, beta, reps)
-
-    # Through the Function: forward bn_stats_act, backward K3+K4.
-    xk, gk, bk = (t.clone().requires_grad_() for t in (x, gamma, beta))
-    y, mean, var = fn.FusedBNLeakyReLU.apply(xk, gk, bk, fn.EPS, fn.SLOPE)
-    dx, dgamma, dbeta = torch.autograd.grad(y, (xk, gk, bk), g)
-    torch.cuda.synchronize()
-    # The plain backward from the Function's saved statistics, so that both
-    # take the same LeakyReLU branch where pre lies within rounding of 0.
-    mean, var = mean.detach(), var.detach()
-    p_dgamma, p_dbeta = fn.plain_bwd_reduce(x, g, mean, var, gamma, beta)
-    p_dx = fn.plain_bwd_apply(x, g, mean, var, gamma, beta, p_dgamma, p_dbeta)
-    checks = {
-        "bn_act_bwd_reduce": [(dgamma, p_dgamma), (dbeta, p_dbeta)],
-        "bn_act_bwd_apply": [(dx, p_dx)],
-    }
-    for name, pairs in checks.items():
-        errs = [err_ok(a, b) for a, b in pairs]
-        if not all(ok for _, ok in errs):
-            fail(f"{name} at {shape} disagrees with its plain version: "
-                 f"max_abs_err {[e for e, _ in errs]}")
-        out[name] = {"max_abs_err": max(e for e, _ in errs)}
-
-    runs = {
-        "bn_act_bwd_reduce": (
-            lambda: fn.bn_act_bwd_reduce(x, g, mean, var, gamma, beta),
-            lambda: fn.plain_bwd_reduce(x, g, mean, var, gamma, beta),
-        ),
-        "bn_act_bwd_apply": (
-            lambda: fn.bn_act_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta),
-            lambda: fn.plain_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta),
-        ),
-    }
-    calls = max(2, reps // 5)
-    for name, (kernel, plain) in runs.items():
-        b, by = bound_ms(name, shape)
-        out[name].update(
-            ms=graph_ms(torch, kernel, calls),
-            plain_ms=graph_ms(torch, plain, calls),
-            eager_ms=cuda_ms(torch, kernel, reps),
-            eager_plain_ms=cuda_ms(torch, plain, reps),
-            bound_ms=b, bound_by=by, library_ms=None,
-        )
+    out["bn_act_bwd"] = check_and_time_backward(torch, fn, x, gamma, beta, g, reps)
 
     # Pair yardsticks: the whole forward and backward against PyTorch's
     # batch norm (training mode) + LeakyReLU and their autograd backward.
+    xk, gk, bk = (t.clone().requires_grad_() for t in (x, gamma, beta))
     xl, gl, bl = (t.clone().requires_grad_() for t in (x, gamma, beta))
 
     def lib_fwd():
@@ -649,6 +641,23 @@ def train_phase(torch, fn):
     }
 
 
+def kernel_cells(res) -> str:
+    """One shape's kernel times (graph, plain graph, bound, eager, plain
+    eager) and, once for each plan, the launch plan."""
+    cells, last_plan = [], None
+    for k, v in res.items():
+        if k == "pairs":
+            continue
+        plan = tuple(v["plan"].values())
+        cells.append(
+            f"{k}={v['ms']:.4f}/{v['plain_ms']:.4f}/{v['bound_ms']:.4f}"
+            f"/{v['eager_ms']:.4f}/{v['eager_plain_ms']:.4f}"
+            + ("" if plan == last_plan else f" plan {plan}")
+        )
+        last_plan = plan
+    return " ".join(cells)
+
+
 def main() -> int:
     import torch
 
@@ -674,27 +683,19 @@ def main() -> int:
     for shape in FLAGSHIP_SHAPES + TRAIN_SHAPES + list(big):
         res = check_and_time_kernels(torch, fn, shape, gen, 20 if shape in big else 100)
         per_shape[shape] = res
-        cells = " ".join(
-            f"{k}={v['ms']:.4f}/{v['plain_ms']:.4f}/{v['bound_ms']:.4f}"
-            f"/{v['eager_ms']:.4f}/{v['eager_plain_ms']:.4f}"
-            for k, v in res.items() if k != "pairs"
-        )
         pairs = " ".join(f"{k}={v:.4f}" for k, v in res["pairs"].items())
         print(f"[kernels] {shape} ms graph/plain graph/bound/eager/plain eager "
-              f"{cells} | var_mean graph={res['bn_stats']['library_ms']:.4f} "
-              f"| plan {tuple(res['bn_stats']['plan'].values())} "
-              f"| eager pairs {pairs}", flush=True)
-    streamed = check_and_time_forward(
-        torch, fn, *_inputs(torch, STREAMED_SHAPE, gen), 20, streamed=True
-    )
-    cells = " ".join(
-        f"{k}={v['ms']:.4f}/{v['plain_ms']:.4f}/{v['bound_ms']:.4f}"
-        f"/{v['eager_ms']:.4f}/{v['eager_plain_ms']:.4f}" for k, v in streamed.items()
+              f"{kernel_cells(res)} | var_mean graph="
+              f"{res['bn_stats']['library_ms']:.4f} | eager pairs {pairs}", flush=True)
+    x, gamma, beta = _inputs(torch, STREAMED_SHAPE, gen)
+    streamed = check_and_time_forward(torch, fn, x, gamma, beta, 20, streamed=True)
+    g = torch.randn(STREAMED_SHAPE, device=x.device, generator=gen)
+    streamed["bn_act_bwd"] = check_and_time_backward(
+        torch, fn, x, gamma, beta, g, 20, streamed=True
     )
     print(f"[kernels] {STREAMED_SHAPE} streamed ms graph/plain graph/bound/eager/"
-          f"plain eager {cells} | var_mean graph="
-          f"{streamed['bn_stats']['library_ms']:.4f} | plan "
-          f"{tuple(streamed['bn_stats']['plan'].values())}", flush=True)
+          f"plain eager {kernel_cells(streamed)} | var_mean graph="
+          f"{streamed['bn_stats']['library_ms']:.4f}", flush=True)
     errs = {
         k: max(r[k]["max_abs_err"] for r in [*per_shape.values(), streamed] if k in r)
         for k in fn.KERNELS if k != "bn_act_pool_apply"
@@ -723,7 +724,7 @@ def main() -> int:
     print(f"[train] meta_iters_per_s {train['meta_iters_per_s']:.3f} step_p50_ms "
           f"{train['step_p50_ms']:.2f} | {json.dumps(train)}", flush=True)
 
-    # 5. result: bn_stats_act, K3 and K4 at the serve path's support stage-0
+    # 5. result: bn_stats_act and bn_act_bwd at the serve path's support stage-0
     # shape, its most launched and largest adapt shape; bn_stats and K5 at
     # the train path's stage 0, where they run together. Launches are those
     # of the serve run and the train run together.

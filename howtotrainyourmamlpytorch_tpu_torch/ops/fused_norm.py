@@ -3,7 +3,7 @@ plain PyTorch version, and the autograd Function that joins them.
 
 This replaces the three ops of the JAX package's
 ``howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py``, whose nine
-Pallas kernel bodies (the kernel table in PERF.md) become five CUDA kernels
+Pallas kernel bodies (the kernel table in PERF.md) become four CUDA kernels
 in ``csrc/fused_norm.cu``:
 
 =====================  ==========================================  =========
@@ -14,9 +14,8 @@ kernel                 replaces (pallas_fused_norm.py)             bytes
                        ``_apply_block_kernel`` (:194)
 ``bn_stats``           ``_fwd_pool_kernel`` stats half (:147),     4·R·C
                        ``_stats_pool_block_kernel`` (:248)
-``bn_act_bwd_reduce``  ``_bwd_kernel`` reduce half (:113),         8·R·C
-                       ``_bwd_stats_block_kernel`` (:206)
-``bn_act_bwd_apply``   ``_bwd_kernel`` apply half (:113),          12·R·C
+``bn_act_bwd``         ``_bwd_kernel`` (:113),                     12·R·C
+                       ``_bwd_stats_block_kernel`` (:206) +
                        ``_bwd_apply_block_kernel`` (:226)
 ``bn_act_pool_apply``  ``_fwd_pool_kernel`` apply half (:147),     5·R·C
                        ``_apply_pool_block_kernel`` (:267)
@@ -24,12 +23,13 @@ kernel                 replaces (pallas_fused_norm.py)             bytes
 
 R = N·H·W, float32. Each kernel streams its tensors once at a few flops per
 element, so memory bandwidth bounds it (3.35 TB/s on an H100 SXM); at the
-flagship shapes launch latency dominates. ``bn_stats`` and ``bn_stats_act``
-are one forward template: a grid over channels, each channel reduced by a
-thread-block cluster that stages it in shared memory and adds its blocks'
-partial sums through distributed shared memory in rank order, in one
-launch. :func:`_fwd_plan` picks the cluster size, the channels per block
-and the staged or streamed path from the shape and the device. The CUDA
+flagship shapes launch latency dominates. ``bn_stats``, ``bn_stats_act``
+and ``bn_act_bwd`` share one design: a grid over channels, each channel
+reduced by a thread-block cluster that stages it in shared memory (x, and
+for the backward the cotangent too) and adds its blocks' partial sums
+through distributed shared memory in rank order, in one launch. :func:`_plan`
+picks the cluster size, the channels per block and the staged or streamed
+path from the shape, the staged bytes a row and the device. The CUDA
 source says what the design does about the launch floor and the re-read,
 how the reductions stay deterministic (no float atomics), and which
 variance formula each path uses (two-pass staged, shifted single pass
@@ -40,7 +40,7 @@ Three entry points, one per JAX op:
 - ``fused_bn_leaky_relu`` (``custom_vjp``, :555): one reverse level, the
   eval path. A CPU tensor runs the plain version differentiated by
   autograd; a CUDA tensor runs ``FusedBNLeakyReLU`` (``bn_stats_act``
-  forward, K3 + K4 backward).
+  forward, ``bn_act_bwd`` backward).
 - ``fused_bn_leaky_relu_ho`` (recursive ``custom_jvp``, :633): any order,
   the train path. ``FusedBNLeakyReLUHO`` runs ``bn_stats_act`` forward;
   its backward is differentiable torch ops, as the JAX op's tangents are
@@ -55,8 +55,7 @@ recursion (its primal re-enters the op, :652). For a CPU tensor they run
 the plain bodies in place of the kernels, so the CPU tests exercise their
 autograd structure; any other device than the CPU or CUDA raises. There is
 no fallback from one to the other. Each kernel wrapper counts its launches
-in ``launch_counts``: one device launch per call, two for
-``bn_act_bwd_reduce``.
+in ``launch_counts``: one device launch per call.
 
 The library is built with ``nvcc`` on first use into ``_build/`` next to the
 package (listed in ``.gitignore``), keyed by a hash of the source and the
@@ -81,15 +80,11 @@ from torch.autograd.function import once_differentiable
 EPS = 1e-5
 SLOPE = 0.01
 
-KERNELS = (
-    "bn_stats", "bn_stats_act", "bn_act_bwd_reduce", "bn_act_bwd_apply",
-    "bn_act_pool_apply",
-)
+KERNELS = ("bn_stats", "bn_stats_act", "bn_act_bwd", "bn_act_pool_apply")
 
 #: Launches per kernel since the last ``reset_launch_counts``. Only the
-#: kernel wrappers below add to it, once per call of their C entry. Every
-#: entry is one device launch, but ``bn_act_bwd_reduce``, which is two
-#: (partials, then their fixed-order sum).
+#: kernel wrappers below add to it, once per call of their C entry; every
+#: entry is one device launch.
 launch_counts: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,6 +149,14 @@ def plain_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta, eps=EPS,
     return b(inv) * (
         dpre * ga - inv_n * ga * b(dbeta) - xhat * inv_n * ga * b(dgamma)
     )
+
+
+def plain_bwd(x, g, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
+    """``(dx, dgamma, dbeta)`` of the batch-statistics norm + LeakyReLU:
+    ``plain_bwd_reduce``, then ``plain_bwd_apply`` with its totals."""
+    dgamma, dbeta = plain_bwd_reduce(x, g, mean, var, gamma, beta, eps, slope)
+    dx = plain_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta, eps, slope)
+    return dx, dgamma, dbeta
 
 
 def _pool_views(x):
@@ -241,8 +244,7 @@ def _load():
             "bn_fwd_active_clusters": [i, i, i, i, p],
             "bn_stats": [p, p, p, i, i, i, *plan, p],
             "bn_stats_act": [p, p, p, p, p, p, i, i, i, f, f, *plan, p],
-            "bn_act_bwd_reduce": [p, p, p, p, p, p, p, p, p, i, i, i, i, f, f, p],
-            "bn_act_bwd_apply": [p, p, p, p, p, p, p, p, p, i, i, i, f, f, i, p],
+            "bn_act_bwd": [p, p, p, p, p, p, p, p, p, i, i, i, f, f, *plan, p],
             "bn_act_pool_apply": [p, p, p, p, p, p, i, i, i, i, f, f, i, p],
         }
         for name, argtypes in signatures.items():
@@ -304,14 +306,6 @@ def _dims(x):
     return n, c, h * w
 
 
-def _splits(x) -> int:
-    """Row splits per channel: enough blocks for ~4 per SM, each block over
-    at least 2048 rows."""
-    n, c, hw = _dims(x)
-    want_blocks = 4 * _limits(x.device)[0]
-    return max(1, min(-(-want_blocks // c), -(-(n * hw) // 2048)))
-
-
 def _elementwise_blocks(x) -> int:
     return max(1, min(-(-x.numel() // 256), 8 * _limits(x.device)[0]))
 
@@ -325,21 +319,26 @@ def _ptr(t):
 
 
 # ---------------------------------------------------------------------------
-# The forward's plan
+# The launch plan of the cluster kernels
 # ---------------------------------------------------------------------------
 
-#: Cluster sizes the forward takes; 16 is non-portable (opted into at load).
+#: Cluster sizes the plan takes; 16 is non-portable (opted into at load).
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 #: A channel of at most this many rows (N·H·W) is taken by one warp.
 WARP_ROWS = 2048
-#: Staged bytes per block the plan aims under with a portable cluster, so
-#: that two blocks share an SM and one loads while the other reduces.
+#: Staged bytes per block the plan aims under, so that two blocks share an
+#: SM and one loads while the other reduces.
 BLOCK_SLICE_BYTES = 96 * 1024
 FWD_THREADS = 256
+#: Shared-memory bytes a staged row takes: x for the forward, x and the
+#: cotangent for the backward.
+FWD_ROW_BYTES, BWD_ROW_BYTES = 4, 8
+#: The planned kernels, numbered as ``bn_fwd_active_clusters`` takes them.
+_PLANNED = {"bn_stats": 0, "bn_stats_act": 1, "bn_act_bwd": 2}
 
 
-class FwdPlan(NamedTuple):
-    """How one forward launch covers an ``(N, C, H, W)`` tensor.
+class Plan(NamedTuple):
+    """How one launch of a cluster kernel covers an ``(N, C, H, W)`` tensor.
 
     ``cluster`` blocks reduce one channel (``channels_per_block`` is then
     1), or, with ``cluster`` 1, each warp of a block of
@@ -360,56 +359,59 @@ def _slice_floats(rows: int, cluster: int) -> int:
     return (-(-rows // cluster) + 3) // 4 * 4
 
 
-def _staged_plan(shape, cluster: int) -> FwdPlan:
-    """The staged plan of ``cluster`` blocks a channel, one channel a block."""
+def _staged_plan(shape, cluster: int, row_bytes: int = FWD_ROW_BYTES) -> Plan:
+    """The staged plan of ``cluster`` blocks a channel, one channel a block,
+    ``row_bytes`` of shared memory a row."""
     n, c, h, w = shape
-    return FwdPlan(cluster, 1, True, 4 * _slice_floats(n * h * w, cluster),
-                   FWD_THREADS, c * cluster)
+    return Plan(cluster, 1, True, row_bytes * _slice_floats(n * h * w, cluster),
+                FWD_THREADS, c * cluster)
 
 
-def _fwd_plan(shape, sm_count: int, max_smem: int, max_cluster: int = 16,
-              streamed: bool = False) -> FwdPlan:
-    """The launch plan of ``bn_stats``/``bn_stats_act`` for ``shape``.
+def _plan(shape, sm_count: int, max_smem: int, row_bytes: int = FWD_ROW_BYTES,
+          max_cluster: int = 16, streamed: bool = False) -> Plan:
+    """The launch plan of a cluster kernel for ``shape``: ``bn_stats`` and
+    ``bn_stats_act`` stage ``FWD_ROW_BYTES`` a row, ``bn_act_bwd``
+    ``BWD_ROW_BYTES``.
 
     ``max_smem`` is the dynamic shared memory a block may take and
     ``max_cluster`` the largest cluster the card can hold at that size.
     ``streamed=True`` forces the streamed path (for tests). A channel of at
     most ``WARP_ROWS`` rows goes to a warp, ``min(8, C // sm_count)``
-    channels to a block. A larger one is staged by the smallest portable
-    cluster whose slices fit ``BLOCK_SLICE_BYTES``, else by the smallest
-    cluster up to ``max_cluster`` whose slices fit ``max_smem``: the
-    north-star target stage (75, 96, 84, 84), 2.1 MB a channel, takes a
-    16-block cluster of 129 KB slices on an H100, which keeps x read once,
-    where the streamed path would read it twice. Past that it streams, with
-    enough clusters for two blocks per SM where the channels allow."""
+    channels to a block. A larger one is staged by the smallest cluster up
+    to ``max_cluster`` whose slices fit ``BLOCK_SLICE_BYTES``, else by the
+    smallest whose slices fit ``max_smem``: the backward at (25, 96, 84, 84)
+    takes 16 blocks of 88 KB, which an H100 ran 10% faster than 8 of 176 KB
+    (PERF.md), and the forward's north-star target stage (75, 96, 84, 84),
+    2.1 MB a channel, 16 blocks of 129 KB, which keeps x read once, where
+    the streamed path would read it twice. Past that it streams (the
+    backward at that stage: 4.2 MB a channel), with enough clusters for two
+    blocks per SM where the channels allow."""
     n, c, h, w = shape
     rows = n * h * w
     if rows <= WARP_ROWS and not streamed:
         cpb = max(1, min(8, c // sm_count))
-        return FwdPlan(1, cpb, True, 4 * cpb * _slice_floats(rows, 1),
-                       32 * cpb, -(-c // cpb))
+        return Plan(1, cpb, True, row_bytes * cpb * _slice_floats(rows, 1),
+                    32 * cpb, -(-c // cpb))
     if not streamed:
         sizes = [k for k in CLUSTER_SIZES if k <= max_cluster]
-        for limit, ks in (
-            (min(BLOCK_SLICE_BYTES, max_smem), [k for k in sizes if k <= 8]),
-            (max_smem, sizes),
-        ):
-            for k in ks:
-                plan = _staged_plan(shape, k)
+        for limit in (min(BLOCK_SLICE_BYTES, max_smem), max_smem):
+            for k in sizes:
+                plan = _staged_plan(shape, k, row_bytes)
                 if plan.smem_bytes <= limit:
                     return plan
     k = next((k for k in CLUSTER_SIZES[:4] if c * k >= 2 * sm_count), 8)
-    return FwdPlan(k, 1, False, 0, FWD_THREADS, c * k)
+    return Plan(k, 1, False, 0, FWD_THREADS, c * k)
 
 
 _device_limits: dict[int, tuple[int, int]] = {}
 _checked_plans: dict[tuple, int] = {}
-_plans: dict[tuple, FwdPlan] = {}
+_plans: dict[tuple, Plan] = {}
 
 
 def _limits(device) -> tuple[int, int]:
     """``(sm_count, max dynamic shared memory)`` of the card, from the
-    library's one-time set-up, which also sets the forward's attributes."""
+    library's one-time set-up, which also sets the planned kernels'
+    attributes."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _device_limits:
         sm, smem = ctypes.c_int(), ctypes.c_int()
@@ -421,47 +423,68 @@ def _limits(device) -> tuple[int, int]:
     return _device_limits[index]
 
 
-def _active_clusters(device, plan: FwdPlan, apply: bool) -> int:
-    """Clusters of ``plan`` the card holds at once, asked once per plan."""
-    key = (device.index, plan, apply)
+def _active_clusters(device, plan: Plan, name: str) -> int:
+    """Clusters of ``plan`` the card holds at once for kernel ``name``,
+    asked once per plan."""
+    key = (device.index, plan, name)
     if key not in _checked_plans:
         _limits(device)  # the kernels' attributes are set before the query
         active = ctypes.c_int()
         with torch.cuda.device(device):
             rc = _load().bn_fwd_active_clusters(
-                int(apply), plan.cluster, plan.threads, plan.smem_bytes,
+                _PLANNED[name], plan.cluster, plan.threads, plan.smem_bytes,
                 ctypes.byref(active),
             )
         if rc != 0:
             raise RuntimeError(
-                f"bn_fwd_active_clusters failed for {plan}: cudaError {rc}"
+                f"bn_fwd_active_clusters failed for {name} {plan}: cudaError {rc}"
             )
         _checked_plans[key] = active.value
     return _checked_plans[key]
 
 
-def fwd_plan(x, streamed: bool = False) -> FwdPlan:
-    """The plan the forward kernels take for CUDA tensor ``x``: ``_fwd_plan``
-    on this card's limits, with a 16-block cluster only where the card can
-    hold one at its shared memory, checked once per shape."""
-    key = (x.device.index, tuple(x.shape), streamed)
+def _card_plan(x, streamed: bool, names: tuple[str, ...], row_bytes: int) -> Plan:
+    """``_plan`` on this card's limits for CUDA tensor ``x``, with a
+    16-block cluster only where the card holds one of each kernel of
+    ``names`` at its shared memory, checked once per shape."""
+    key = (x.device.index, tuple(x.shape), streamed, row_bytes)
     plan = _plans.get(key)
     if plan is None:
         sm, smem = _limits(x.device)
-        plan = _fwd_plan(x.shape, sm, smem, 16, streamed)
+        plan = _plan(x.shape, sm, smem, row_bytes, 16, streamed)
         if plan.cluster == 16 and min(
-            _active_clusters(x.device, plan, a) for a in (False, True)
+            _active_clusters(x.device, plan, n) for n in names
         ) == 0:
-            plan = _fwd_plan(x.shape, sm, smem, 8, streamed)
+            plan = _plan(x.shape, sm, smem, row_bytes, 8, streamed)
         _plans[key] = plan
     return plan
 
 
-def _check_plan(name, x, plan):
+def fwd_plan(x, streamed: bool = False) -> Plan:
+    """The plan ``bn_stats`` and ``bn_stats_act`` take for ``x``: one plan,
+    so that both give the same statistics."""
+    return _card_plan(x, streamed, ("bn_stats", "bn_stats_act"), FWD_ROW_BYTES)
+
+
+def bwd_plan(x, streamed: bool = False) -> Plan:
+    """The plan ``bn_act_bwd`` takes for ``x``."""
+    return _card_plan(x, streamed, ("bn_act_bwd",), BWD_ROW_BYTES)
+
+
+def _check_plan(name, x, plan, row_bytes):
     n, c, hw = _dims(x)
     if n * hw >= 2**31:
         raise ValueError(f"{name}: a channel of {n * hw} elements exceeds int32")
-    if _active_clusters(x.device, plan, name == "bn_stats_act") == 0:
+    k, cpb = plan.cluster, plan.channels_per_block
+    staged = row_bytes * cpb * _slice_floats(n * hw, k)
+    if (
+        k not in CLUSTER_SIZES or (k > 1 and cpb != 1)
+        or plan.threads % (32 * cpb) or plan.threads > FWD_THREADS
+        or plan.blocks != (c * k if k > 1 else -(-c // cpb))
+        or (plan.staged and plan.smem_bytes < staged)
+    ):
+        raise ValueError(f"{name}: {plan} does not cover {tuple(x.shape)}")
+    if _active_clusters(x.device, plan, name) == 0:
         raise RuntimeError(f"{name}: the card holds no cluster of {plan}")
 
 
@@ -470,14 +493,14 @@ def _plan_args(plan):
             plan.threads, plan.blocks, plan.smem_bytes)
 
 
-def bn_stats(x, plan: FwdPlan | None = None):
+def bn_stats(x, plan: Plan | None = None):
     """Per-channel ``(mean, biased var)`` of NCHW ``x``: one launch of the
     forward template without the apply. ``plan`` overrides
     :func:`fwd_plan` (tests force the streamed path with it)."""
     _check(x)
     n, c, hw = _dims(x)
     plan = plan or fwd_plan(x)
-    _check_plan("bn_stats", x, plan)
+    _check_plan("bn_stats", x, plan, FWD_ROW_BYTES)
     mean = torch.empty(c, device=x.device, dtype=torch.float32)
     var = torch.empty_like(mean)
     with torch.cuda.device(x.device):
@@ -486,13 +509,13 @@ def bn_stats(x, plan: FwdPlan | None = None):
     return mean, var
 
 
-def bn_stats_act(x, gamma, beta, eps=EPS, slope=SLOPE, plan: FwdPlan | None = None):
+def bn_stats_act(x, gamma, beta, eps=EPS, slope=SLOPE, plan: Plan | None = None):
     """``(y, mean, var)`` in one launch: ``bn_stats``'s statistics, bitwise,
     and ``plain_apply`` with them."""
     _check(x, gamma, beta)
     n, c, hw = _dims(x)
     plan = plan or fwd_plan(x)
-    _check_plan("bn_stats_act", x, plan)
+    _check_plan("bn_stats_act", x, plan, FWD_ROW_BYTES)
     y = torch.empty_like(x)
     mean = torch.empty(c, device=x.device, dtype=torch.float32)
     var = torch.empty_like(mean)
@@ -503,34 +526,24 @@ def bn_stats_act(x, gamma, beta, eps=EPS, slope=SLOPE, plan: FwdPlan | None = No
     return y, mean, var
 
 
-def bn_act_bwd_reduce(x, g, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
-    """Kernel K3: ``plain_bwd_reduce`` on the card -> ``(dgamma, dbeta)``."""
+def bn_act_bwd(x, g, mean, var, gamma, beta, eps=EPS, slope=SLOPE,
+               plan: Plan | None = None):
+    """``plain_bwd`` on the card -> ``(dx, dgamma, dbeta)``, in one launch.
+    ``g`` is the cotangent of ``y``; ``mean``/``var`` the forward's
+    statistics. ``plan`` overrides :func:`bwd_plan`."""
     _check(x, mean, var, gamma, beta)
     _check_like(g, x)
     n, c, hw = _dims(x)
-    splits = _splits(x)
+    plan = plan or bwd_plan(x)
+    _check_plan("bn_act_bwd", x, plan, BWD_ROW_BYTES)
+    dx = torch.empty_like(x)
     dgamma = torch.empty(c, device=x.device, dtype=torch.float32)
     dbeta = torch.empty_like(dgamma)
-    partials = torch.empty((c, splits, 2), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        _launch("bn_act_bwd_reduce", _ptr(x), _ptr(g), _ptr(mean), _ptr(var),
-                _ptr(gamma), _ptr(beta), _ptr(dgamma), _ptr(dbeta),
-                _ptr(partials), n, c, hw, splits, eps, slope, _stream(x))
-    return dgamma, dbeta
-
-
-def bn_act_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta, eps=EPS,
-                     slope=SLOPE):
-    """Kernel K4: ``plain_bwd_apply`` on the card -> dx."""
-    _check(x, mean, var, gamma, beta, dgamma, dbeta)
-    _check_like(g, x)
-    n, c, hw = _dims(x)
-    dx = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _launch("bn_act_bwd_apply", _ptr(x), _ptr(g), _ptr(mean), _ptr(var),
-                _ptr(gamma), _ptr(beta), _ptr(dgamma), _ptr(dbeta), _ptr(dx),
-                n, c, hw, eps, slope, _elementwise_blocks(x), _stream(x))
-    return dx
+        _launch("bn_act_bwd", _ptr(x), _ptr(g), _ptr(mean), _ptr(var),
+                _ptr(gamma), _ptr(beta), _ptr(dx), _ptr(dgamma), _ptr(dbeta),
+                n, c, hw, eps, slope, *_plan_args(plan), _stream(x))
+    return dx, dgamma, dbeta
 
 
 def _check_even(x):
@@ -559,9 +572,10 @@ def bn_act_pool_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
 
 
 class FusedBNLeakyReLU(torch.autograd.Function):
-    """``bn_stats_act`` forward, K3 + K4 backward. One level of reverse mode, the
-    contract of the JAX ``custom_vjp``; the batch statistics are outputs
-    without gradient, as ``_fused_vjp_bwd`` drops their cotangents."""
+    """``bn_stats_act`` forward, ``bn_act_bwd`` backward. One level of
+    reverse mode, the contract of the JAX ``custom_vjp``; the batch
+    statistics are outputs without gradient, as ``_fused_vjp_bwd`` drops
+    their cotangents."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, slope):
@@ -575,12 +589,8 @@ class FusedBNLeakyReLU(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gy, _gmean, _gvar):
         x, gamma, beta, mean, var = ctx.saved_tensors
-        g = gy.contiguous()
-        dgamma, dbeta = bn_act_bwd_reduce(
-            x, g, mean, var, gamma, beta, ctx.eps, ctx.slope
-        )
-        dx = bn_act_bwd_apply(
-            x, g, mean, var, gamma, beta, dgamma, dbeta, ctx.eps, ctx.slope
+        dx, dgamma, dbeta = bn_act_bwd(
+            x, gy.contiguous(), mean, var, gamma, beta, ctx.eps, ctx.slope
         )
         return dx, dgamma, dbeta, None, None
 

@@ -92,6 +92,29 @@ def test_plain_matches_pallas_blocked(shape, rng, small_blocks):
     _assert_matches_jax(*_inputs(rng, shape))
 
 
+def _assert_plain_bwd_matches_jax(x, gamma, beta, g):
+    """``plain_bwd``, the version ``bn_act_bwd`` is held to on the card,
+    from the port's statistics, against the Pallas op's gradients."""
+    _, jgrads = _jax_op(x, gamma, beta, g)
+    xt, gt, bt, g_t = (torch.from_numpy(a) for a in (x, gamma, beta, g))
+    mean, var = tfn.plain_stats(xt)
+    grads = tfn.plain_bwd(xt, g_t, mean, var, gt, bt, EPS, SLOPE)
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), grads, jgrads):
+        np.testing.assert_allclose(
+            a.numpy(), b, rtol=GRAD_TOL[0], atol=GRAD_TOL[1], err_msg=name
+        )
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 4, 4), (10, 64, 14, 14), (5, 3, 3, 3)])
+def test_plain_bwd_matches_pallas_single_block(shape, rng):
+    _assert_plain_bwd_matches_jax(*_inputs(rng, shape))
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 4, 4), (4, 8, 7, 9)])
+def test_plain_bwd_matches_pallas_blocked(shape, rng, small_blocks):
+    _assert_plain_bwd_matches_jax(*_inputs(rng, shape))
+
+
 def test_leaky_relu_gradient_at_zero_takes_positive_branch(rng):
     """pre == 0 exactly: each row of each channel is {-1, 0, 1} twice, gamma 1 and beta
     0, so the mean is exactly 0 and so are x-hat and pre at the zeros. JAX
@@ -121,6 +144,15 @@ def test_cpu_calls_launch_no_kernel(rng):
     _port_op(x, gamma, beta, g)
     _port_formulas(x, gamma, beta, g)
     assert tfn.launch_counts == dict.fromkeys(tfn.KERNELS, 0)
+
+
+def test_backward_kernel_refuses_cpu_tensors(rng):
+    """``bn_act_bwd`` takes CUDA tensors only: on the CPU the Function's
+    backward is the plain version differentiated by autograd."""
+    x, gamma, beta, g = (torch.from_numpy(a) for a in _inputs(rng, (2, 3, 4, 4)))
+    mean, var = tfn.plain_stats(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfn.bn_act_bwd(x, g, mean, var, gamma, beta)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_version():

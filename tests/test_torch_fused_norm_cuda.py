@@ -56,14 +56,12 @@ def _close(got, want):
 def test_kernels_match_plain(shape, cuda):
     x, gamma, beta, g = _inputs(shape, cuda)
     mean, var = tfn.plain_stats(x)
-    dgamma, dbeta = tfn.plain_bwd_reduce(x, g, mean, var, gamma, beta)
     pairs = [
         (tfn.bn_stats(x), (mean, var)),
         (tfn.bn_stats_act(x, gamma, beta),
          (tfn.plain_apply(x, mean, var, gamma, beta), mean, var)),
-        (tfn.bn_act_bwd_reduce(x, g, mean, var, gamma, beta), (dgamma, dbeta)),
-        ((tfn.bn_act_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta),),
-         (tfn.plain_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta),)),
+        (tfn.bn_act_bwd(x, g, mean, var, gamma, beta),
+         tfn.plain_bwd(x, g, mean, var, gamma, beta)),
     ]
     torch.cuda.synchronize()
     for got, want in pairs:
@@ -105,6 +103,40 @@ def test_forward_kernels_match_plain(shape, streamed, cuda):
     _close(y, tfn.plain_apply(x, p_mean, p_var, gamma, beta))
 
 
+@pytest.mark.parametrize(
+    "shape,streamed",
+    [
+        ((5, 512, 7, 7), False),   # a warp a channel, 3 channels a block
+        ((15, 256, 3, 3), False),  # H*W 9: scalar copies
+        ((3, 5, 7, 9), False),     # odd H*W
+        ((1, 8, 28, 28), False),   # N = 1
+        ((4, 1, 14, 14), False),   # C = 1
+        ((25, 96, 84, 84), False),  # a cluster of blocks
+        ((5, 256, 28, 28), True),  # forced onto the streamed path
+        ((3, 5, 7, 9), True),
+    ],
+)
+def test_backward_kernel_matches_plain(shape, streamed, cuda):
+    """bn_act_bwd against plain_bwd on the same statistics; two calls
+    bitwise equal."""
+    x, gamma, beta, g = _inputs(shape, cuda)
+    x = 2 * x + 3
+    mean, var = tfn.plain_stats(x)
+    plan = tfn.bwd_plan(x, streamed=streamed)
+    assert plan.staged != streamed
+    if shape == (5, 512, 7, 7):
+        assert plan.channels_per_block > 1, plan
+    if shape == (25, 96, 84, 84):
+        assert plan.cluster > 1, plan
+    got = tfn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=plan)
+    again = tfn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=plan)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for a, b in zip(got, tfn.plain_bwd(x, g, mean, var, gamma, beta)):
+        _close(a, b)
+
+
 def test_function_matches_plain_and_is_deterministic(cuda):
     x, gamma, beta, g = _inputs((5, 64, 14, 14), cuda)
     outs = []
@@ -122,10 +154,10 @@ def test_function_matches_plain_and_is_deterministic(cuda):
     _close(y, tfn.plain_apply(x, p_mean, p_var, gamma, beta))
     # Backward from the Function's own statistics, so both versions take the
     # same LeakyReLU branch where pre lies within rounding of 0.
-    p_dgamma, p_dbeta = tfn.plain_bwd_reduce(x, g, mean, var, gamma, beta)
+    p_dx, p_dgamma, p_dbeta = tfn.plain_bwd(x, g, mean, var, gamma, beta)
     _close(dgamma, p_dgamma)
     _close(dbeta, p_dbeta)
-    _close(dx, tfn.plain_bwd_apply(x, g, mean, var, gamma, beta, p_dgamma, p_dbeta))
+    _close(dx, p_dx)
 
 
 @pytest.mark.parametrize("shape", [(5, 512, 28, 28), (5, 512, 14, 14), (3, 5, 6, 10)])
@@ -218,8 +250,7 @@ def test_served_episodes_run_the_kernels(cuda):
     # One dispatch: 4 stages x (2 adapt steps + classify) forwards, 2 x 4
     # backwards.
     assert tfn.launch_counts == {
-        "bn_stats": 0, "bn_stats_act": 12, "bn_act_bwd_reduce": 8,
-        "bn_act_bwd_apply": 8, "bn_act_pool_apply": 0,
+        "bn_stats": 0, "bn_stats_act": 12, "bn_act_bwd": 8, "bn_act_pool_apply": 0,
     }, tfn.launch_counts
     want = plain.dispatch([plain.prepare_episode(*e) for e in raw])
     for a, b in zip(got, want):
@@ -255,7 +286,7 @@ def test_fused_train_step_runs_the_kernels(cuda):
     counts = dict(tfn.launch_counts)
     # 2 steps x (support + target) x 4 stages; stages 0-1 pool (28, 14).
     assert counts["bn_stats"] == 8 and counts["bn_stats_act"] == 8, counts
-    assert counts["bn_act_pool_apply"] == 8, counts
+    assert counts["bn_act_pool_apply"] == 8 and counts["bn_act_bwd"] == 0, counts
     _, plain = MAMLFewShotLearner(plain_cfg).run_train_iter(state, batch, epoch=0)
     np.testing.assert_allclose(float(losses["loss"]), float(plain["loss"]),
                                rtol=1e-4)

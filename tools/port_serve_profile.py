@@ -8,9 +8,12 @@ random weights from a seed, meta_batch_size=4), warms it up, then traces
 dispatches of 4 cache-missing 5x1x15 episodes with ``torch.profiler``.
 Prints the wall time per dispatch (untraced, host clock over work that ends
 in a synchronize), the device's busy time per dispatch (the union of traced
-kernel intervals) and the idle share between them, and the kernels by total
-device time. The episodes are timed with their host preparation.
-Needs a CUDA device; imports nothing of JAX.
+kernel intervals) and the idle share between them, the kernels by total
+device time, and the fused-norm kernels with the norm forward's and
+backward's device time per dispatch. The episodes are timed with their host
+preparation. It uses only the engine's public surface, so the same file
+profiles an earlier commit of the port too. Needs a CUDA device; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,6 +42,11 @@ FLAGSHIP = os.path.join(
     REPO, "experiment_config", "omniglot_maml++-omniglot_1_8_0.1_64_5_0.json"
 )
 DISPATCHES = 5
+# Kernel-name fragments of the fused-norm kernels of csrc/fused_norm.cu; the
+# backward's also match the three kernels (bn_act_bwd_partial, _finalize,
+# _apply) that bn_bwd_kernel replaced.
+NORM_FORWARD = ("bn_fwd_kernel",)
+NORM_BACKWARD = ("bn_bwd_kernel", "bn_act_bwd_")
 
 
 def episodes(engine, rng, count):
@@ -109,6 +117,15 @@ def main() -> int:
     for e in rows[:15]:
         print(f"{e.key[:90]} | {e.count / DISPATCHES:.1f} | "
               f"{e.self_device_time_total / 1e3 / DISPATCHES:.4f}")
+    print("fused-norm kernel | calls per dispatch | device ms per dispatch")
+    for part, fragments in (("forward", NORM_FORWARD), ("backward", NORM_BACKWARD)):
+        hits = [e for e in rows if any(f in e.key for f in fragments)]
+        for e in hits:
+            print(f"{e.key[:90]} | {e.count / DISPATCHES:.1f} | "
+                  f"{e.self_device_time_total / 1e3 / DISPATCHES:.4f}")
+        print(f"norm {part}: {sum(e.count for e in hits) / DISPATCHES:.1f} device "
+              f"launches, {sum(e.self_device_time_total for e in hits) / 1e3 / DISPATCHES:.4f}"
+              " ms per dispatch")
     return 0
 
 
