@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero before the result lines:
              filters folded into 256 channels; support N=5 and query N=15
              at the 28, 14, 7 and 3 pixel stages), at those of the train
              path (8 tasks, 512 channels, N=5) and at the north-star
-             support and target stage-0 shapes (25|75, 96, 84, 84); both
-             also on their streamed path, forced, at (25, 96, 84, 84).
+             support and target shapes of every normed stage (25|75, 96,
+             84|42|21|10); both also on their streamed path, forced, at
+             (25, 96, 84, 84).
              Holds forward y/mean/var and backward dx/dgamma/dbeta to the
              plain PyTorch version, each kernel's two calls, the forward's
              two entries' statistics and the backward's two routes to each
@@ -24,7 +25,8 @@ Phases, in order; any failure exits non-zero before the result lines:
              its bound and the library yardsticks, with its launch plan.
    pool    - K5 (``bn_act_pool_apply``) against ``plain_pool_apply`` at the
              train path's pooled stages (5, 512, 28, 28) and (5, 512, 14,
-             14) and at the north-star shape; the same timings.
+             14) and at the north star's (25|75, 96, 84|42|10); the same
+             timings.
    functions - the any-order Functions on the card: forward, first-order
              gradients of a loss over y, mean and var, and the
              reverse-over-reverse composition, against the plain
@@ -52,7 +54,40 @@ Phases, in order; any failure exits non-zero before the result lines:
              loss and meta-gradient against a plain-norm learner on the
              same state; one past-horizon iteration's launches; one
              ``run_validation_iter`` with finite logits.
-5. result  - one JSON line listing the kernels, the nvidia-smi line, and
+   remat   - remat_inner_steps on, as the CLI trains, at flagship width
+             (the train phase's batch) and at north-star width (2 tasks, 5
+             support and 15 target 84x84 RGB images a class): the fused
+             learner's first loss and meta-gradient bitwise equal to its
+             own without remat, and held to the plain-norm learner's under
+             the train phase's tolerances.
+5. cli flagship - the training command line
+             (``train_maml_system.main``, in this process) on the flagship
+             JSON with the three fused flags, over a synthetic Omniglot-shaped
+             tree of 250 classes x 20 binary 28x28 PNGs (a made-up
+             dataset_name, so it is not count-checked): 2 epochs of 25
+             iterations with 80 validation tasks and the ensemble test, then
+             ``--continue_from_epoch latest`` to 3 epochs. Each call returns;
+             the CSV has 3 rows, every loss is finite, the test accuracy is in
+             [0, 1] and the resumed run starts at iteration 50. Launches of
+             each kernel per train and per eval iteration are held exactly
+             (remat_inner_steps on, the config default). The first call
+             synchronizes after each learner call, for per-step times; the
+             resumed one runs as the CLI does, for the whole loop's rate.
+6. cli north star - the same on the mini-ImageNet north-star JSON
+             (84x84x3, 48 filters, 2 tasks 5-way 5-shot, 15 targets) over a
+             pre-split tree of 64/16/20 classes x 20 RGB PNGs (600 images a
+             class cut to 20): 1 epoch of 10 iterations, 20 evaluation tasks,
+             the ensemble over the one model, then ``latest`` to 2 epochs.
+             Both CLI phases print, per step, meta-iterations/s and step p50
+             over the synchronized iterations after the first two of a call
+             and the share of that time spent blocked on the loader; for the
+             whole loop, the unsynchronized call's train iterations over
+             its train loop's wall time, epoch boundaries included; peak
+             device memory, the validation and test accuracy and the
+             launches. Phases 3-6 record every kernel call's input shape;
+             each must be one the kernel and pool phases held to the plain
+             version.
+7. result  - one JSON line listing the kernels, the nvidia-smi line, and
              the last line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX; exits non-zero without a CUDA device.
@@ -72,6 +107,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(
     REPO, "experiment_config", "omniglot_maml++-omniglot_1_8_0.1_64_5_0.json"
+)
+NORTH_STAR = os.path.join(
+    REPO, "experiment_config", "mini-imagenet_maml++-mini-imagenet_5_2_0.01_48_5_0.json"
 )
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and non-tensor float32 rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -113,10 +151,16 @@ TRAIN_SHAPES = [(5, 512, hw, hw) for hw in (28, 14, 7, 3)]
 NORTH_STAR_SHAPE = (25, 96, 84, 84)
 # The north-star target set: 15 queries x 5 classes, 2 tasks folded.
 NORTH_STAR_TARGET = (75, 96, 84, 84)
+# The north star's later stages as the CLI gives them (support N=25,
+# target N=75, 2 tasks x 48 filters): 42 and 10 pooled, 21 not.
+NORTH_STAR_STAGES = [(n, 96, hw, hw) for n in (25, 75) for hw in (42, 21, 10)]
 # Both kernels forced onto their streamed path (the backward takes it at
 # NORTH_STAR_TARGET; the forward at no shape of the repo).
 STREAMED_SHAPE = NORTH_STAR_SHAPE
-POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE]
+KERNEL_SHAPES = (FLAGSHIP_SHAPES + TRAIN_SHAPES + [NORTH_STAR_SHAPE, NORTH_STAR_TARGET]
+                 + NORTH_STAR_STAGES)
+POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE, NORTH_STAR_TARGET,
+               *(s for s in NORTH_STAR_STAGES if s[2] % 2 == 0)]
 FORWARD = ("bn_stats", "bn_stats_act")
 # Launches of each kernel per serve dispatch of 4 episodes (4 stages x (5
 # adapt steps + 1 classify) forwards, 5 x 4 backwards) and per flagship
@@ -126,6 +170,24 @@ SERVE_LAUNCHES = {"bn_stats": 0, "bn_stats_act": 24, "bn_act_bwd": 20,
                   "bn_act_pool_apply": 0}
 TRAIN_LAUNCHES = {"bn_stats": 20, "bn_stats_act": 20, "bn_act_bwd": 0,
                   "bn_act_pool_apply": 20}
+# The CLI phases (fused_norm_train, fused_norm_pool, use_pallas_fused_norm,
+# remat_inner_steps on as the configs leave it). A train iteration: 5 inner
+# steps x support and target over the pooled stages (bn_stats + K5) and the
+# others (bn_stats_act), the checkpointed steps recomputing 1.5 of every 2
+# forwards in the outer backward. An eval iteration: 5 support + 1 target
+# forwards a stage, a bn_act_bwd for each inner gradient of an unpooled
+# stage. Flagship stages 28, 14 pooled, 7, 3 not; north star 84, 42, 10
+# pooled, 21 not.
+CLI_FLAGSHIP_TRAIN = {"bn_stats": 50, "bn_stats_act": 50, "bn_act_bwd": 0,
+                      "bn_act_pool_apply": 50}
+CLI_FLAGSHIP_EVAL = {"bn_stats": 12, "bn_stats_act": 12, "bn_act_bwd": 10,
+                     "bn_act_pool_apply": 12}
+CLI_NORTH_TRAIN = {"bn_stats": 75, "bn_stats_act": 25, "bn_act_bwd": 0,
+                   "bn_act_pool_apply": 75}
+CLI_NORTH_EVAL = {"bn_stats": 18, "bn_stats_act": 6, "bn_act_bwd": 5,
+                  "bn_act_pool_apply": 18}
+FUSED_ARGV = ["--use_pallas_fused_norm", "True", "--fused_norm_train", "True",
+              "--fused_norm_pool", "True"]
 # Flops per input element each kernel does, counted from its source
 # (bn_act_bwd: 8 in the reduce, 10 in the apply, the LeakyReLU's slope
 # product counted on every element).
@@ -541,15 +603,117 @@ def train_batch(rng, tasks=8):
     return xs, xt, ys, ys.copy()
 
 
+def first_step(learner, state0, batch):
+    """The first second-order MSL step's loss and meta-gradient."""
+    dbatch = learner._device_batch(state0, batch)
+    importance = learner._importance(state0, learner._train_importance(0))
+    loss, _, _, grads = learner._meta_grads(
+        state0, dbatch, importance, second_order=True, final_only=False
+    )
+    return loss, grads
+
+
+def compare_with_plain(fused, plain, tag) -> dict:
+    """``first_step`` of the fused learner against the plain-norm learner's
+    on the same state and batch, per leaf under the GRAD/ROUTING
+    tolerances."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import (
+        tree_leaves,
+        tree_map_with_path,
+    )
+
+    (fused_loss, fused_grads), (plain_loss, plain_grads) = fused, plain
+    loss_gap = abs(float(fused_loss) - float(plain_loss)) / abs(float(plain_loss))
+    if loss_gap > TRAIN_LOSS_RTOL:
+        fail(f"{tag}: first loss {float(fused_loss)} vs plain {float(plain_loss)}")
+    worst, routed = 0.0, []
+    names = tree_leaves(tree_map_with_path(
+        lambda p, a: None if a is None else "/".join(p), plain_grads
+    ))
+    for name, a, b in zip(names, tree_leaves(fused_grads), tree_leaves(plain_grads)):
+        scale = float(b.abs().max())
+        gap = float((a - b).abs().max())
+        worst = max(worst, gap / (GRAD_ATOL + GRAD_RTOL * scale))
+        if gap > GRAD_ATOL + GRAD_RTOL * scale:
+            routed.append((name, gap, scale))
+            print(f"[{tag}] routing gap: {name} max|fused-plain| {gap:.3e} "
+                  f"against max|plain| {scale:.3e}")
+            if gap > ROUTING_RTOL * scale:
+                fail(f"{tag}: meta-gradient leaf {name} off by {gap} "
+                     f"(max|plain| {scale})")
+    return {
+        "first_loss_rel_gap_vs_plain": loss_gap,
+        "worst_grad_gap_over_tolerance": worst,
+        "routing_gap_leaves": routed,
+    }
+
+
+def fused_and_plain(config):
+    """Learners of ``config`` with the three fused flags on and off."""
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
+        load_maml_config,
+    )
+
+    return [
+        MAMLFewShotLearner(load_maml_config(config, **dict.fromkeys(
+            ("use_pallas_fused_norm", "fused_norm_train", "fused_norm_pool"), on
+        )))
+        for on in (True, False)
+    ]
+
+
+def north_star_batch(rng):
+    """Random normalised 84x84 RGB images in the north star's episode
+    shapes: 2 tasks, 5 classes, 5 support and 15 target images each."""
+    xs = rng.randn(2, 5, 5, 3, 84, 84).astype(np.float32)
+    xt = rng.randn(2, 5, 15, 3, 84, 84).astype(np.float32)
+    ys = np.tile(np.arange(5).reshape(1, 5, 1), (2, 1, 5))
+    yt = np.tile(np.arange(5).reshape(1, 5, 1), (2, 1, 15))
+    return xs, xt, ys, yt
+
+
+def remat_phase(torch) -> dict:
+    """``remat_inner_steps`` on, as the CLI trains (the configs leave it at
+    its default), at flagship width on the train phase's batch and at
+    north-star width: the fused learner's first loss and meta-gradient
+    bitwise equal to its own without remat (remat changes what a step
+    keeps, not what it computes), and held to the plain-norm learner's
+    with remat under the train phase's tolerances."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    out = {}
+    for tag, config, batch in (
+        ("remat_flagship", FLAGSHIP, train_batch(np.random.RandomState(2))),
+        ("remat_north_star", NORTH_STAR, north_star_batch(np.random.RandomState(3))),
+    ):
+        learner, plain = fused_and_plain(config)
+        if not (learner.cfg.remat_inner_steps and plain.cfg.remat_inner_steps):
+            fail(f"{tag}: remat_inner_steps is off")
+        no_remat = type(learner)(dataclasses.replace(learner.cfg, remat_inner_steps=False))
+        state0 = learner.init_state(torch.Generator().manual_seed(104))
+        fused = first_step(learner, state0, batch)
+        kept = first_step(no_remat, state0, batch)
+        same = torch.equal(fused[0], kept[0]) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(fused[1]), tree_leaves(kept[1]))
+        )
+        if not same:
+            fail(f"{tag}: remat changed the fused learner's first loss or "
+                 f"meta-gradient ({float(fused[0])} against {float(kept[0])})")
+        out[tag] = {"bitwise_equal_without_remat": same, **compare_with_plain(
+            fused, first_step(plain, state0, batch), tag
+        )}
+        del learner, plain, no_remat, state0, fused, kept
+        torch.cuda.empty_cache()
+    return out
+
+
 def train_phase(torch, fn):
     from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
     from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
         load_maml_config,
     )
-    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import (
-        tree_leaves,
-        tree_map_with_path,
-    )
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
     cfg = load_maml_config(FLAGSHIP, fused_norm_train=True, fused_norm_pool=True)
     cfg = dataclasses.replace(cfg, remat_inner_steps=False)
@@ -588,31 +752,9 @@ def train_phase(torch, fn):
         fail(f"a rerun from the same state differs: {losses} vs {losses_again}")
 
     # The first step against the plain-norm learner on the same state.
-    dbatch = learner._device_batch(state0, batch)
-    importance = learner._importance(state0, learner._train_importance(0))
-    fused_loss, _, _, fused_grads = learner._meta_grads(
-        state0, dbatch, importance, second_order=True, final_only=False
+    vs_plain = compare_with_plain(
+        first_step(learner, state0, batch), first_step(plain, state0, batch), "train"
     )
-    plain_loss, _, _, plain_grads = plain._meta_grads(
-        state0, dbatch, importance, second_order=True, final_only=False
-    )
-    loss_gap = abs(float(fused_loss) - float(plain_loss)) / abs(float(plain_loss))
-    if loss_gap > TRAIN_LOSS_RTOL:
-        fail(f"first loss {float(fused_loss)} vs plain {float(plain_loss)}")
-    worst, routed = 0.0, []
-    names = tree_leaves(tree_map_with_path(
-        lambda p, a: None if a is None else "/".join(p), plain_grads
-    ))
-    for name, a, b in zip(names, tree_leaves(fused_grads), tree_leaves(plain_grads)):
-        scale = float(b.abs().max())
-        gap = float((a - b).abs().max())
-        worst = max(worst, gap / (GRAD_ATOL + GRAD_RTOL * scale))
-        if gap > GRAD_ATOL + GRAD_RTOL * scale:
-            routed.append((name, gap, scale))
-            print(f"[train] routing gap: {name} max|fused-plain| {gap:.3e} "
-                  f"against max|plain| {scale:.3e}")
-            if gap > ROUTING_RTOL * scale:
-                fail(f"meta-gradient leaf {name} off by {gap} (max|plain| {scale})")
 
     # One past-horizon iteration: only the last step's target pass runs.
     fn.reset_launch_counts()
@@ -630,15 +772,294 @@ def train_phase(torch, fn):
         "step_ms": step_ms,
         "losses": losses,
         "rerun_bitwise_equal": same,
-        "first_loss_rel_gap_vs_plain": loss_gap,
-        "worst_grad_gap_over_tolerance": worst,
-        "routing_gap_leaves": routed,
+        **vs_plain,
         "launches": launches,
         "launches_per_iter": {k: v / TRAIN_ITERS for k, v in launches.items()},
         "final_only_launches_per_iter": final_only_launches,
         "validation_loss": float(vm["loss"]),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+
+
+
+def write_omniglot_tree(root, classes=250, images=20):
+    """``root/alphabet<a>/character<c>/<i>.png``: 28x28 1-bit images,
+    sparse strokes on a blank ground."""
+    from PIL import Image
+
+    rng = np.random.RandomState(5)
+    for c in range(classes):
+        d = os.path.join(root, f"alphabet{c // 10:02d}", f"character{c % 10:02d}")
+        os.makedirs(d)
+        proto = rng.rand(28, 28) > 0.85
+        for i in range(images):
+            img = proto ^ (rng.rand(28, 28) > 0.97)
+            Image.fromarray(img).save(os.path.join(d, f"{i}.png"))
+
+
+def write_imagenet_tree(root, images=20):
+    """``root/{train,val,test}/n<c>/<i>.png``: 84x84 RGB, 64/16/20 classes."""
+    from PIL import Image
+
+    rng = np.random.RandomState(6)
+    for split, classes in (("train", 64), ("val", 16), ("test", 20)):
+        for c in range(classes):
+            d = os.path.join(root, split, f"n{c:04d}")
+            os.makedirs(d)
+            base = rng.randint(0, 256, (84, 84, 3))
+            for i in range(images):
+                pixels = (base + rng.randint(-40, 41, (84, 84, 3))).clip(0, 255)
+                Image.fromarray(pixels.astype(np.uint8)).save(
+                    os.path.join(d, f"{i}.png")
+                )
+
+
+class CliProbe:
+    """Records, around each learner call that a CLI run makes, the kernel
+    launches it made and its wall time, each train iteration's wait on the
+    loader, and the wall time of each train loop (epoch boundaries
+    included). With ``sync`` set, each learner call ends in a
+    synchronize, so that its wall time is its own; without, the loop runs
+    as the CLI runs it."""
+
+    def __init__(self, torch, fn):
+        from howtotrainyourmamlpytorch_tpu_torch.data import (
+            MetaLearningSystemDataLoader,
+        )
+        from howtotrainyourmamlpytorch_tpu_torch.experiment_builder import (
+            ExperimentBuilder,
+        )
+        from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+
+        self.torch, self.fn = torch, fn
+        self.targets = [(MAMLFewShotLearner, "run_train_iter"),
+                        (MAMLFewShotLearner, "run_validation_iter"),
+                        (MetaLearningSystemDataLoader, "pop_data_wait"),
+                        (ExperimentBuilder, "_train_loop_host")]
+        self.train, self.eval, self.waits, self.loops = [], [], [], []
+        self.sync = True
+
+    def _timed(self, orig, log):
+        def call(learner, state, *args, **kwargs):
+            before = dict(self.fn.launch_counts)
+            t0 = time.perf_counter()
+            out = orig(learner, state, *args, **kwargs)
+            if self.sync:
+                self.torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            log.append({
+                "t0": t0, "t1": t1, "iteration": int(state.iteration),
+                "synchronized": self.sync,
+                "launches": {k: self.fn.launch_counts[k] - before[k]
+                             for k in before},
+            })
+            return out
+        return call
+
+    def __enter__(self):
+        self.saved = [getattr(cls, name) for cls, name in self.targets]
+        train, evaluate, pop, loop = self.saved
+        waits = self.waits
+
+        def pop_data_wait(loader):
+            waits.append(pop(loader))
+            return waits[-1]
+
+        def train_loop(builder, total_iters):
+            start, t0 = len(self.train), time.perf_counter()
+            try:
+                return loop(builder, total_iters)
+            finally:
+                seconds = time.perf_counter() - t0
+                iterations = len(self.train) - start
+                self.loops.append({
+                    "synchronized": self.sync, "iterations": iterations,
+                    "seconds": seconds, "meta_iters_per_s": iterations / seconds,
+                })
+
+        for (cls, name), fn in zip(self.targets, (
+            self._timed(train, self.train), self._timed(evaluate, self.eval),
+            pop_data_wait, train_loop,
+        )):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), fn in zip(self.targets, self.saved):
+            setattr(cls, name, fn)
+
+    def per_step(self, starts, per_epoch: int) -> dict:
+        """Meta-iterations/s, step p50 ms and the loader-wait share over the
+        synchronized train iterations after the first two of each call
+        (``starts``: the index of each call's first), leaving out the
+        cycles that hold an epoch boundary."""
+        steps, cycles, waits = [], [], []
+        ends = [*starts[1:], len(self.train)]
+        for start, end in zip(starts, ends):
+            for i in range(start + 2, end):
+                rec = self.train[i]
+                if rec["iteration"] % per_epoch == 0 or not rec["synchronized"]:
+                    continue
+                steps.append((rec["t1"] - rec["t0"]) * 1e3)
+                cycles.append(rec["t1"] - self.train[i - 1]["t1"])
+                waits.append(self.waits[i])
+        return {
+            "timed_iterations": len(steps),
+            "meta_iters_per_s": len(cycles) / sum(cycles),
+            "step_p50_ms": float(np.median(steps)),
+            "loader_wait_share": sum(waits) / sum(cycles),
+        }
+
+
+def run_cli(main, argv) -> dict:
+    try:
+        return main(argv)
+    except SystemExit as exc:
+        fail(f"the CLI exited early ({exc.code}) on {argv}")
+
+
+def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train,
+              want_eval):
+    """Writes the tree and a derived JSON under a temporary directory and
+    drives ``train_maml_system.main`` once per entry of ``calls`` (extra
+    JSON keys, extra argv, whether the probe synchronizes after each
+    learner call); returns the phase's measurements. The directory is
+    removed at the end."""
+    import tempfile
+
+    from howtotrainyourmamlpytorch_tpu_torch.data.fast_synth import native_available
+    from howtotrainyourmamlpytorch_tpu_torch.train_maml_system import main
+
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
+        dataset = overrides["dataset_name"]
+        t0 = time.perf_counter()
+        tree_writer(os.path.join(tmp, dataset))
+        tree_s = time.perf_counter() - t0
+        os.environ["DATASET_DIR"] = tmp
+        with open(config) as f:
+            base = json.load(f)
+        base.update(overrides, dataset_path=dataset,
+                    experiment_name=os.path.join(tmp, "experiment"))
+        logs = os.path.join(tmp, "experiment", "logs")
+        results, probe = [], CliProbe(torch, fn)
+        torch.cuda.reset_peak_memory_stats()
+        fn.reset_launch_counts()
+        with probe:
+            for extra_json, extra_argv, sync in calls:
+                probe.sync = sync
+                path = os.path.join(tmp, f"config_{len(results)}.json")
+                with open(path, "w") as f:
+                    json.dump({**base, **extra_json}, f)
+                start = len(probe.train)
+                test = run_cli(main, ["--name_of_args_json_file", path, *FUSED_ARGV,
+                                      *extra_argv])
+                results.append({"test": {k: float(v) for k, v in test.items()},
+                                "start": start,
+                                "first_iteration": probe.train[start]["iteration"]})
+        launches = dict(fn.launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for kind, recs, want in (("train", probe.train, want_train),
+                                 ("eval", probe.eval, want_eval)):
+            bad = [r["launches"] for r in recs if r["launches"] != want]
+            if bad:
+                fail(f"{name}: {kind} iteration launches {bad[0]}, expected {want}")
+        total = {k: len(probe.train) * want_train[k] + len(probe.eval) * want_eval[k]
+                 for k in want_train}
+        if launches != total or not all(launches[k] for k in launches if total[k]):
+            fail(f"{name}: launches {launches}, expected {total}")
+        with open(os.path.join(logs, "summary_statistics.json")) as f:
+            stats = json.load(f)
+        with open(os.path.join(logs, "summary_statistics.csv")) as f:
+            csv_rows = len(f.read().splitlines()) - 1
+        losses = [v for k, vs in stats.items() if "loss" in k and "importance" not in k
+                  for v in vs]
+        if not np.isfinite(losses).all():
+            fail(f"{name}: non-finite losses in the statistics: {stats}")
+        for r in results:
+            if not 0.0 <= r["test"]["test_accuracy_mean"] <= 1.0:
+                fail(f"{name}: test accuracy {r['test']}")
+        per_epoch = int(base["total_iter_per_epoch"])
+        return {
+            "native_episode_assembly": native_available(),
+            "tree_write_s": tree_s,
+            "epochs": csv_rows,
+            "train_iterations": len(probe.train),
+            "eval_iterations": len(probe.eval),
+            "per_step": probe.per_step(
+                [r["start"] for r in results], per_epoch
+            ),
+            "window": probe.loops,
+            "peak_mem_gb": peak_gb,
+            "val_accuracy": stats["val_accuracy_mean"],
+            "train_loss": stats["train_loss_mean"],
+            "val_loss": stats["val_loss_mean"],
+            "calls": results,
+            "launches": launches,
+            "launches_per_train_iter": want_train,
+            "launches_per_eval_iter": want_eval,
+        }
+
+
+def cli_flagship_phase(torch, fn):
+    per_epoch = 25
+    out = cli_phase(
+        torch, fn, "cli_flagship", FLAGSHIP, write_omniglot_tree,
+        {"dataset_name": "omniglot_synth", "total_epochs": 2,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 80},
+        [({}, [], True),
+         ({"total_epochs": 3}, ["--continue_from_epoch", "latest"], False)],
+        CLI_FLAGSHIP_TRAIN, CLI_FLAGSHIP_EVAL,
+    )
+    if out["epochs"] != 3:
+        fail(f"cli_flagship: {out['epochs']} CSV rows, expected 3")
+    if [c["first_iteration"] for c in out["calls"]] != [0, 2 * per_epoch]:
+        fail(f"cli_flagship: the calls started at {out['calls']}")
+    return out
+
+
+def cli_north_star_phase(torch, fn):
+    per_epoch = 10
+    out = cli_phase(
+        torch, fn, "cli_north_star", NORTH_STAR, write_imagenet_tree,
+        {"dataset_name": "imagenet_synth", "total_epochs": 1,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 20},
+        [({}, [], True),
+         ({"total_epochs": 2}, ["--continue_from_epoch", "latest"], False)],
+        CLI_NORTH_TRAIN, CLI_NORTH_EVAL,
+    )
+    if out["epochs"] != 2:
+        fail(f"cli_north_star: {out['epochs']} CSV rows, expected 2")
+    if [c["first_iteration"] for c in out["calls"]] != [0, per_epoch]:
+        fail(f"cli_north_star: the calls started at {out['calls']}")
+    return out
+
+def timing_reps(shape) -> int:
+    """Fewer timed calls for the large north-star shapes."""
+    return 20 if np.prod(shape) >= 4_000_000 else 100
+
+
+class ShapeLog:
+    """Records the input shape of every kernel wrapper call while active.
+    The wrappers in ``fn`` are swapped for recording ones; the Functions
+    look them up in the module when called, so the swap sees every
+    launch."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.shapes = {name: set() for name in fn.KERNELS}
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.fn, name) for name in self.fn.KERNELS}
+        for name, orig in self.saved.items():
+            def record(x, *args, _name=name, _orig=orig, **kwargs):
+                self.shapes[_name].add(tuple(x.shape))
+                return _orig(x, *args, **kwargs)
+            setattr(self.fn, name, record)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self.saved.items():
+            setattr(self.fn, name, orig)
 
 
 def kernel_cells(res) -> str:
@@ -679,9 +1100,8 @@ def main() -> int:
     # 2. kernels
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_shape = {}
-    big = (NORTH_STAR_SHAPE, NORTH_STAR_TARGET)
-    for shape in FLAGSHIP_SHAPES + TRAIN_SHAPES + list(big):
-        res = check_and_time_kernels(torch, fn, shape, gen, 20 if shape in big else 100)
+    for shape in KERNEL_SHAPES:
+        res = check_and_time_kernels(torch, fn, shape, gen, timing_reps(shape))
         per_shape[shape] = res
         pairs = " ".join(f"{k}={v:.4f}" for k, v in res["pairs"].items())
         print(f"[kernels] {shape} ms graph/plain graph/bound/eager/plain eager "
@@ -702,9 +1122,7 @@ def main() -> int:
     }
     pool = {}
     for shape in POOL_SHAPES:
-        pool[shape] = r = check_and_time_pool(
-            torch, fn, shape, gen, 20 if shape == NORTH_STAR_SHAPE else 100
-        )
+        pool[shape] = r = check_and_time_pool(torch, fn, shape, gen, timing_reps(shape))
         print(f"[pool] {shape} bn_act_pool_apply ms graph/plain graph/bound/"
               f"eager/plain eager {r['ms']:.4f}/{r['plain_ms']:.4f}/"
               f"{r['bound_ms']:.4f}/{r['eager_ms']:.4f}/{r['eager_plain_ms']:.4f}"
@@ -715,19 +1133,53 @@ def main() -> int:
     print(f"[functions] max_abs_err vs plain composition {json.dumps(functions)}",
           flush=True)
 
-    # 3. serve
-    serve = serve_phase(torch, fn)
-    print(f"[serve] {json.dumps(serve)}", flush=True)
+    # 3-6. the main paths, every kernel call's input shape recorded.
+    with ShapeLog(fn) as shapes:
+        # 3. serve
+        serve = serve_phase(torch, fn)
+        print(f"[serve] {json.dumps(serve)}", flush=True)
 
-    # 4. train
-    train = train_phase(torch, fn)
-    print(f"[train] meta_iters_per_s {train['meta_iters_per_s']:.3f} step_p50_ms "
-          f"{train['step_p50_ms']:.2f} | {json.dumps(train)}", flush=True)
+        # 4. train
+        train = train_phase(torch, fn)
+        print(f"[train] meta_iters_per_s {train['meta_iters_per_s']:.3f} step_p50_ms "
+              f"{train['step_p50_ms']:.2f} | {json.dumps(train)}", flush=True)
+        remat = remat_phase(torch)
+        print(f"[remat] fused against plain-norm learners, remat_inner_steps on "
+              f"{json.dumps(remat)}", flush=True)
 
-    # 5. result: bn_stats_act and bn_act_bwd at the serve path's support stage-0
+        # 5-6. the training command line
+        cli = {}
+        for name, phase in (("cli_flagship", cli_flagship_phase),
+                            ("cli_north_star", cli_north_star_phase)):
+            cli[name] = r = phase(torch, fn)
+            step = r["per_step"]
+            window = [w for w in r["window"] if not w["synchronized"]]
+            print(f"[{name}] per step (a synchronize after each): meta_iters_per_s "
+                  f"{step['meta_iters_per_s']:.3f} step_p50_ms "
+                  f"{step['step_p50_ms']:.2f} loader_wait_share "
+                  f"{step['loader_wait_share']:.4f} | whole loop (no added "
+                  f"synchronize, epoch boundaries included): meta_iters_per_s "
+                  f"{window[0]['meta_iters_per_s']:.3f} over "
+                  f"{window[0]['iterations']} iterations | peak_mem_gb "
+                  f"{r['peak_mem_gb']:.3f} | {json.dumps(r)}", flush=True)
+
+    # Every shape a kernel was called at on the main paths was held to the
+    # plain version above.
+    checked = {name: set(per_shape) for name in FORWARD + ("bn_act_bwd",)}
+    checked["bn_act_pool_apply"] = set(pool)
+    unchecked = {k: sorted(v - checked[k]) for k, v in shapes.shapes.items()
+                 if v - checked[k]}
+    if unchecked:
+        fail(f"kernel shapes of the main paths that no check compared with the "
+             f"plain version: {unchecked}")
+    print("[coverage] shapes each kernel ran at on the main paths, each checked "
+          f"above: {json.dumps({k: sorted(v) for k, v in shapes.shapes.items()})}",
+          flush=True)
+
+    # 7. result: bn_stats_act and bn_act_bwd at the serve path's support stage-0
     # shape, its most launched and largest adapt shape; bn_stats and K5 at
     # the train path's stage 0, where they run together. Launches are those
-    # of the serve run and the train run together.
+    # of the serve, train and CLI runs together.
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":
@@ -740,7 +1192,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_norm.cu",
             "replaces": REPLACES[name],
-            "launches": serve["launches"][name] + train["launches"][name],
+            "launches": serve["launches"][name] + train["launches"][name]
+            + sum(r["launches"][name] for r in cli.values()),
             "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

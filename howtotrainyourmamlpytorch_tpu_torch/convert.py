@@ -10,6 +10,9 @@ the optimizer reduced to Adam's moments over ``{"theta", "lslr"}``
 update count. No JAX type is read, so this module needs neither JAX nor
 the JAX package. Leaves are carried over one by one; ``None`` stays
 ``None``.
+
+The checkpoint archive's leaf order, the JAX ``TrainState``'s, is
+``utils/checkpoint.train_state_paths``.
 """
 
 from __future__ import annotations
@@ -94,3 +97,4 @@ def train_state_to_numpy(state: TrainState) -> tuple:
         tuple(tree_to_numpy(t) for t in (opt.mu, opt.nu, opt.count)),
         tree_to_numpy(state.iteration),
     )
+

@@ -1,17 +1,20 @@
 """Trainer plumbing shared by the learners
 (``howtotrainyourmamlpytorch_tpu/models/common.py:39-259``): dtype casts,
 the divergence sentinel, the epoch-wise cosine LR, the outer Adam with an
-injected learning rate, the uint8 image wire format and batch preparation.
+injected learning rate, the uint8 image wire format, batch preparation, and
+the learners' checkpoint methods (``:459-700``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..utils import checkpoint
 from ..utils.trees import Tree, tree_leaves, tree_map
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -201,3 +204,54 @@ def prepare_batch(data_batch, codec: WireCodec | None = None):
     xs = xs.reshape(b, -1, *xs.shape[-3:])
     xt = xt.reshape(b, -1, *xt.shape[-3:])
     return xs, xt, ys.reshape(b, -1), yt.reshape(b, -1)
+
+
+class CheckpointableLearner:
+    """Checkpoint methods of the trainer contract
+    (``howtotrainyourmamlpytorch_tpu/models/common.py:459``): a train state
+    and the experiment state in one archive of the JAX package's format,
+    rebuilt on load from a fresh state of this learner's config. One
+    device and no lane padding, so nothing is gathered or stripped."""
+
+    def _path_leaves(self, state) -> list:
+        return checkpoint.train_state_paths(
+            state, clip=self.cfg.clip_grad_value is not None
+        )
+
+    def save_model(self, model_save_dir: str, state, experiment_state: dict) -> None:
+        checkpoint.save_checkpoint(
+            model_save_dir, self._path_leaves(state), experiment_state
+        )
+
+    def snapshot_model(self, state, experiment_state: dict):
+        """The critical-path half of ``save_model`` (the state copied to the
+        host), for ``AsyncCheckpointWriter``."""
+        return checkpoint.snapshot_for_save(self._path_leaves(state), experiment_state)
+
+    def _restore(self, template, leaves):
+        device = tree_leaves(template.theta)[0].device
+        leaves = [torch.from_numpy(a).to(device) for a in leaves]
+        return checkpoint.train_state_from_leaves(
+            template, leaves, clip=self.cfg.clip_grad_value is not None
+        )
+
+    def load_model(self, model_save_dir: str, model_name: str, model_idx,
+                   device=None):
+        """``(state, experiment_state)`` of ``<dir>/<name>_<idx>``, on
+        ``device`` (the card by default)."""
+        filepath = os.path.join(model_save_dir, f"{model_name}_{model_idx}")
+        template = self.init_state(torch.Generator().manual_seed(0), device)
+        leaves, experiment_state = checkpoint.load_checkpoint(
+            filepath, self._path_leaves(template)
+        )
+        return self._restore(template, leaves), experiment_state
+
+    def load_inference_state(self, filepath: str, device=None):
+        """``(inference_state, experiment_state)``: the parameters, LSLR
+        rates and BN statistics of a full training checkpoint, with no
+        optimizer state built."""
+        template = self.init_inference_state(torch.Generator().manual_seed(0), device)
+        leaves, experiment_state = checkpoint.load_for_inference(
+            filepath, self._path_leaves(template)
+        )
+        return self._restore(template, leaves), experiment_state

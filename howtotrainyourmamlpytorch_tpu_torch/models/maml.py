@@ -45,6 +45,7 @@ from ..utils.trees import (
 from .backbone import BackboneConfig, build_backbone
 from .common import (
     DTYPES,
+    CheckpointableLearner,
     WireCodec,
     cast_floats,
     cosine_epoch_lr,
@@ -191,7 +192,7 @@ class MAMLInferenceState(NamedTuple):
     bn_state: Tree
 
 
-class MAMLFewShotLearner:
+class MAMLFewShotLearner(CheckpointableLearner):
     """The MAML/MAML++ learner: the train and eval steps of the reference
     trainer contract, and the serving half."""
 

@@ -1,81 +1,207 @@
-"""Experiment JSON -> ``MAMLConfig``, with the JAX package's keys, defaults
-and mapping (``howtotrainyourmamlpytorch_tpu/utils/parser_utils.py:321-330,
-471-565``). There is no command line yet: ``load_maml_config`` reads a JSON
-file and takes keyword overrides, e.g. ``use_pallas_fused_norm=True``.
+"""Command line and experiment JSON -> ``args`` -> ``MAMLConfig``, with the
+JAX package's flags, defaults and merge order
+(``howtotrainyourmamlpytorch_tpu/utils/parser_utils.py``), so every
+``experiment_config/*.json`` parses to the same values:
+
+* the flags and their defaults (``get_parser``);
+* a JSON named by ``--name_of_args_json_file`` overrides every flag except
+  the keys holding ``continue_from`` or ``gpu_to_use`` (a restart keeps the
+  command line's ``latest``);
+* ``"true"``/``"false"`` strings become bools;
+* ``dataset_path`` is joined onto ``$DATASET_DIR``.
+
+``get_args`` returns ``(args, device)``: the card, or a raise unless the
+caller asks for the CPU. ``load_maml_config`` reads a JSON alone (no command
+line, no ``DATASET_DIR``) for the entry points that take no data.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 
 from ..models.backbone import BackboneConfig
 from ..models.common import WireCodec
 from ..models.maml import MAMLConfig
+from .platform import resolve_device
 
-#: The parser defaults of every key the config mapping reads.
-DEFAULTS = {
-    "image_height": 28,
-    "image_width": 28,
-    "image_channels": 1,
-    "dataset_name": "omniglot_dataset",
-    "architecture_name": None,
-    "resnet_widths": None,
-    "num_stages": 4,
-    "cnn_num_filters": 64,
-    "conv_padding": "True",
-    "max_pooling": "False",
-    "norm_layer": "batch_norm",
-    "block_order": "conv_norm",
-    "use_pallas_fused_norm": "False",
-    "fused_norm_train": "False",
-    "fused_norm_pool": "False",
-    "lane_pad_channels": "False",
-    "per_step_bn_statistics": "False",
-    "number_of_training_steps_per_iter": 1,
-    "number_of_evaluation_steps_per_iter": 1,
-    "enable_inner_loop_optimizable_bn_params": "False",
-    "num_classes_per_set": 20,
-    "task_learning_rate": None,
-    "init_inner_loop_learning_rate": 0.1,
-    "learnable_per_layer_per_step_inner_loop_learning_rate": "False",
-    "second_order": "False",
-    "first_order_to_second_order_epoch": -1,
-    "use_multi_step_loss_optimization": "False",
-    "multi_step_loss_num_epochs": 10,
-    "meta_learning_rate": 0.001,
-    "min_learning_rate": 0.00001,
-    "total_epochs": 200,
-    "total_iter_per_epoch": 500,
-    "learnable_bn_gamma": "True",
-    "learnable_bn_beta": "True",
-    "on_nonfinite": "halt",
-    "compute_dtype": "auto",
-    "transfer_dtype": "float32",
-    "task_chunk": 0,
-    "device_augment": "False",
-}
+
+class Bunch:
+    """Attribute access to the parsed flags (``vars(bunch)`` is the dict)."""
+
+    def __init__(self, adict):
+        self.__dict__.update(adict)
+
+
+def get_parser() -> argparse.ArgumentParser:
+    """The JAX package's flags and defaults, one for one. Flags of JAX-only
+    mechanisms are accepted so that every config parses; the experiment
+    builder reports the ones it does not port."""
+    parser = argparse.ArgumentParser(
+        description="MAML++ training on an NVIDIA GPU (PyTorch port)"
+    )
+    add = parser.add_argument
+    add("--batch_size", nargs="?", type=int, default=32)
+    add("--image_height", nargs="?", type=int, default=28)
+    add("--image_width", nargs="?", type=int, default=28)
+    add("--image_channels", nargs="?", type=int, default=1)
+    add("--reset_stored_filepaths", type=str, default="False")
+    add("--reverse_channels", type=str, default="False")
+    add("--num_of_gpus", type=int, default=1)
+    add("--indexes_of_folders_indicating_class", nargs="+", default=[-2, -3])
+    add("--train_val_test_split", nargs="+",
+        default=[0.73982737361, 0.26, 0.13008631319])
+    add("--samples_per_iter", nargs="?", type=int, default=1)
+    add("--labels_as_int", type=str, default="False")
+    add("--seed", type=int, default=104)
+    add("--train_seed", type=int, default=0)
+    add("--val_seed", type=int, default=0)
+    add("--gpu_to_use", type=int)
+    add("--num_dataprovider_workers", nargs="?", type=int, default=4)
+    add("--max_models_to_save", nargs="?", type=int, default=5)
+    add("--dataset_name", type=str, default="omniglot_dataset")
+    add("--dataset_path", type=str, default="datasets/omniglot_dataset")
+    add("--experiment_name", nargs="?", type=str)
+    add("--architecture_name", nargs="?", type=str)
+    add("--continue_from_epoch", nargs="?", type=str, default="latest")
+    add("--num_target_samples", type=int, default=15)
+    add("--second_order", type=str, default="False")
+    add("--total_epochs", type=int, default=200)
+    add("--total_iter_per_epoch", type=int, default=500)
+    add("--min_learning_rate", type=float, default=0.00001)
+    add("--meta_learning_rate", type=float, default=0.001)
+    # None, so that an explicit 0.1 wins over init_inner_loop_learning_rate.
+    add("--task_learning_rate", type=float, default=None)
+    add("--norm_layer", type=str, default="batch_norm")
+    add("--block_order", type=str, default="conv_norm")
+    # The fused batch norm + LeakyReLU kernels: on the eval and serve paths,
+    # on the train path (any order), and with the 2x2 max pool fused in.
+    add("--use_pallas_fused_norm", type=str, default="False")
+    add("--fused_norm_train", type=str, default="False")
+    add("--fused_norm_pool", type=str, default="False")
+    add("--dataprovider_backend", type=str, default="thread")
+    add("--replay_manifest", type=str, default="")
+    add("--replay_every", type=int, default=8)
+    add("--max_pooling", type=str, default="False")
+    add("--per_step_bn_statistics", type=str, default="False")
+    add("--num_classes_per_set", type=int, default=20)
+    add("--number_of_training_steps_per_iter", type=int, default=1)
+    add("--number_of_evaluation_steps_per_iter", type=int, default=1)
+    add("--cnn_num_filters", type=int, default=64)
+    add("--num_samples_per_class", type=int, default=1)
+    add("--name_of_args_json_file", type=str, default="None")
+    add("--num_stages", type=int, default=4)
+    add("--conv_padding", type=str, default="True")
+    add("--num_evaluation_tasks", type=int, default=600)
+    add("--multi_step_loss_num_epochs", type=int, default=10)
+    add("--use_multi_step_loss_optimization", type=str, default="False")
+    add("--learnable_per_layer_per_step_inner_loop_learning_rate", type=str,
+        default="False")
+    add("--enable_inner_loop_optimizable_bn_params", type=str, default="False")
+    add("--learnable_bn_gamma", type=str, default="True")
+    add("--learnable_bn_beta", type=str, default="True")
+    add("--first_order_to_second_order_epoch", type=int, default=-1)
+    add("--total_epochs_before_pause", type=int, default=100)
+    add("--evaluate_on_test_set_only", type=str, default="False")
+    add("--sets_are_pre_split", type=str, default="False")
+    add("--load_into_memory", type=str, default="False")
+    add("--init_inner_loop_learning_rate", type=float, default=0.1)
+    add("--weight_decay", type=float, default=0.0)
+    add("--compute_dtype", type=str, default="auto")
+    add("--lane_pad_channels", type=str, default="False")
+    add("--task_chunk", type=int, default=0)
+    # No effect here: set_f32_numerics pins float32 convolutions and
+    # matmuls (TF32 off), which is the JAX flag's "highest".
+    add("--matmul_precision", type=str, default="default",
+        choices=["default", "high", "highest", "float32"])
+    add("--transfer_dtype", type=str, default="float32",
+        choices=["float32", "uint8"])
+    add("--iters_per_dispatch", type=int, default=1)
+    add("--device_prefetch", type=int, default=-1)
+    add("--device_augment", type=str, default="False")
+    add("--data_parallel_devices", type=int, default=0)
+    add("--coordinator_address", type=str, default=None)
+    add("--num_processes", type=int, default=0)
+    add("--process_id", type=int, default=-1)
+    add("--distributed_init_timeout_s", type=float, default=None)
+    add("--model_parallel_devices", type=int, default=1)
+    add("--profile_trace_path", type=str, default="")
+    add("--profile_num_iters", type=int, default=20)
+    add("--profile_trigger_path", type=str, default="")
+    add("--telemetry", type=str, default="True")
+    add("--peak_flops", type=float, default=0.0)
+    add("--debug_nans", type=str, default="False")
+    add("--check_tracer_leaks", type=str, default="False")
+    add("--on_nonfinite", type=str, default="halt",
+        choices=["halt", "skip", "rollback"])
+    add("--watchdog", type=str, default="True")
+    add("--watchdog_min_s", type=float, default=600.0)
+    add("--watchdog_factor", type=float, default=20.0)
+    add("--checkpoint_async", type=str, default="True")
+    add("--checkpoint_interval_s", type=float, default=0.0)
+    add("--data_fault_budget", type=int, default=8)
+    add("--resnet_widths", nargs="+", type=int, default=None)
+    add("--parity_bug", type=str, default="False")
+    return parser
+
+
+def extract_args_from_json(json_file_path: str, args_dict: dict) -> dict:
+    """The JSON's keys over ``args_dict``, all but ``continue_from*`` and
+    ``gpu_to_use*``."""
+    with open(json_file_path) as f:
+        summary_dict = json.load(f)
+    for key in summary_dict:
+        if "continue_from" not in key and "gpu_to_use" not in key:
+            args_dict[key] = summary_dict[key]
+    return args_dict
+
+
+def _coerce_bools(args_dict: dict) -> dict:
+    for key, value in args_dict.items():
+        if str(value).lower() == "true":
+            args_dict[key] = True
+        elif str(value).lower() == "false":
+            args_dict[key] = False
+    return args_dict
+
+
+def get_args(argv=None, device=None):
+    """``(args, device)``: the flags of ``argv`` (``sys.argv`` by default)
+    under the JSON they name, as a ``Bunch``; ``device`` is the card unless
+    the caller passes another (``resolve_device``)."""
+    args_dict = vars(get_parser().parse_args(argv))
+    if args_dict["name_of_args_json_file"] != "None":
+        args_dict = extract_args_from_json(
+            args_dict["name_of_args_json_file"], args_dict
+        )
+    args_dict = _coerce_bools(args_dict)
+    args_dict["dataset_path"] = os.path.join(
+        os.environ["DATASET_DIR"], args_dict["dataset_path"]
+    )
+    args = Bunch(args_dict)
+    args.compute_dtype = resolve_compute_dtype(args.compute_dtype)
+    # One process: the JAX package's host identity of a single-host run.
+    args.process_index, args.process_count = 0, 1
+    if int(getattr(args, "data_shard_count", 0) or 0) < 1:
+        args.data_shard_index, args.data_shard_count = 0, 1
+    device = resolve_device(device)
+    print("use device", device)
+    return args, device
+
+
+def load_args(json_path: str, **overrides) -> dict:
+    """The parser's defaults, then the JSON's keys (all but
+    ``continue_from*`` and ``gpu_to_use*``), then ``overrides``;
+    ``"true"``/``"false"`` strings become bools."""
+    args = extract_args_from_json(json_path, vars(get_parser().parse_args([])))
+    args.update(overrides)
+    return _coerce_bools(args)
+
 
 # data/augment.py's ImageNet statistics, as float32 values.
 _IMAGENET_MEAN = (0.48500001430511475, 0.4560000002384186, 0.4059999883174896)
 _IMAGENET_STD = (0.2290000021457672, 0.2240000069141388, 0.22499999403953552)
-
-
-def load_args(json_path: str, **overrides) -> dict:
-    """Defaults, then the JSON's keys (all but ``continue_from*`` and
-    ``gpu_to_use*``), then ``overrides``; ``"true"``/``"false"`` strings
-    become bools."""
-    args = dict(DEFAULTS)
-    with open(json_path) as f:
-        for key, value in json.load(f).items():
-            if "continue_from" not in key and "gpu_to_use" not in key:
-                args[key] = value
-    args.update(overrides)
-    for key, value in args.items():
-        if str(value).lower() == "true":
-            args[key] = True
-        elif str(value).lower() == "false":
-            args[key] = False
-    return args
 
 
 def resolve_compute_dtype(value) -> str:
@@ -119,7 +245,13 @@ def device_augment_for(args: dict):
     return None
 
 
-def args_to_maml_config(args: dict) -> MAMLConfig:
+def args_to_maml_config(args) -> MAMLConfig:
+    """The ``MAMLConfig`` of parsed flags (a dict or a ``Bunch``); a key
+    they lack takes the parser's default."""
+    args = {
+        **_coerce_bools(vars(get_parser().parse_args([]))),
+        **(args if isinstance(args, dict) else vars(args)),
+    }
     arch_raw = (args.get("architecture_name") or "").lower()
     known = {
         "": "vgg",

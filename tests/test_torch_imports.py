@@ -63,6 +63,17 @@ def test_train_slice_modules_are_in_the_import_check():
     assert TrainState._fields[-1] == "iteration"
 
 
+def test_cli_slice_modules_are_in_the_import_check():
+    """The modules of the training CLI are among those the import check
+    walks."""
+    modules = _port_modules()
+    for name in ("train_maml_system", "experiment_builder", "data.dataset",
+                 "data.loader", "data.augment", "data.fast_synth",
+                 "native.build", "utils.checkpoint", "utils.storage",
+                 "utils.dataset_tools", "utils.parser_utils"):
+        assert f"{port.__name__}.{name}" in modules
+
+
 def test_no_port_source_imports_the_jax_package():
     paths = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "tools", f)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where one flagship meta-training iteration of the PyTorch port spends its
-time.
+"""Where one meta-training iteration of the PyTorch port spends its time.
 
-    python3 tools/port_train_profile.py [--remat]
+    python3 tools/port_train_profile.py [--remat] [--config flagship|north_star]
 
-Builds the MAML++ Omniglot flagship learner with fused_norm_train=True and
-fused_norm_pool=True (remat_inner_steps off unless ``--remat``, as
-chip_smoke.py runs it), random weights from seed 104, and one synthetic
-binary batch of 8 tasks, 5-way 1-shot, 1 target per class. After a warm-up
+Builds the MAML++ learner of the Omniglot flagship (default) or of the
+mini-ImageNet north star (84x84x3, 48 filters) with fused_norm_train=True
+and fused_norm_pool=True (remat_inner_steps off unless ``--remat``, as
+chip_smoke.py's train phase runs it; the CLI keeps the config default, on),
+random weights from seed 104, and one synthetic binary batch of the
+config's shape: meta-batch, way, shots and targets (flagship: 8 tasks,
+5-way 1-shot, 1 target per class; north star: 2 tasks, 5-way 5-shot, 15
+targets per class). After a warm-up
 it times ITERS second-order iterations at epoch 0 on the host clock (each
 ends in a synchronize) with the peak device memory, then traces ITERS more
 with ``torch.profiler``. Prints the wall time per iteration, the device's
@@ -35,13 +38,15 @@ sys.path.insert(0, REPO)
 
 from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner  # noqa: E402
 from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (  # noqa: E402
-    load_maml_config,
+    args_to_maml_config,
+    load_args,
 )
 from port_serve_profile import busy_ms  # noqa: E402
 
-FLAGSHIP = os.path.join(
-    REPO, "experiment_config", "omniglot_maml++-omniglot_1_8_0.1_64_5_0.json"
-)
+CONFIGS = {
+    "flagship": "omniglot_maml++-omniglot_1_8_0.1_64_5_0.json",
+    "north_star": "mini-imagenet_maml++-mini-imagenet_5_2_0.01_48_5_0.json",
+}
 ITERS = 3
 # Kernel-name fragments of the fused-norm kernels in csrc/fused_norm.cu.
 FUSED = {
@@ -51,27 +56,35 @@ FUSED = {
 }
 
 
-def batch(rng, tasks=8):
-    xs = (rng.rand(tasks, 5, 1, 1, 28, 28) > 0.8).astype(np.float32)
-    xt = (rng.rand(tasks, 5, 1, 1, 28, 28) > 0.8).astype(np.float32)
-    ys = np.tile(np.arange(5).reshape(1, 5, 1), (tasks, 1, 1))
-    return xs, xt, ys, ys.copy()
+def batch(rng, args):
+    """Binary ``(B, N, K|T, C, H, W)`` images and their labels."""
+    b, n = args["batch_size"], args["num_classes_per_set"]
+    image = (args["image_channels"], args["image_height"], args["image_width"])
+    shots, targets = args["num_samples_per_class"], args["num_target_samples"]
+    xs = (rng.rand(b, n, shots, *image) > 0.8).astype(np.float32)
+    xt = (rng.rand(b, n, targets, *image) > 0.8).astype(np.float32)
+    ys = np.tile(np.arange(n).reshape(1, n, 1), (b, 1, shots))
+    yt = np.tile(np.arange(n).reshape(1, n, 1), (b, 1, targets))
+    return xs, xt, ys, yt
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--remat", action="store_true",
                         help="checkpoint each inner step (remat_inner_steps)")
+    parser.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("port_train_profile: no CUDA device", file=sys.stderr)
         return 1
-    cfg = load_maml_config(FLAGSHIP, fused_norm_train=True, fused_norm_pool=True)
-    cfg = dataclasses.replace(cfg, remat_inner_steps=args.remat)
+    run_args = load_args(os.path.join(REPO, "experiment_config", CONFIGS[args.config]),
+                         fused_norm_train=True, fused_norm_pool=True)
+    cfg = dataclasses.replace(args_to_maml_config(run_args),
+                              remat_inner_steps=args.remat)
     learner = MAMLFewShotLearner(cfg)
     state = learner.init_state(torch.Generator().manual_seed(104))
     rng = np.random.RandomState(3)
-    data = batch(rng)
+    data = batch(rng, run_args)
     for _ in range(2):
         state, _ = learner.run_train_iter(state, data, epoch=0)
     torch.cuda.synchronize()
@@ -88,7 +101,8 @@ def main() -> int:
             state, m = learner.run_train_iter(state, data, epoch=0)
         torch.cuda.synchronize()
     busy = busy_ms(prof.events()) / ITERS
-    print(f"device: {torch.cuda.get_device_name(0)} | remat {args.remat}")
+    print(f"device: {torch.cuda.get_device_name(0)} | {args.config} | "
+          f"remat {args.remat}")
     print(f"per iteration: wall {wall_ms:.3f} ms, peak memory {peak_gb:.3f} GB")
     if busy == 0.0:
         print("the trace holds no device time: timing with CUDA events")
