@@ -47,13 +47,34 @@ Phases, in order; any failure exits non-zero before the result lines:
              fused_norm_pool=True (remat_inner_steps=False), learner from
              seed 104: 10 second-order ``run_train_iter`` at epoch 0 on one
              synthetic binary batch of 8 tasks, 5-way 1-shot, 1 target per
-             class, with the launch counts zeroed just before and read
-             just after (per iteration bn_stats 20, bn_stats_act 20, K5 20).
-             Losses finite and
+             class, each a replay of the step's CUDA graph (captured in a
+             warm-up call), with the launch counts zeroed just before and
+             read just after. A replay runs no kernel wrapper: the graph
+             keeps the launches its capture recorded (per iteration
+             bn_stats 20, bn_stats_act 20, K5 20), and the run's launches
+             are those times its replays, the wrappers' counts staying 0.
+             One replay of each graph is traced with torch.profiler: the
+             kernels it ran, counted by name, must be the launches its
+             capture recorded (so in the graph and CLI phases). Losses
+             finite and
              falling; a rerun from the same state bitwise equal; the first
              loss and meta-gradient against a plain-norm learner on the
              same state; one past-horizon iteration's launches; one
              ``run_validation_iter`` with finite logits.
+   graph   - the flagship and north-star learners with remat on, as the
+             CLIs train, from one state over 5 batches: ``run_train_iters``
+             (K=5 replays of the captured step) against 5 eager
+             ``_train_step`` bit for bit (state, Adam moments, per-iteration
+             loss, accuracy, nonfinite) at epoch 0, at epoch 1 (the same
+             graph, another learning rate and importance vector) and at
+             epoch 2 (past an MSL horizon of 2: the final-only graph); a
+             state held from before each dispatch unchanged; every kernel
+             launch captured on the capture's stream; the captures'
+             launches held to the CLI's per-iteration counts and to a
+             traced replay of each. Prints, per
+             width, capture ms per branch and, over 3 repeats, replay and
+             eager ms per iteration. (The north star's learning rate is
+             constant in its config; the phase lowers its floor to move it.)
    remat   - remat_inner_steps on, as the CLI trains, at flagship width
              (the train phase's batch) and at north-star width (2 tasks, 5
              support and 15 target 84x84 RGB images a class): the fused
@@ -64,31 +85,43 @@ Phases, in order; any failure exits non-zero before the result lines:
              (``train_maml_system.main``, in this process) on the flagship
              JSON with the three fused flags, over a synthetic Omniglot-shaped
              tree of 250 classes x 20 binary 28x28 PNGs (a made-up
-             dataset_name, so it is not count-checked): 2 epochs of 25
-             iterations with 80 validation tasks and the ensemble test, then
-             ``--continue_from_epoch latest`` to 3 epochs. Each call returns;
-             the CSV has 3 rows, every loss is finite, the test accuracy is in
-             [0, 1] and the resumed run starts at iteration 50. Launches of
-             each kernel per train and per eval iteration are held exactly
+             dataset_name, so it is not count-checked), an MSL horizon of 2
+             epochs: 2 epochs of 25 iterations with 80 validation tasks and
+             the ensemble test, then ``--continue_from_epoch latest`` to 3
+             epochs (past the horizon: the final-only graph), then to 4 with
+             ``--iters_per_dispatch 5``, then to 5 at K=5 and to 6 at K=1
+             with ``--device_prefetch 0`` (no stager). Each call returns;
+             the CSV has 6 rows, every loss is finite, the test accuracy is
+             in [0, 1] and the resumed runs start at iterations 50, 75, 100
+             and 125. Launches of each kernel per train iteration (counted
+             at capture, times the replays; a traced replay of each graph
+             agrees) and per eval iteration are held exactly
              (remat_inner_steps on, the config default). The first call
              synchronizes after each learner call, for per-step times; the
-             resumed one runs as the CLI does, for the whole loop's rate.
+             resumed ones run as the CLI does, for the whole loop's rate at
+             K=1 and at K=5, with the prefetcher at auto depth and off.
 6. cli north star - the same on the mini-ImageNet north-star JSON
              (84x84x3, 48 filters, 2 tasks 5-way 5-shot, 15 targets) over a
              pre-split tree of 64/16/20 classes x 20 RGB PNGs (600 images a
-             class cut to 20): 1 epoch of 10 iterations, 20 evaluation tasks,
-             the ensemble over the one model, then ``latest`` to 2 epochs.
+             class cut to 20), an MSL horizon of 1 epoch: 1 epoch of 10
+             iterations, 20 evaluation tasks, the ensemble over the one
+             model, then ``latest`` to 2 epochs, to 3 at K=5, then to 4
+             at K=5 and to 5 at K=1 with ``--device_prefetch 0``.
              Both CLI phases print, per step, meta-iterations/s and step p50
              over the synchronized iterations after the first two of a call
-             and the share of that time spent blocked on the loader; for the
-             whole loop, the unsynchronized call's train iterations over
-             its train loop's wall time, epoch boundaries included; peak
+             and the share of that time the loop spent blocked on its input;
+             for the whole loop, each unsynchronized call's train iterations
+             over its train loop's wall time, capture and epoch boundaries
+             included, and the seconds it waited for its input, at K=1 and
+             at K=5, prefetcher on and off; peak
              device memory, the validation and test accuracy and the
-             launches. Phases 3-6 record every kernel call's input shape;
-             each must be one the kernel and pool phases held to the plain
-             version.
-7. result  - one JSON line listing the kernels, the nvidia-smi line, and
-             the last line ``{"ok": true, "device": {...}}``.
+             launches. Phases 3-6 record every kernel call's input shape
+             (a replay runs no wrapper; its shapes are those of its
+             capture); each must be one the kernel and pool phases held to
+             the plain version.
+7. result  - a [replay] line with each traced replay's kernels, one JSON
+             line listing the kernels, the nvidia-smi line, and the last
+             line ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX; exits non-zero without a CUDA device.
 """
@@ -186,6 +219,25 @@ CLI_NORTH_TRAIN = {"bn_stats": 75, "bn_stats_act": 25, "bn_act_bwd": 0,
                    "bn_act_pool_apply": 75}
 CLI_NORTH_EVAL = {"bn_stats": 18, "bn_stats_act": 6, "bn_act_bwd": 5,
                   "bn_act_pool_apply": 18}
+# Past the MSL horizon (final-only, remat on): 5 inner steps of support
+# forwards (each recomputed for the outer backward) and one target forward,
+# 3.2 forwards a stage against MSL's 5 (counted from the Functions'
+# forwards on the CPU).
+CLI_FLAGSHIP_TRAIN_FINAL = {"bn_stats": 32, "bn_stats_act": 32, "bn_act_bwd": 0,
+                            "bn_act_pool_apply": 32}
+CLI_NORTH_TRAIN_FINAL = {"bn_stats": 48, "bn_stats_act": 16, "bn_act_bwd": 0,
+                         "bn_act_pool_apply": 48}
+# Meta-updates a dispatch in the graph phase and in the CLI's K>1 calls.
+GRAPH_ITERS = 5
+# Each wrapper's device kernel in csrc/fused_norm.cu, as a profiler trace
+# names it (bn_stats and bn_stats_act are two instances of one template).
+KERNEL_SYMBOLS = {"bn_stats": "bn_fwd_kernel<false>",
+                  "bn_stats_act": "bn_fwd_kernel<true>",
+                  "bn_act_bwd": "bn_bwd_kernel",
+                  "bn_act_pool_apply": "bn_act_pool_apply_kernel"}
+# Kernels a replay ran, counted in a trace of one replay of each captured
+# graph (check_replay), for the [replay] line.
+REPLAY_TRACES = []
 FUSED_ARGV = ["--use_pallas_fused_norm", "True", "--fused_norm_train", "True",
               "--fused_norm_pool", "True"]
 # Flops per input element each kernel does, counted from its source
@@ -708,6 +760,186 @@ def remat_phase(torch) -> dict:
     return out
 
 
+def eager_steps(learner, state, batches, epoch):
+    """The eager ``_train_step`` over ``batches`` at ``epoch``'s program
+    variant, learning rate and importance vector: what ``run_train_iters``
+    replays. Returns ``(state, {metric: (K,)})``."""
+    import torch
+
+    from howtotrainyourmamlpytorch_tpu_torch.models.common import set_injected_lr
+
+    state = state._replace(opt_state=set_injected_lr(
+        state.opt_state, learner._epoch_lr(epoch)
+    ))
+    importance = learner._importance(state, learner._train_importance(epoch))
+    steps = []
+    for batch in batches:
+        state, m = learner._train_step(
+            state, learner._device_batch(state, batch), importance,
+            second_order=learner._use_second_order(epoch),
+            final_only=learner._final_only(epoch),
+        )
+        steps.append(m)
+    return state, {k: torch.stack([m[k] for m in steps])
+                   for k in ("loss", "accuracy", "nonfinite")}
+
+
+def graph_phase(torch, fn) -> dict:
+    """The captured train step against the eager one at both widths, remat
+    on: bit for bit across both branches and an epoch change, a held state
+    unchanged, every captured launch on the capture's stream; then capture,
+    replay and eager times."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    captured_streams = set()
+    stream_of = fn._stream
+
+    def recording_stream(x):
+        handle = stream_of(x)
+        if torch.cuda.is_current_stream_capturing():
+            captured_streams.add(handle.value)
+        return handle
+
+    out = {}
+    fn._stream = recording_stream
+    try:
+        for tag, config, make, msl, final in (
+            ("flagship", FLAGSHIP, train_batch, CLI_FLAGSHIP_TRAIN,
+             CLI_FLAGSHIP_TRAIN_FINAL),
+            ("north_star", NORTH_STAR, north_star_batch, CLI_NORTH_TRAIN,
+             CLI_NORTH_TRAIN_FINAL),
+        ):
+            captured_streams.clear()
+            torch.cuda.reset_peak_memory_stats()
+            base, _ = fused_and_plain(config)
+            # An MSL horizon of 2 puts epoch 2 on the final-only branch. The
+            # north star's schedule starts at its floor (constant 1e-3): a
+            # floor a hundredth of the start makes the learning rate move.
+            learner = type(base)(dataclasses.replace(
+                base.cfg, multi_step_loss_num_epochs=2,
+                min_learning_rate=base.cfg.meta_learning_rate / 100,
+            ))
+            if not learner.cfg.remat_inner_steps:
+                fail(f"graph {tag}: remat_inner_steps is off")
+            state = learner.init_state(torch.Generator().manual_seed(104))
+            batches = [make(np.random.RandomState(20 + i)) for i in range(GRAPH_ITERS)]
+            if learner._epoch_lr(0) == learner._epoch_lr(1):
+                fail(f"graph {tag}: epochs 0 and 1 have one learning rate")
+            checked = []
+            for epoch in (0, 1, 2):
+                held = [a.clone() for a in tree_leaves(state)]
+                want, want_m = eager_steps(learner, state, batches, epoch)
+                got, got_m = learner.run_train_iters(state, batches, epoch)
+                torch.cuda.synchronize()
+                for k in want_m:
+                    if not torch.equal(got_m[k], want_m[k]):
+                        fail(f"graph {tag} epoch {epoch}: {k} {got_m[k].tolist()} "
+                             f"replayed, {want_m[k].tolist()} eager")
+                if not same(got, want):
+                    differ = [i for i, (x, y) in enumerate(
+                        zip(tree_leaves(got), tree_leaves(want))) if not torch.equal(x, y)]
+                    fail(f"graph {tag} epoch {epoch}: the replayed state differs "
+                         f"from the eager steps' at leaves {differ}")
+                if not all(torch.equal(a, b) for a, b in zip(tree_leaves(state), held)):
+                    fail(f"graph {tag} epoch {epoch}: the dispatch changed the "
+                         "state it was given")
+                checked.append({"epoch": epoch, "final_only": learner._final_only(epoch),
+                                "learning_rate": learner._epoch_lr(epoch),
+                                "losses": got_m["loss"].tolist()})
+                state = got
+            graphs = learner._step_graphs
+            branches = {g.key: g for g in graphs.graphs.values()}
+            if set(branches) != {(True, False), (True, True)}:
+                fail(f"graph {tag}: captured branches {sorted(branches)}")
+            for key, want_launches in (((True, False), msl), ((True, True), final)):
+                if branches[key].launches != want_launches:
+                    fail(f"graph {tag} {key}: captured launches "
+                         f"{branches[key].launches}, expected {want_launches}")
+            if captured_streams != {graphs.stream.cuda_stream}:
+                fail(f"graph {tag}: captured kernels on streams {captured_streams}, "
+                     f"the capture's is {graphs.stream.cuda_stream}")
+            replay_ms, eager_ms = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                learner.run_train_iters(state, batches, 0)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                eager_steps(learner, state, batches, 0)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                replay_ms.append((t1 - t0) * 1e3 / GRAPH_ITERS)
+                eager_ms.append((t2 - t1) * 1e3 / GRAPH_ITERS)
+            for g in branches.values():
+                check_replay(torch, g, f"graph {tag}")
+            out[tag] = {
+                "bitwise_equal_to_eager": True, "epochs": checked,
+                "capture_ms": {("final_only" if k[1] else "msl"): g.capture_s * 1e3
+                               for k, g in branches.items()},
+                "replay_ms_per_iter": replay_ms, "eager_ms_per_iter": eager_ms,
+                "launches_per_replay": {("final_only" if k[1] else "msl"): g.launches
+                                        for k, g in branches.items()},
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            }
+            del learner, state, graphs, branches
+            torch.cuda.empty_cache()
+    finally:
+        fn._stream = stream_of
+    return out
+
+
+def traced_launches(torch, run) -> dict:
+    """Launches of each fused-norm kernel that the card ran during
+    ``run()``, counted by kernel name in a ``torch.profiler`` trace (CUPTI
+    reports each kernel node of a replayed graph)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {k: sum(symbol in n for n in names) for k, symbol in KERNEL_SYMBOLS.items()}
+
+
+def check_replay(torch, graph, tag) -> dict:
+    """One replay of a captured train step, traced: the kernels it ran must
+    be the launches its capture counted, which the launch numbers of the
+    train and CLI phases multiply by the replays. Replays the graph on the
+    static inputs its last dispatch left (its outputs are copied out at
+    each dispatch, so nothing that was returned changes)."""
+    traced = traced_launches(torch, graph.graph.replay)
+    if traced != graph.launches:
+        fail(f"{tag}: one replay of the {graph.key} graph ran {traced}, its "
+             f"capture counted {graph.launches}")
+    REPLAY_TRACES.append({"phase": tag, "second_order": graph.key[0],
+                          "final_only": graph.key[1], "kernels": traced})
+    return traced
+
+
+def graph_records(learner) -> dict:
+    """``{key: (replays, launches per replay)}`` of the learner's captured
+    train steps."""
+    graphs = learner._step_graphs
+    if graphs is None:
+        return {}
+    return {key: (g.replays, dict(g.launches)) for key, g in graphs.graphs.items()}
+
+
+def replayed_launches(before: dict, after: dict) -> dict:
+    """Kernel launches the replays between two ``graph_records`` ran: each
+    graph's captured launches times its new replays."""
+    out = {}
+    for key, (replays, launches) in after.items():
+        n = replays - before.get(key, (0, None))[0]
+        for name, count in launches.items():
+            out[name] = out.get(name, 0) + n * count
+    return out
+
+
 def train_phase(torch, fn):
     from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
     from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
@@ -736,12 +968,20 @@ def train_phase(torch, fn):
             step_ms.append((time.perf_counter() - t0) * 1e3)
         return state, losses, step_ms
 
+    graphs_before = graph_records(learner)
+    (captured,) = [launches for _, launches in graphs_before.values()]
+    if captured != TRAIN_LAUNCHES:
+        fail(f"the captured train step launches {captured}, expected {TRAIN_LAUNCHES}")
     fn.reset_launch_counts()
     state, losses, step_ms = run()
-    launches = dict(fn.launch_counts)
-    if launches != {k: n * TRAIN_ITERS for k, n in TRAIN_LAUNCHES.items()}:
-        fail(f"train launches {launches} over {TRAIN_ITERS} iterations, "
-             f"expected {TRAIN_LAUNCHES} per iteration")
+    wrappers = dict(fn.launch_counts)
+    launches = replayed_launches(graphs_before, graph_records(learner))
+    if any(wrappers.values()) or launches != {
+        k: n * TRAIN_ITERS for k, n in TRAIN_LAUNCHES.items()
+    }:
+        fail(f"train launches {launches} by replays and {wrappers} by the "
+             f"wrappers over {TRAIN_ITERS} iterations, expected "
+             f"{TRAIN_LAUNCHES} per iteration, all by replays")
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         fail(f"train losses not finite and falling: {losses}")
     again, losses_again, _ = run()
@@ -756,11 +996,18 @@ def train_phase(torch, fn):
         first_step(learner, state0, batch), first_step(plain, state0, batch), "train"
     )
 
-    # One past-horizon iteration: only the last step's target pass runs.
-    fn.reset_launch_counts()
+    # One past-horizon iteration (its own graph): only the last step's
+    # target pass runs.
+    known = set(graph_records(learner))
     learner.run_train_iter(state, batch, epoch=cfg.multi_step_loss_num_epochs)
     torch.cuda.synchronize()
-    final_only_launches = dict(fn.launch_counts)  # one iteration
+    (final_only_launches,) = [
+        launches for key, (_, launches) in graph_records(learner).items()
+        if key not in known
+    ]
+
+    for g in learner._step_graphs.graphs.values():
+        check_replay(torch, g, "train")
 
     _, vm, logits = learner.run_validation_iter(state, train_batch(rng))
     if logits.shape != (8, 5, 5) or not torch.isfinite(logits).all():
@@ -816,16 +1063,15 @@ def write_imagenet_tree(root, images=20):
 
 class CliProbe:
     """Records, around each learner call that a CLI run makes, the kernel
-    launches it made and its wall time, each train iteration's wait on the
-    loader, and the wall time of each train loop (epoch boundaries
-    included). With ``sync`` set, each learner call ends in a
-    synchronize, so that its wall time is its own; without, the loop runs
-    as the CLI runs it."""
+    launches it made and its wall time, how long the loop was blocked on
+    its input, and the wall time of each train loop (capture and epoch
+    boundaries included). A train call's launches are its replays' (each
+    graph's captured launches times its new replays) and, when it captured
+    a graph, the wrappers' launches of the warm-up and the capture. With
+    ``sync`` set, each learner call ends in a synchronize, so that its wall
+    time is its own; without, the loop runs as the CLI runs it."""
 
     def __init__(self, torch, fn):
-        from howtotrainyourmamlpytorch_tpu_torch.data import (
-            MetaLearningSystemDataLoader,
-        )
         from howtotrainyourmamlpytorch_tpu_torch.experiment_builder import (
             ExperimentBuilder,
         )
@@ -833,53 +1079,86 @@ class CliProbe:
 
         self.torch, self.fn = torch, fn
         self.targets = [(MAMLFewShotLearner, "run_train_iter"),
+                        (MAMLFewShotLearner, "run_train_iters"),
                         (MAMLFewShotLearner, "run_validation_iter"),
-                        (MetaLearningSystemDataLoader, "pop_data_wait"),
-                        (ExperimentBuilder, "_train_loop_host")]
+                        (ExperimentBuilder, "_pop_input_waits"),
+                        (ExperimentBuilder, "_train_loop")]
         self.train, self.eval, self.waits, self.loops = [], [], [], []
         self.sync = True
+        self.k = 1
+        self.prefetch = -1
+        self.next_iteration = None
+        # Graphs captured by the current CLI call, for check_replay.
+        self.captured = []
 
-    def _timed(self, orig, log):
+    def _timed(self, orig, log, train):
         def call(learner, state, *args, **kwargs):
             before = dict(self.fn.launch_counts)
+            graphs_before = graph_records(learner) if train else {}
             t0 = time.perf_counter()
             out = orig(learner, state, *args, **kwargs)
             if self.sync:
                 self.torch.cuda.synchronize()
             t1 = time.perf_counter()
-            log.append({
-                "t0": t0, "t1": t1, "iteration": int(state.iteration),
-                "synchronized": self.sync,
-                "launches": {k: self.fn.launch_counts[k] - before[k]
-                             for k in before},
-            })
+            rec = {"t0": t0, "t1": t1, "synchronized": self.sync,
+                   "launches": {k: self.fn.launch_counts[k] - before[k]
+                                for k in before}}
+            if train:
+                after = graph_records(learner)
+                replayed = [k for k in after
+                            if after[k][0] != graphs_before.get(k, (0, None))[0]]
+                if len(replayed) != 1:
+                    fail(f"a train call replayed the graphs {replayed}")
+                (key,) = replayed
+                self.captured.extend(learner._step_graphs.graphs[k] for k in after
+                                     if k not in graphs_before)
+                rec.update(
+                    iterations=after[key][0] - graphs_before.get(key, (0, None))[0],
+                    k=self.k, final_only=key[1], per_replay=after[key][1],
+                    captured={k: after[k][1] for k in after if k not in graphs_before},
+                    replayed=replayed_launches(graphs_before, after),
+                )
+                # The input state's iteration, read on the host only where
+                # the loop synchronizes anyway (a call's first record).
+                if self.sync or self.next_iteration is None:
+                    self.next_iteration = int(state.iteration)
+                rec["iteration"] = self.next_iteration
+                self.next_iteration += rec["iterations"]
+            log.append(rec)
             return out
         return call
 
     def __enter__(self):
         self.saved = [getattr(cls, name) for cls, name in self.targets]
-        train, evaluate, pop, loop = self.saved
-        waits = self.waits
+        train, train_k, evaluate, waits_of, loop = self.saved
 
-        def pop_data_wait(loader):
-            waits.append(pop(loader))
-            return waits[-1]
+        def pop_input_waits(builder):
+            data_wait, stage_wait = waits_of(builder)
+            # What blocked the loop: the staged group, or the loader inline.
+            self.waits.append(stage_wait if builder._stager is not None else data_wait)
+            return data_wait, stage_wait
 
         def train_loop(builder, total_iters):
             start, t0 = len(self.train), time.perf_counter()
+            waits = len(self.waits)
             try:
                 return loop(builder, total_iters)
             finally:
                 seconds = time.perf_counter() - t0
-                iterations = len(self.train) - start
+                iterations = sum(r["iterations"] for r in self.train[start:])
                 self.loops.append({
-                    "synchronized": self.sync, "iterations": iterations,
-                    "seconds": seconds, "meta_iters_per_s": iterations / seconds,
+                    "synchronized": self.sync, "k": self.k,
+                    "device_prefetch": self.prefetch,
+                    "iterations": iterations, "seconds": seconds,
+                    "meta_iters_per_s": iterations / seconds,
+                    "input_wait_s": sum(self.waits[waits:]),
                 })
 
         for (cls, name), fn in zip(self.targets, (
-            self._timed(train, self.train), self._timed(evaluate, self.eval),
-            pop_data_wait, train_loop,
+            self._timed(train, self.train, True),
+            self._timed(train_k, self.train, True),
+            self._timed(evaluate, self.eval, False),
+            pop_input_waits, train_loop,
         )):
             setattr(cls, name, fn)
         return self
@@ -889,8 +1168,8 @@ class CliProbe:
             setattr(cls, name, fn)
 
     def per_step(self, starts, per_epoch: int) -> dict:
-        """Meta-iterations/s, step p50 ms and the loader-wait share over the
-        synchronized train iterations after the first two of each call
+        """Meta-iterations/s, step p50 ms and the input-wait share over the
+        synchronized K=1 train iterations after the first two of each call
         (``starts``: the index of each call's first), leaving out the
         cycles that hold an epoch boundary."""
         steps, cycles, waits = [], [], []
@@ -898,7 +1177,8 @@ class CliProbe:
         for start, end in zip(starts, ends):
             for i in range(start + 2, end):
                 rec = self.train[i]
-                if rec["iteration"] % per_epoch == 0 or not rec["synchronized"]:
+                if (rec["iteration"] % per_epoch == 0 or not rec["synchronized"]
+                        or rec["k"] != 1):
                     continue
                 steps.append((rec["t1"] - rec["t0"]) * 1e3)
                 cycles.append(rec["t1"] - self.train[i - 1]["t1"])
@@ -907,7 +1187,7 @@ class CliProbe:
             "timed_iterations": len(steps),
             "meta_iters_per_s": len(cycles) / sum(cycles),
             "step_p50_ms": float(np.median(steps)),
-            "loader_wait_share": sum(waits) / sum(cycles),
+            "input_wait_share": sum(waits) / sum(cycles),
         }
 
 
@@ -919,15 +1199,17 @@ def run_cli(main, argv) -> dict:
 
 
 def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train,
-              want_eval):
+              want_train_final, want_eval):
     """Writes the tree and a derived JSON under a temporary directory and
     drives ``train_maml_system.main`` once per entry of ``calls`` (extra
     JSON keys, extra argv, whether the probe synchronizes after each
-    learner call); returns the phase's measurements. The directory is
-    removed at the end."""
+    learner call, K, ``--device_prefetch``); after each, traces one replay
+    of each graph it captured (``check_replay``). Returns the phase's
+    measurements. The directory is removed at the end."""
     import tempfile
 
     from howtotrainyourmamlpytorch_tpu_torch.data.fast_synth import native_available
+    from howtotrainyourmamlpytorch_tpu_torch.models.step_graph import WARMUP_STEPS
     from howtotrainyourmamlpytorch_tpu_torch.train_maml_system import main
 
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
@@ -945,28 +1227,49 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
         torch.cuda.reset_peak_memory_stats()
         fn.reset_launch_counts()
         with probe:
-            for extra_json, extra_argv, sync in calls:
-                probe.sync = sync
+            for extra_json, extra_argv, sync, k, prefetch in calls:
+                probe.sync, probe.k, probe.next_iteration = sync, k, None
+                probe.prefetch = prefetch
                 path = os.path.join(tmp, f"config_{len(results)}.json")
                 with open(path, "w") as f:
                     json.dump({**base, **extra_json}, f)
                 start = len(probe.train)
                 test = run_cli(main, ["--name_of_args_json_file", path, *FUSED_ARGV,
-                                      *extra_argv])
+                                      "--iters_per_dispatch", str(k),
+                                      "--device_prefetch", str(prefetch), *extra_argv])
                 results.append({"test": {k: float(v) for k, v in test.items()},
-                                "start": start,
+                                "start": start, "k": k, "device_prefetch": prefetch,
                                 "first_iteration": probe.train[start]["iteration"]})
-        launches = dict(fn.launch_counts)
+                for graph in probe.captured:
+                    check_replay(torch, graph, name)
+                probe.captured.clear()
+        wrappers = dict(fn.launch_counts)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        for kind, recs, want in (("train", probe.train, want_train),
-                                 ("eval", probe.eval, want_eval)):
-            bad = [r["launches"] for r in recs if r["launches"] != want]
-            if bad:
-                fail(f"{name}: {kind} iteration launches {bad[0]}, expected {want}")
-        total = {k: len(probe.train) * want_train[k] + len(probe.eval) * want_eval[k]
-                 for k in want_train}
-        if launches != total or not all(launches[k] for k in launches if total[k]):
-            fail(f"{name}: launches {launches}, expected {total}")
+        # Train calls: each replay runs the launches its capture recorded;
+        # a call that captured ran the wrappers for the warm-up and capture.
+        executed = dict.fromkeys(wrappers, 0)
+        counted = dict.fromkeys(wrappers, 0)
+        for rec in probe.train:
+            want = want_train_final if rec["final_only"] else want_train
+            if rec["per_replay"] != want:
+                fail(f"{name}: a train iteration launches {rec['per_replay']} on "
+                     f"replay, expected {want}")
+            capture = {k: sum(c[k] for c in rec["captured"].values()) for k in wrappers}
+            if rec["launches"] != {k: (WARMUP_STEPS + 1) * v for k, v in capture.items()}:
+                fail(f"{name}: a train call's wrappers launched {rec['launches']}, "
+                     f"its captures recorded {capture}")
+            for k in wrappers:
+                counted[k] += rec["launches"][k]
+                executed[k] += rec["replayed"][k] + WARMUP_STEPS * capture[k]
+        bad = [r["launches"] for r in probe.eval if r["launches"] != want_eval]
+        if bad:
+            fail(f"{name}: eval iteration launches {bad[0]}, expected {want_eval}")
+        for k in wrappers:
+            counted[k] += len(probe.eval) * want_eval[k]
+            executed[k] += len(probe.eval) * want_eval[k]
+        if wrappers != counted or not all(executed[k] for k in executed
+                                          if want_train[k] or want_eval[k]):
+            fail(f"{name}: wrapper launches {wrappers}, expected {counted}")
         with open(os.path.join(logs, "summary_statistics.json")) as f:
             stats = json.load(f)
         with open(os.path.join(logs, "summary_statistics.csv")) as f:
@@ -983,7 +1286,8 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
             "native_episode_assembly": native_available(),
             "tree_write_s": tree_s,
             "epochs": csv_rows,
-            "train_iterations": len(probe.train),
+            "train_iterations": sum(r["iterations"] for r in probe.train),
+            "train_calls": len(probe.train),
             "eval_iterations": len(probe.eval),
             "per_step": probe.per_step(
                 [r["start"] for r in results], per_epoch
@@ -994,42 +1298,55 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
             "train_loss": stats["train_loss_mean"],
             "val_loss": stats["val_loss_mean"],
             "calls": results,
-            "launches": launches,
-            "launches_per_train_iter": want_train,
+            "launches": executed,
+            "wrapper_launches": wrappers,
+            "launches_per_train_iter": {"msl": want_train, "final_only": want_train_final},
             "launches_per_eval_iter": want_eval,
         }
 
 
 def cli_flagship_phase(torch, fn):
     per_epoch = 25
+    latest = ["--continue_from_epoch", "latest"]
     out = cli_phase(
         torch, fn, "cli_flagship", FLAGSHIP, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 80},
-        [({}, [], True),
-         ({"total_epochs": 3}, ["--continue_from_epoch", "latest"], False)],
-        CLI_FLAGSHIP_TRAIN, CLI_FLAGSHIP_EVAL,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 80,
+         "multi_step_loss_num_epochs": 2},
+        [({}, [], True, 1, -1),
+         ({"total_epochs": 3}, latest, False, 1, -1),
+         ({"total_epochs": 4}, latest, False, GRAPH_ITERS, -1),
+         ({"total_epochs": 5}, latest, False, GRAPH_ITERS, 0),
+         ({"total_epochs": 6}, latest, False, 1, 0)],
+        CLI_FLAGSHIP_TRAIN, CLI_FLAGSHIP_TRAIN_FINAL, CLI_FLAGSHIP_EVAL,
     )
-    if out["epochs"] != 3:
-        fail(f"cli_flagship: {out['epochs']} CSV rows, expected 3")
-    if [c["first_iteration"] for c in out["calls"]] != [0, 2 * per_epoch]:
+    if out["epochs"] != 6:
+        fail(f"cli_flagship: {out['epochs']} CSV rows, expected 6")
+    if [c["first_iteration"] for c in out["calls"]] != [
+        0, *(e * per_epoch for e in range(2, 6))
+    ]:
         fail(f"cli_flagship: the calls started at {out['calls']}")
     return out
 
 
 def cli_north_star_phase(torch, fn):
     per_epoch = 10
+    latest = ["--continue_from_epoch", "latest"]
     out = cli_phase(
         torch, fn, "cli_north_star", NORTH_STAR, write_imagenet_tree,
         {"dataset_name": "imagenet_synth", "total_epochs": 1,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 20},
-        [({}, [], True),
-         ({"total_epochs": 2}, ["--continue_from_epoch", "latest"], False)],
-        CLI_NORTH_TRAIN, CLI_NORTH_EVAL,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 20,
+         "multi_step_loss_num_epochs": 1},
+        [({}, [], True, 1, -1),
+         ({"total_epochs": 2}, latest, False, 1, -1),
+         ({"total_epochs": 3}, latest, False, GRAPH_ITERS, -1),
+         ({"total_epochs": 4}, latest, False, GRAPH_ITERS, 0),
+         ({"total_epochs": 5}, latest, False, 1, 0)],
+        CLI_NORTH_TRAIN, CLI_NORTH_TRAIN_FINAL, CLI_NORTH_EVAL,
     )
-    if out["epochs"] != 2:
-        fail(f"cli_north_star: {out['epochs']} CSV rows, expected 2")
-    if [c["first_iteration"] for c in out["calls"]] != [0, per_epoch]:
+    if out["epochs"] != 5:
+        fail(f"cli_north_star: {out['epochs']} CSV rows, expected 5")
+    if [c["first_iteration"] for c in out["calls"]] != [e * per_epoch for e in range(5)]:
         fail(f"cli_north_star: the calls started at {out['calls']}")
     return out
 
@@ -1143,6 +1460,17 @@ def main() -> int:
         train = train_phase(torch, fn)
         print(f"[train] meta_iters_per_s {train['meta_iters_per_s']:.3f} step_p50_ms "
               f"{train['step_p50_ms']:.2f} | {json.dumps(train)}", flush=True)
+        graph = graph_phase(torch, fn)
+        for tag, g in graph.items():
+            print(f"[graph] {tag}: run_train_iters(K={GRAPH_ITERS}) bitwise equal to "
+                  f"{GRAPH_ITERS} eager steps at epochs 0, 1 (lr and importance moved) "
+                  f"and 2 (final-only), held state unchanged | capture ms "
+                  + " ".join(f"{k} {v:.1f}" for k, v in g["capture_ms"].items())
+                  + " | replay ms per iteration "
+                  + " ".join(f"{v:.2f}" for v in g["replay_ms_per_iter"])
+                  + " | eager ms per iteration "
+                  + " ".join(f"{v:.2f}" for v in g["eager_ms_per_iter"])
+                  + f" | {json.dumps(g)}", flush=True)
         remat = remat_phase(torch)
         print(f"[remat] fused against plain-norm learners, remat_inner_steps on "
               f"{json.dumps(remat)}", flush=True)
@@ -1153,15 +1481,23 @@ def main() -> int:
                             ("cli_north_star", cli_north_star_phase)):
             cli[name] = r = phase(torch, fn)
             step = r["per_step"]
-            window = [w for w in r["window"] if not w["synchronized"]]
-            print(f"[{name}] per step (a synchronize after each): meta_iters_per_s "
-                  f"{step['meta_iters_per_s']:.3f} step_p50_ms "
-                  f"{step['step_p50_ms']:.2f} loader_wait_share "
-                  f"{step['loader_wait_share']:.4f} | whole loop (no added "
-                  f"synchronize, epoch boundaries included): meta_iters_per_s "
-                  f"{window[0]['meta_iters_per_s']:.3f} over "
-                  f"{window[0]['iterations']} iterations | peak_mem_gb "
-                  f"{r['peak_mem_gb']:.3f} | {json.dumps(r)}", flush=True)
+            windows = " | ".join(
+                f"K={w['k']} device_prefetch {w['device_prefetch']} meta_iters_per_s "
+                f"{w['meta_iters_per_s']:.3f} over {w['iterations']} iterations, "
+                f"input wait {w['input_wait_s']:.4f} s"
+                for w in r["window"] if not w["synchronized"]
+            )
+            print(f"[{name}] per step (K=1, a synchronize after each): "
+                  f"meta_iters_per_s {step['meta_iters_per_s']:.3f} step_p50_ms "
+                  f"{step['step_p50_ms']:.2f} input_wait_share "
+                  f"{step['input_wait_share']:.4f} | whole loop (no added "
+                  f"synchronize, capture and epoch boundary included): {windows} "
+                  f"| peak_mem_gb {r['peak_mem_gb']:.3f} | {json.dumps(r)}",
+                  flush=True)
+
+    print("[replay] kernels one traced replay of each captured graph ran, each "
+          f"equal to the launches its capture counted: {json.dumps(REPLAY_TRACES)}",
+          flush=True)
 
     # Every shape a kernel was called at on the main paths was held to the
     # plain version above.
@@ -1179,7 +1515,8 @@ def main() -> int:
     # 7. result: bn_stats_act and bn_act_bwd at the serve path's support stage-0
     # shape, its most launched and largest adapt shape; bn_stats and K5 at
     # the train path's stage 0, where they run together. Launches are those
-    # of the serve, train and CLI runs together.
+    # the serve, train and CLI runs executed together, a replay counting the
+    # launches its graph captured (which a traced replay of each confirmed).
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":

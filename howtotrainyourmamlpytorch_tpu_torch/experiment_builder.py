@@ -21,6 +21,17 @@ experiment_builder.py``, its loop; the operations planes wait).
 * The run pauses (``sys.exit``) after ``total_epochs_before_pause`` epochs
   of this process, and ends with a test of the top-5 checkpoints by
   validation accuracy, their logits averaged.
+* ``iters_per_dispatch`` K: K meta-updates a learner call
+  (``run_train_iters``; 1 by default), in groups that never straddle an
+  epoch boundary (an epoch's last group may be shorter). The summary
+  keeps one sample per meta-update at any K.
+* ``device_prefetch``: a stager thread prepares the next dispatch groups
+  and copies them to the card ahead of the loop
+  (``data/device_prefetch.py``); -1 (the default) sizes its depth from
+  the loop's waits, N pins it, 0 prepares each batch inline. Within
+  ``data_fault_budget`` faults a run, a failed batch is skipped with a
+  warning; when the fault finished the loader's generator, training goes
+  on from a fresh one.
 * Metrics stay on the card until a log line (every ``TRAIN_LOG_EVERY``
   iterations) or an epoch boundary reads them. A non-finite meta-loss is
   ``halt`` (raise before anything is checkpointed) or ``skip`` (the
@@ -39,6 +50,8 @@ import time
 import numpy as np
 import torch
 
+from .data.device_prefetch import AUTO_DEPTH, DevicePrefetcher
+from .models.common import StagedBatch, dispatch_multiplier, prepare_batch
 from .utils.checkpoint import (
     AsyncCheckpointWriter,
     CheckpointCorruptError,
@@ -54,8 +67,6 @@ TRAIN_LOG_EVERY = 50
 #: Knobs of JAX-only mechanisms that change no number: accepted, and
 #: reported at start as not ported, with the ROADMAP item that holds them.
 NOT_PORTED = {
-    "device_prefetch": "A7 (batches are prepared inline on the host)",
-    "data_fault_budget": "A7 (read by the device prefetcher only)",
     "telemetry": "A12",
     "watchdog": "A12",
     "profile_trace_path": "A12",
@@ -72,11 +83,6 @@ class NonFiniteLossError(RuntimeError):
 
 def _refuse_unported(args) -> None:
     """Knobs that change what is computed raise away from their default."""
-    if int(getattr(args, "iters_per_dispatch", 1) or 1) > 1:
-        raise NotImplementedError(
-            "iters_per_dispatch > 1 (several meta-updates a dispatch) is "
-            "ROADMAP item A7"
-        )
     policy = str(getattr(args, "on_nonfinite", "halt") or "halt").lower()
     if policy == "rollback":
         raise NotImplementedError("on_nonfinite=rollback is ROADMAP item A12")
@@ -95,23 +101,33 @@ def _refuse_unported(args) -> None:
         )
 
 
+def _log_due(current_iter: int, chunk: int) -> bool:
+    """Whether the dispatch of ``chunk`` iterations that ended at
+    ``current_iter`` crossed a ``TRAIN_LOG_EVERY`` boundary, or is the
+    first (the K = 1 path prints at iteration 1)."""
+    return current_iter % TRAIN_LOG_EVERY < chunk or current_iter == chunk
+
+
 def _host_values(total_losses: dict) -> dict:
-    """``{key: float64 array}`` of the accumulated metrics, the card's
-    scalars copied to the host in one transfer."""
+    """``{key: float64 array}`` of the accumulated metrics, one sample per
+    meta-update: the card's scalars and ``(K,)`` vectors copied to the host
+    in one transfer and flattened, floats as they are."""
     tensors = [v for vs in total_losses.values() for v in vs
                if isinstance(v, torch.Tensor)]
     fetched = iter(
-        torch.stack([t.detach().float() for t in tensors]).cpu().tolist()
+        torch.cat([t.detach().float().reshape(-1) for t in tensors]).cpu().tolist()
         if tensors else ()
     )
-    return {
-        key: np.asarray(
-            [next(fetched) if isinstance(v, torch.Tensor) else float(v)
-             for v in values],
-            dtype=np.float64,
-        )
-        for key, values in total_losses.items()
-    }
+    out = {}
+    for key, values in total_losses.items():
+        samples = []
+        for v in values:
+            if isinstance(v, torch.Tensor):
+                samples.extend(next(fetched) for _ in range(v.numel()))
+            else:
+                samples.append(float(v))
+        out[key] = np.asarray(samples, dtype=np.float64)
+    return out
 
 
 class ExperimentBuilder:
@@ -173,8 +189,18 @@ class ExperimentBuilder:
         )
         self._ckpt_writer: AsyncCheckpointWriter | None = None
         self._last_ckpt_t = time.monotonic()
-        # Seconds the train loop spent blocked on the loader this epoch.
+        self.iters_per_dispatch = max(int(getattr(args, "iters_per_dispatch", 1) or 1), 1)
+        prefetch = getattr(args, "device_prefetch", AUTO_DEPTH)
+        self.device_prefetch = AUTO_DEPTH if prefetch is None else int(prefetch)
+        budget = getattr(args, "data_fault_budget", 8)
+        # The budget holds for the run: each stager gets what is left.
+        self.data_fault_budget = 8 if budget is None else int(budget)
+        self.data_faults = 0
+        self._stager: DevicePrefetcher | None = None
+        # Seconds this epoch: the loader blocked whoever pulls from it (the
+        # stager, else the loop); the loop waited for a staged group.
         self._epoch_data_wait_s = 0.0
+        self._epoch_stage_wait_s = 0.0
         self._epoch_train_t0 = time.perf_counter()
         print("not ported, no effect on this run: " + ", ".join(
             f"{k}={getattr(args, k, None)!r} ({item})" for k, item in NOT_PORTED.items()
@@ -206,8 +232,10 @@ class ExperimentBuilder:
 
     @staticmethod
     def build_loss_summary_string(summary_losses):
+        """The loss and accuracy entries; of a ``(K,)`` vector, the last
+        meta-update's."""
         return "".join(
-            "{}: {:.4f}, ".format(key, float(value))
+            "{}: {:.4f}, ".format(key, float(torch.as_tensor(value).reshape(-1)[-1]))
             for key, value in summary_losses.items()
             if "loss" in key or "accuracy" in key
         )
@@ -268,7 +296,8 @@ class ExperimentBuilder:
         """``halt``: raises on a tripped iteration, at the log cadence's
         read. ``skip`` was resolved on the card."""
         flag = losses.get("nonfinite")
-        if self.on_nonfinite == "skip" or flag is None or float(flag) == 0.0:
+        if (self.on_nonfinite == "skip" or flag is None
+                or float(torch.as_tensor(flag).sum()) == 0.0):
             return
         raise NonFiniteLossError(
             f"non-finite meta-loss at iteration {current_iter} "
@@ -306,23 +335,49 @@ class ExperimentBuilder:
     # Iterations
     # ------------------------------------------------------------------
 
-    def train_iteration(self, train_sample, sample_idx, epoch_idx, total_losses,
-                        current_iter):
-        data_batch = tuple(train_sample[:4])
-        if sample_idx == 0:
-            print("shape of data", *(a.shape for a in data_batch))
-        self.train_state, losses = self.model.run_train_iter(
-            self.train_state, data_batch, epoch=epoch_idx
-        )
-        self._epoch_data_wait_s += self.data.pop_data_wait()
-        # Appended unread: the host does not wait for the step it queued.
+    def _pop_input_waits(self) -> tuple[float, float]:
+        """``(data_wait_s, stage_wait_s)`` since the last call: seconds the
+        loader blocked whoever pulls from it, and seconds the loop waited
+        for a staged group (0 without the stager)."""
+        if self._stager is not None:
+            return self._stager.pop_waits()
+        return self.data.pop_data_wait(), 0.0
+
+    def _after_dispatch(self, losses, total_losses, current_iter, n_iters):
+        """Accounts one dispatch of ``n_iters`` meta-updates: the input
+        waits, the metrics appended unread (the host does not wait for the
+        step it queued), and the log line with the sentinel's read when
+        due. Returns the new iteration count."""
+        data_wait, stage_wait = self._pop_input_waits()
+        self._epoch_data_wait_s += data_wait
+        self._epoch_stage_wait_s += stage_wait
         for key, value in losses.items():
             total_losses.setdefault(key, []).append(value)
-        current_iter += 1
-        if current_iter % TRAIN_LOG_EVERY == 0 or current_iter == 1:
+        current_iter += n_iters
+        if _log_due(current_iter, n_iters):
             self._sentinel_check(losses, current_iter)
             print(f"training iter {current_iter} epoch {self.epoch} -> "
                   + self.build_loss_summary_string(losses), flush=True)
+        return current_iter
+
+    def train_iteration(self, samples, epoch_idx, total_losses, current_iter):
+        """One learner dispatch (``run_train_iters``) of the K meta-updates
+        in ``samples``, a list of loader samples or a staged group; K = 1
+        included, so one path serves the JAX builder's ``train_iteration``
+        and ``train_iteration_multi``. The ``(K,)`` metrics are appended
+        whole, one sample per meta-update."""
+        if isinstance(samples, StagedBatch):
+            batches, shapes = samples, [a.shape for a in samples.arrays]
+        else:
+            batches = [tuple(s[:4]) for s in samples]
+            shapes = [a.shape for a in batches[0]]
+        if current_iter == 0:
+            print("shape of data", *shapes)
+        self.train_state, losses = self.model.run_train_iters(
+            self.train_state, batches, epoch=epoch_idx
+        )
+        current_iter = self._after_dispatch(losses, total_losses, current_iter,
+                                            dispatch_multiplier(samples))
         return total_losses, current_iter
 
     def evaluation_iteration(self, val_sample, total_losses, phase):
@@ -495,42 +550,103 @@ class ExperimentBuilder:
 
     def _run_experiment(self):
         total_iters = int(self.args.total_epochs * self.args.total_iter_per_epoch)
-        if (self.state["current_iter"] < total_iters
-                and not self.args.evaluate_on_test_set_only):
-            self._train_loop_host(total_iters)
+        # A loader generator that raised is finished; after the stager
+        # quarantined its fault, the rest is drawn from a fresh one.
+        while (self.state["current_iter"] < total_iters
+               and not self.args.evaluate_on_test_set_only):
+            start, faults = self.state["current_iter"], self.data_faults
+            self._train_loop(total_iters)
+            if (self.state["current_iter"] == start
+                    and self.data_faults == faults):
+                raise RuntimeError(
+                    f"the loader gave no train batch at iteration {start} "
+                    f"of {total_iters}"
+                )
         # The last epoch's write must be on disk before the ensemble reads
         # the checkpoints (and a failed write fails the run here).
         if self._ckpt_writer is not None:
             self._ckpt_writer.drain()
         return self.evaluated_test_set_using_the_best_models(top_n_models=5)
 
-    def _train_loop_host(self, total_iters):
+    def _make_stager(self, batches) -> DevicePrefetcher | None:
+        """The prefetcher over a train-batch generator, in the loop's
+        dispatch groups (``device_prefetch`` 0: none)."""
+        if self.device_prefetch == 0:
+            return None
+        codec = self.model.cfg.wire_codec
+        return DevicePrefetcher(
+            batches, lambda batch: prepare_batch(batch, codec=codec), self.device,
+            depth=self.device_prefetch,
+            group=self.iters_per_dispatch,
+            start_iter=int(self.state["current_iter"]),
+            epoch_len=int(self.args.total_iter_per_epoch),
+            fault_budget=self.data_fault_budget - self.data_faults,
+        )
+
+    def _train_loop(self, total_iters):
+        """The train loop over a fresh batch generator, staged or inline.
+        The stager is closed on every exit from here: the pause's
+        ``sys.exit``, the sentinel's raise, a crash."""
         batches = self.data.get_train_batches(
             total_batches=total_iters - self.state["current_iter"],
             augment_images=self.augment_flag,
         )
         self._epoch_train_t0 = time.perf_counter()
+        stager = self._make_stager(batches)
+        if stager is None:
+            self._train_loop_host(batches)
+            return
+        self._stager = stager
+        try:
+            for staged in stager:
+                self._dispatch(staged)
+        finally:
+            self._stager = None
+            self.data_faults += stager.faults_quarantined
+            stager.close()
+
+    def _train_loop_host(self, batches):
+        """``device_prefetch`` 0: each sample prepared inline, buffered
+        into groups flushed at K or an epoch's end."""
+        buffered = []
         for train_sample in batches:
-            self.total_losses, self.state["current_iter"] = self.train_iteration(
-                train_sample=train_sample,
-                sample_idx=self.state["current_iter"],
-                epoch_idx=self.state["current_iter"] / self.args.total_iter_per_epoch,
-                total_losses=self.total_losses,
-                current_iter=self.state["current_iter"],
-            )
-            if self.state["current_iter"] % self.args.total_iter_per_epoch == 0:
-                self._run_epoch_boundary()
-                self._epoch_data_wait_s = 0.0
-                self._epoch_train_t0 = time.perf_counter()
-            elif (self.checkpoint_interval_s > 0
-                  and time.monotonic() - self._last_ckpt_t
-                  >= self.checkpoint_interval_s):
-                self._interval_checkpoint()
+            buffered.append(train_sample)
+            next_iter = self.state["current_iter"] + len(buffered)
+            if (len(buffered) == self.iters_per_dispatch
+                    or next_iter % self.args.total_iter_per_epoch == 0):
+                self._dispatch(buffered)
+                buffered = []
+        if buffered:
+            self._dispatch(buffered)
+
+    def _dispatch(self, group) -> None:
+        """One learner call on ``group`` (a list of samples or a staged
+        group), then the epoch boundary or the interval checkpoint when
+        due."""
+        self.total_losses, self.state["current_iter"] = self.train_iteration(
+            samples=group,
+            epoch_idx=self.state["current_iter"] / self.args.total_iter_per_epoch,
+            total_losses=self.total_losses, current_iter=self.state["current_iter"],
+        )
+        if self.state["current_iter"] % self.args.total_iter_per_epoch == 0:
+            self._run_epoch_boundary()
+            self._epoch_data_wait_s = self._epoch_stage_wait_s = 0.0
+            self._epoch_train_t0 = time.perf_counter()
+        elif (self.checkpoint_interval_s > 0
+              and time.monotonic() - self._last_ckpt_t
+              >= self.checkpoint_interval_s):
+            self._interval_checkpoint()
 
     def _run_epoch_boundary(self) -> None:
         train_wall_s = time.perf_counter() - self._epoch_train_t0
+        if self._stager is not None:
+            waits = (f"{self._epoch_stage_wait_s:.3f} s waiting for staged "
+                     f"groups (the stager waited {self._epoch_data_wait_s:.3f} s "
+                     "on the loader)")
+        else:
+            waits = f"{self._epoch_data_wait_s:.3f} s blocked on the loader"
         print(f"epoch {self.epoch} train loop {train_wall_s:.3f} s, of which "
-              f"{self._epoch_data_wait_s:.3f} s blocked on the loader", flush=True)
+              f"{waits}", flush=True)
         train_losses = self.build_summary_dict(self.total_losses, phase="train")
         self._sentinel_epoch_boundary(train_losses)
         total_losses = {}

@@ -1,8 +1,9 @@
 """Trainer plumbing shared by the learners
-(``howtotrainyourmamlpytorch_tpu/models/common.py:39-259``): dtype casts,
+(``howtotrainyourmamlpytorch_tpu/models/common.py:39-308``): dtype casts,
 the divergence sentinel, the epoch-wise cosine LR, the outer Adam with an
-injected learning rate, the uint8 image wire format, batch preparation, and
-the learners' checkpoint methods (``:459-700``).
+injected learning rate, the uint8 image wire format, batch preparation, the
+staged dispatch group and its host-to-device copy, and the learners'
+checkpoint methods (``:459-700``).
 """
 
 from __future__ import annotations
@@ -178,9 +179,12 @@ def decode_images(x: torch.Tensor, codec: WireCodec | None, dtype) -> torch.Tens
     if codec.scale != 1.0:
         x = x / codec.scale
     if codec.mean is not None:
+        # Filled on the device, not copied from the host: a copy would
+        # synchronize, which a captured train step (models/step_graph.py)
+        # may not do.
         shape = (-1, 1, 1)
-        mean = torch.tensor(codec.mean, dtype=torch.float32, device=x.device)
-        std = torch.tensor(codec.std, dtype=torch.float32, device=x.device)
+        mean = torch.stack([x.new_full((), m) for m in codec.mean])
+        std = torch.stack([x.new_full((), s) for s in codec.std])
         x = (x - mean.reshape(shape)) / std.reshape(shape)
     return x.to(dtype)
 
@@ -204,6 +208,59 @@ def prepare_batch(data_batch, codec: WireCodec | None = None):
     xs = xs.reshape(b, -1, *xs.shape[-3:])
     xt = xt.reshape(b, -1, *xt.shape[-3:])
     return xs, xt, ys.reshape(b, -1), yt.reshape(b, -1)
+
+
+class StagedBatch(NamedTuple):
+    """A dispatch group already on the learner's device
+    (``data/device_prefetch.DevicePrefetcher``).
+
+    ``arrays`` holds the ``prepare_batch`` fields stacked on a leading K
+    axis, K = 1 included: the pre-stacked form ``run_train_iters`` replays
+    over, with no ``prepare_batch`` or copy of its own."""
+
+    arrays: tuple
+    n_iters: int
+    first_iter: int
+
+
+def dispatch_multiplier(data_batches) -> int:
+    """The number K of meta-updates one train dispatch of ``data_batches``
+    performs, for each form ``run_train_iters`` takes: a
+    :class:`StagedBatch` (its ``n_iters``), the pre-stacked 4-tuple (its
+    leading axis), a sequence of K episode batches (its length); a single
+    episode batch is 1."""
+    if isinstance(data_batches, StagedBatch):
+        return max(int(data_batches.n_iters), 1)
+    try:
+        n = len(data_batches)
+    except TypeError:
+        return 1
+    if n == 4 and all(hasattr(b, "ndim") for b in data_batches):
+        first = data_batches[0]
+        return max(int(np.shape(first)[0]), 1) if first.ndim > 0 else 1
+    return max(n, 1)
+
+
+def to_device(prepared: list, device) -> tuple:
+    """The K ``prepare_batch`` outputs of ``prepared`` -> one tensor a
+    field on ``device``, stacked on a leading K axis.
+
+    For a CUDA device the host side is one page-locked buffer a field,
+    filled in place, and the copy is issued ``non_blocking`` on the
+    current stream: the host does not wait for it, and the caching host
+    allocator keeps each buffer until its copy is done."""
+    device = torch.device(device)
+    fields = list(zip(*prepared))
+    if device.type == "cpu":
+        return tuple(torch.from_numpy(np.stack(f)) for f in fields)
+    out = []
+    for field in fields:
+        first = np.asarray(field[0])
+        dtype = torch.from_numpy(np.empty(0, first.dtype)).dtype
+        host = torch.empty((len(field), *first.shape), dtype=dtype, pin_memory=True)
+        np.stack(field, out=host.numpy())
+        out.append(host.to(device, non_blocking=True))
+    return tuple(out)
 
 
 class CheckpointableLearner:

@@ -17,6 +17,11 @@ LSLR rates through every step. The outer loss is the task mean of the
 weighted target losses; outer Adam updates the trainable leaves. Past the
 MSL horizon (``final_only``) only the last step's target pass runs.
 
+Several meta-updates a dispatch (``run_train_iters``): on the card, each
+replays the train step captured as a CUDA graph (``models/step_graph.py``),
+``run_train_iter`` being the dispatch of one; on the CPU the eager step runs
+K times.
+
 Serving (``serve_adapt``/``serve_classify``) and eval
 (``run_validation_iter``) adapt at first order with the fast weights
 detached every step.
@@ -46,6 +51,7 @@ from .backbone import BackboneConfig, build_backbone
 from .common import (
     DTYPES,
     CheckpointableLearner,
+    StagedBatch,
     WireCodec,
     cast_floats,
     cosine_epoch_lr,
@@ -56,7 +62,9 @@ from .common import (
     nonfinite_flag,
     prepare_batch,
     set_injected_lr,
+    to_device,
 )
+from .step_graph import StepGraphs
 
 Tree = Any
 
@@ -211,6 +219,8 @@ class MAMLFewShotLearner(CheckpointableLearner):
         self.backbone = build_backbone(cfg.backbone)
         self.tx = make_injected_adam(cfg.meta_learning_rate, cfg.clip_grad_value)
         self.current_epoch = 0
+        # The captured train steps, made at the first dispatch on a card.
+        self._step_graphs: StepGraphs | None = None
         set_f32_numerics()
 
     def adapt_mask(self, theta: Tree) -> Tree:
@@ -346,8 +356,13 @@ class MAMLFewShotLearner(CheckpointableLearner):
         def run(fn, *args):
             # Checkpointed steps keep only their inputs for the outer
             # backward; without an outer gradient there is nothing to keep.
+            # The step draws no random numbers, so there is no RNG state to
+            # restore for the recomputation (reading the card's would stop
+            # a CUDA-graph capture).
             if cfg.remat_inner_steps and outer_grad:
-                return checkpoint(fn, *args, use_reentrant=False)
+                return checkpoint(
+                    fn, *args, use_reentrant=False, preserve_rng_state=False
+                )
             return fn(*args)
 
         leaves = [a.expand(tasks, *a.shape) for a in tree_leaves(adapt0)]
@@ -386,7 +401,14 @@ class MAMLFewShotLearner(CheckpointableLearner):
         "lslr"}``, the BN state averaged over tasks."""
         outer = {"theta": state.theta, "lslr": state.lslr}
         leaves = [a.detach().requires_grad_() for a in tree_leaves(outer)]
-        with torch.enable_grad():
+        # Every backward runs on this thread. On a card, autograd otherwise
+        # runs it on a device thread, where the inner gradients' graph
+        # (create_graph) is recorded with that thread's node numbering; the
+        # outer backward orders nodes of the two numberings by comparing
+        # them, so the order in which a leaf's gradients are summed, and
+        # their bits, would depend on how many nodes each thread had made
+        # before in the process.
+        with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
             loss, aux = self._meta_loss(
                 tree_unflatten(outer, leaves), state.bn_state, batch,
                 importance, self.cfg.number_of_training_steps_per_iter,
@@ -466,41 +488,74 @@ class MAMLFewShotLearner(CheckpointableLearner):
             epoch, cfg.meta_learning_rate, cfg.min_learning_rate, cfg.total_epochs
         )
 
+    def _device(self, state) -> torch.device:
+        return tree_leaves(state.theta)[0].device
+
     def _device_batch(self, state, data_batch):
-        """``prepare_batch`` on the host, then onto the state's device."""
-        device = tree_leaves(state.theta)[0].device
-        return tuple(
-            torch.from_numpy(a).to(device)
-            for a in prepare_batch(data_batch, codec=self.cfg.wire_codec)
-        )
+        """One host episode batch through ``prepare_batch``, onto the
+        state's device."""
+        prepared = prepare_batch(data_batch, codec=self.cfg.wire_codec)
+        return tuple(a[0] for a in to_device([prepared], self._device(state)))
+
+    def _device_group(self, state, data_batches):
+        """A dispatch group on the state's device, each field with a
+        leading K axis, from any form ``run_train_iters`` takes."""
+        device = self._device(state)
+        if isinstance(data_batches, StagedBatch):
+            return tuple(data_batches.arrays)
+        if len(data_batches) == 4 and all(hasattr(b, "ndim") for b in data_batches):
+            if all(isinstance(b, torch.Tensor) for b in data_batches):
+                return tuple(b.to(device) for b in data_batches)
+            return to_device(list(zip(*data_batches)), device)
+        prepared = [prepare_batch(b, codec=self.cfg.wire_codec) for b in data_batches]
+        return to_device(prepared, device)
 
     def _importance(self, state, weights: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(weights).to(tree_leaves(state.theta)[0].device)
+        return torch.from_numpy(weights).to(self._device(state))
 
-    def run_train_iter(self, state: TrainState, data_batch, epoch):
-        """One meta-update on a ``(x_support, x_target, y_support,
-        y_target)`` numpy episode batch of shape ``(B, N, K, C, H, W)`` /
-        ``(B, N, K)``. Returns ``(new_state, losses)``: ``loss``,
-        ``accuracy`` and ``nonfinite`` as device scalars (no host sync),
-        the MSL importance vector and the learning rate as floats
-        (``maml.py:1047-1086``)."""
-        epoch = int(epoch)
-        self.current_epoch = epoch
+    def _final_only(self, epoch: int) -> bool:
+        """Past the MSL horizon the importance is one-hot on the last step:
+        only that step's target pass runs."""
         cfg = self.cfg
-        batch = self._device_batch(state, data_batch)
-        importance = self._importance(state, self._train_importance(epoch))
-        lr = self._epoch_lr(epoch)
-        state = state._replace(opt_state=set_injected_lr(state.opt_state, lr))
-        # Past the MSL horizon the importance is one-hot on the last step:
-        # only that step's target pass runs.
-        final_only = not (
+        return not (
             cfg.use_multi_step_loss_optimization
             and epoch < cfg.multi_step_loss_num_epochs
         )
-        new_state, metrics = self._train_step(
-            state, batch, importance,
-            second_order=self._use_second_order(epoch), final_only=final_only,
-        )
+
+    def _train_group(self, state: TrainState, group, epoch: int):
+        """``len(group[0])`` meta-updates of ``epoch``'s program variant.
+        Returns ``(new_state, metrics)`` with ``(K,)`` ``loss``,
+        ``accuracy`` and ``nonfinite``. On a card each is a replay of the
+        captured step; on the CPU the eager step."""
+        importance = self._train_importance(epoch)
+        lr = self._epoch_lr(epoch)
+        branch = dict(second_order=self._use_second_order(epoch),
+                      final_only=self._final_only(epoch))
+        device = self._device(state)
+        if device.type == "cuda":
+            if self._step_graphs is None:
+                self._step_graphs = StepGraphs(device)
+            new_state, rows = self._step_graphs.run(
+                self, state, group, importance, lr, **branch
+            )
+            return new_state, dict(zip(("loss", "accuracy", "nonfinite"), rows))
+        if device.type != "cpu":
+            raise ValueError(f"the learner runs on cuda or cpu, got {device}")
+        state = state._replace(opt_state=set_injected_lr(state.opt_state, lr))
+        weights = self._importance(state, importance)
+        steps = []
+        for k in range(group[0].shape[0]):
+            state, metrics = self._train_step(
+                state, tuple(a[k] for a in group), weights, **branch
+            )
+            steps.append(metrics)
+        return state, {key: torch.stack([m[key] for m in steps])
+                       for key in ("loss", "accuracy", "nonfinite")}
+
+    def _train_losses(self, metrics: dict, epoch: int) -> dict:
+        """The metrics and the reference's float keys: the MSL importance
+        vector and the learning rate."""
+        cfg = self.cfg
         losses = dict(metrics)
         msl_vector = per_step_loss_importance(
             epoch, cfg.number_of_training_steps_per_iter,
@@ -508,8 +563,38 @@ class MAMLFewShotLearner(CheckpointableLearner):
         )
         for i, v in enumerate(msl_vector):
             losses[f"loss_importance_vector_{i}"] = float(v)
-        losses["learning_rate"] = lr
-        return new_state, losses
+        losses["learning_rate"] = self._epoch_lr(epoch)
+        return losses
+
+    def run_train_iter(self, state: TrainState, data_batch, epoch):
+        """One meta-update on a ``(x_support, x_target, y_support,
+        y_target)`` numpy episode batch of shape ``(B, N, K, C, H, W)`` /
+        ``(B, N, K)``. Returns ``(new_state, losses)``: ``loss``,
+        ``accuracy`` and ``nonfinite`` as device scalars (no host sync), the
+        MSL importance vector and the learning rate as floats
+        (``maml.py:1047-1086``). The state passed in is not changed."""
+        epoch = int(epoch)
+        self.current_epoch = epoch
+        group = self._device_group(state, [data_batch])
+        new_state, metrics = self._train_group(state, group, epoch)
+        return new_state, self._train_losses(
+            {k: v[0] for k, v in metrics.items()}, epoch
+        )
+
+    def run_train_iters(self, state: TrainState, data_batches, epoch):
+        """K meta-updates in one dispatch (``maml.py:418-479``).
+
+        ``data_batches``: a sequence of K episode batches, the pre-stacked
+        form (a 4-tuple of ``prepare_batch``-layout arrays, each with a
+        leading K axis) or a ``StagedBatch``. Returns ``(new_state,
+        losses)`` with the keys of ``run_train_iter``; ``loss``,
+        ``accuracy`` and ``nonfinite`` are ``(K,)`` device tensors, one
+        sample per meta-update. The state passed in is not changed."""
+        epoch = int(epoch)
+        self.current_epoch = epoch
+        group = self._device_group(state, data_batches)
+        new_state, metrics = self._train_group(state, group, epoch)
+        return new_state, self._train_losses(metrics, epoch)
 
     def run_validation_iter(self, state: TrainState, data_batch):
         """Evaluation episode batch -> ``(state, losses, logits (B, Q,

@@ -1,0 +1,171 @@
+"""The meta-update as a CUDA graph, replayed K times a dispatch: the card's
+form of the JAX package's jitted ``_train_step`` and of the ``lax.scan``
+over it in ``run_train_iters``
+(``howtotrainyourmamlpytorch_tpu/models/maml.py:373-402``).
+
+``MAMLFewShotLearner._train_step`` is captured once per program variant
+(second order, MSL final-only) and batch shape into static input and
+output buffers. A replay is one ``cudaGraphLaunch`` in place of the
+step's thousands of launches from Python and autograd; any K, an epoch's
+shorter last chunk included, replays the same graph, and device memory
+stays one step's peak.
+
+What a replay reads is written into the static inputs before it, on the
+caller's stream and without a host synchronisation:
+
+* the state: copied in at the start of a dispatch
+  (``torch._foreach_copy_``), and from the step's outputs between
+  replays. The caller's tensors are read, never written;
+* the learning rate: ``fill_`` of the captured state's scalar, so the
+  cosine schedule moves at each epoch although capture saw one value;
+* the MSL importance vector: copied from a page-locked host tensor when
+  it changes;
+* slot k of the dispatch group: a device-to-device copy.
+
+What a replay writes, the next one overwrites. So each replay's loss,
+accuracy and non-finite flag are copied into slot k of a fresh ``(3, K)``
+tensor, and the state a dispatch returns is a copy of the outputs.
+
+Before capture the step runs once eagerly on the capture's stream:
+cuDNN builds its convolution plans, the fused-norm wrappers query their
+launch plans, and the allocator and the libraries' workspaces warm up on
+that stream, none of which may happen inside a capture. A capture that
+fails raises; nothing runs the eager step in its place.
+
+The fused-norm wrappers run at capture, not on replay: their
+``launch_counts`` see a step once. Each graph keeps the launches it
+captured (``launches``, per replay), its number of ``replays`` and the
+seconds its warm-up and capture took (``capture_s``).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..ops import fused_norm
+from ..utils.trees import tree_leaves, tree_map, tree_unflatten
+
+#: Eager steps on the capture's stream before the capture.
+WARMUP_STEPS = 1
+
+
+class StepGraph:
+    """One captured ``_train_step`` with its static buffers."""
+
+    def __init__(self, learner, state, batch, importance: np.ndarray, lr: float,
+                 *, second_order: bool, final_only: bool, stream):
+        t0 = time.perf_counter()
+        device = batch[0].device
+        self.key = (second_order, final_only)
+        self._inputs = tree_map(torch.empty_like, state)
+        self._in_leaves = tree_leaves(self._inputs)
+        self._lr = self._inputs.opt_state.learning_rate
+        self._batch = tuple(torch.empty_like(a) for a in batch)
+        self._importance = torch.empty(
+            len(importance), dtype=torch.float32, device=device
+        )
+        self._host_importance = None
+        self._load(state, importance, lr)
+        for dst, src in zip(self._batch, batch):
+            dst.copy_(src)
+
+        def step():
+            return learner._train_step(
+                self._inputs, self._batch, self._importance,
+                second_order=second_order, final_only=final_only,
+            )
+
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            for _ in range(WARMUP_STEPS):
+                step()
+        current.wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        before = dict(fused_norm.launch_counts)
+        # thread_local: the prefetcher's thread may pin host memory and
+        # copy on its own stream while this thread captures.
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self._outputs, metrics = step()
+            self._metrics = torch.stack(
+                [metrics["loss"], metrics["accuracy"], metrics["nonfinite"]]
+            )
+        self.launches = {
+            name: fused_norm.launch_counts[name] - before[name] for name in before
+        }
+        self.replays = 0
+        out_leaves = tree_leaves(self._outputs)
+        # Outputs that are the inputs themselves (frozen leaves, the
+        # learning rate) carry over by themselves.
+        carried = [
+            (i, o) for i, o in zip(self._in_leaves, out_leaves)
+            if i.data_ptr() != o.data_ptr()
+        ]
+        self._carry_in = [i for i, _ in carried]
+        self._carry_out = [o for _, o in carried]
+        self._out_leaves = out_leaves
+        # Host seconds of the warm-up and the capture (entering the capture
+        # synchronizes the device, so the warm-up's device time is in it).
+        self.capture_s = time.perf_counter() - t0
+
+    def _load(self, state, importance: np.ndarray, lr: float) -> None:
+        """The caller's state, the epoch's learning rate and importance
+        vector into the static inputs, on the current stream."""
+        torch._foreach_copy_(self._in_leaves, tree_leaves(state))
+        self._lr.fill_(lr)
+        if self._host_importance is None or not np.array_equal(
+            self._host_importance, importance
+        ):
+            host = torch.from_numpy(np.asarray(importance, np.float32)).pin_memory()
+            self._importance.copy_(host, non_blocking=True)
+            self._host_importance = np.array(importance, np.float32)
+
+    def dispatch(self, state, group, importance: np.ndarray, lr: float):
+        """``len(group[0])`` meta-updates from ``state``; ``group`` holds
+        the batch fields with a leading K axis, on the device. Returns
+        ``(new_state, (3, K) metrics)``: loss, accuracy, nonfinite rows."""
+        k_total = group[0].shape[0]
+        self._load(state, importance, lr)
+        metrics = torch.empty(
+            (3, k_total), dtype=torch.float32, device=self._lr.device
+        )
+        for k in range(k_total):
+            if k:
+                torch._foreach_copy_(self._carry_in, self._carry_out)
+            for dst, src in zip(self._batch, group):
+                dst.copy_(src[k])
+            self.graph.replay()
+            self.replays += 1
+            metrics[:, k].copy_(self._metrics)
+        fresh = [torch.empty_like(a) for a in self._out_leaves]
+        torch._foreach_copy_(fresh, self._out_leaves)
+        return tree_unflatten(self._outputs, fresh), metrics
+
+
+class StepGraphs:
+    """A learner's captured steps, one per ``(second_order, final_only)``
+    branch and batch shape, sharing one capture stream."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.graphs: dict[tuple, StepGraph] = {}
+
+    def run(self, learner, state, group, importance: np.ndarray, lr: float,
+            *, second_order: bool, final_only: bool):
+        """``StepGraph.dispatch`` on the graph of this branch and batch
+        shape, captured at its first dispatch."""
+        key = (second_order, final_only,
+               tuple((tuple(a.shape[1:]), a.dtype) for a in group))
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = StepGraph(
+                learner, state, tuple(a[0] for a in group), importance, lr,
+                second_order=second_order, final_only=final_only,
+                stream=self.stream,
+            )
+            self.graphs[key] = graph
+        return graph.dispatch(state, group, importance, lr)

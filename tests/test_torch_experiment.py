@@ -272,7 +272,7 @@ def test_interval_checkpoint_resumes_mid_epoch(runs, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("knob, value, item", [
-    ("iters_per_dispatch", 4, "A7"),
+    ("device_augment", True, "A7"),
     ("on_nonfinite", "rollback", "A12"),
     ("num_processes", 2, "A10"),
     ("dataprovider_backend", "process", "A5"),

@@ -22,6 +22,7 @@ from howtotrainyourmamlpytorch_tpu_torch.models import (
     MAMLConfig,
     MAMLFewShotLearner,
 )
+from howtotrainyourmamlpytorch_tpu_torch.models.step_graph import WARMUP_STEPS
 from howtotrainyourmamlpytorch_tpu_torch.ops import fused_norm as tfn
 from howtotrainyourmamlpytorch_tpu_torch.serve import ServeConfig, ServingEngine
 
@@ -283,10 +284,17 @@ def test_fused_train_step_runs_the_kernels(cuda):
     batch = (xs, xs.copy(), ys, ys.copy())
     tfn.reset_launch_counts()
     _, losses = learner.run_train_iter(state, batch, epoch=0)
-    counts = dict(tfn.launch_counts)
+    # The step runs as a CUDA graph: the wrappers see its warm-up and its
+    # capture, and the graph keeps the launches of one replay.
+    (graph,) = learner._step_graphs.graphs.values()
+    counts = graph.launches
     # 2 steps x (support + target) x 4 stages; stages 0-1 pool (28, 14).
     assert counts["bn_stats"] == 8 and counts["bn_stats_act"] == 8, counts
     assert counts["bn_act_pool_apply"] == 8 and counts["bn_act_bwd"] == 0, counts
+    assert tfn.launch_counts == {
+        k: (WARMUP_STEPS + 1) * v for k, v in counts.items()
+    }, tfn.launch_counts
+    assert graph.replays == 1
     _, plain = MAMLFewShotLearner(plain_cfg).run_train_iter(state, batch, epoch=0)
     np.testing.assert_allclose(float(losses["loss"]), float(plain["loss"]),
                                rtol=1e-4)

@@ -74,6 +74,17 @@ def test_cli_slice_modules_are_in_the_import_check():
         assert f"{port.__name__}.{name}" in modules
 
 
+def test_dispatch_slice_modules_are_in_the_import_check():
+    """The modules of the multi-iteration dispatch are among those the
+    import check walks, and the entry points they add exist."""
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+
+    modules = _port_modules()
+    for name in ("models.step_graph", "data.device_prefetch"):
+        assert f"{port.__name__}.{name}" in modules
+    assert callable(MAMLFewShotLearner.run_train_iters)
+
+
 def test_no_port_source_imports_the_jax_package():
     paths = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "tools", f)

@@ -33,21 +33,44 @@ def _split_conv_biases(tree):
     return biases, rest
 
 
+# Plain MAML, as 18 of the 38 experiment configs train it: per-step BN
+# off, fixed inner learning rates, no multi-step loss; and the same with
+# the norm's gamma and beta adapted in the inner loop.
+PLAIN_MAML = dict(
+    backbone={"per_step_bn_statistics": False},
+    learnable_per_layer_per_step_inner_loop_learning_rate=False,
+    use_multi_step_loss_optimization=False,
+)
+PLAIN_MAML_BN_INNER = dict(
+    PLAIN_MAML,
+    backbone={"per_step_bn_statistics": False,
+              "enable_inner_loop_optimizable_bn_params": True},
+)
+
+
 @pytest.mark.parametrize(
-    "epoch", [0, 20], ids=["msl-second-order", "final-only-first-order"]
+    "epoch, settings",
+    [(0, {}), (20, {}),
+     (0, PLAIN_MAML), (20, PLAIN_MAML),
+     (0, PLAIN_MAML_BN_INNER), (20, PLAIN_MAML_BN_INNER)],
+    ids=["msl-second-order", "final-only-first-order",
+         "plain-maml-second-order", "plain-maml-first-order",
+         "plain-maml-bn-inner-second-order", "plain-maml-bn-inner-first-order"],
 )
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "off"])
-def test_run_train_iter_matches_jax(fused, epoch, rng):
+def test_run_train_iter_matches_jax(fused, epoch, settings, rng):
     """Losses of 5 meta-updates at the JAX test's loss bar, then theta and
-    LSLR. Epoch 0 runs MSL at second order; epoch 20 runs past the MSL
-    horizon at first order (order annealing to second order after epoch
-    25).
+    LSLR. Epoch 0 runs at second order (MSL under MAML++); epoch 20 runs
+    past the MSL horizon at first order (order annealing to second order
+    after epoch 25). The plain-MAML settings train the last step's target
+    loss only, at fixed rates, with or without the norm's gamma and beta
+    in the inner loop.
 
     Conv biases sit before batch norm and have a zero true gradient, so
     Adam moves them by up to the learning rate per step on rounding noise
     in either framework: they are held to 2 * iterations * meta_lr; the
     rest to the gradient bar."""
-    _check_trajectory(fused, epoch, second_order=epoch == 0, rng=rng)
+    _check_trajectory(fused, epoch, second_order=epoch == 0, rng=rng, **settings)
 
 
 def test_final_only_second_order_matches_jax(rng):
@@ -57,9 +80,10 @@ def test_final_only_second_order_matches_jax(rng):
     _check_trajectory(False, 20, second_order=True, rng=rng)
 
 
-def _check_trajectory(fused, epoch, second_order, rng):
+def _check_trajectory(fused, epoch, second_order, rng, **settings):
     jcfg = jax_config(
-        fused, first_order_to_second_order_epoch=-1 if second_order else 25
+        fused, first_order_to_second_order_epoch=-1 if second_order else 25,
+        **settings,
     )
     jlearner, jstate, learner, state = learner_pair(jcfg)
     assert learner._use_second_order(epoch) == second_order
