@@ -53,10 +53,9 @@ Phases, in order; any failure exits non-zero before the result lines:
              keeps the launches its capture recorded (per iteration
              bn_stats 20, bn_stats_act 20, K5 20), and the run's launches
              are those times its replays, the wrappers' counts staying 0.
-             One replay of each graph is traced with torch.profiler: the
-             kernels it ran, counted by name, must be the launches its
-             capture recorded (so in the graph and CLI phases). Losses
-             finite and
+             The kernel nodes of each graph, read from the driver (a
+             replay launches every node), must be the launches its capture
+             recorded (so in the graph and CLI phases). Losses finite and
              falling; a rerun from the same state bitwise equal; the first
              loss and meta-gradient against a plain-norm learner on the
              same state; one past-horizon iteration's launches; one
@@ -70,8 +69,8 @@ Phases, in order; any failure exits non-zero before the result lines:
              epoch 2 (past an MSL horizon of 2: the final-only graph); a
              state held from before each dispatch unchanged; every kernel
              launch captured on the capture's stream; the captures'
-             launches held to the CLI's per-iteration counts and to a
-             traced replay of each. Prints, per
+             launches held to the CLI's per-iteration counts and to the
+             kernel nodes of each graph. Prints, per
              width, capture ms per branch and, over 3 repeats, replay and
              eager ms per iteration. (The north star's learning rate is
              constant in its config; the phase lowers its floor to move it.)
@@ -94,8 +93,8 @@ Phases, in order; any failure exits non-zero before the result lines:
              the CSV has 6 rows, every loss is finite, the test accuracy is
              in [0, 1] and the resumed runs start at iterations 50, 75, 100
              and 125. Launches of each kernel per train iteration (counted
-             at capture, times the replays; a traced replay of each graph
-             agrees) and per eval iteration are held exactly
+             at capture, times the replays; each graph's kernel nodes
+             agree) and per eval iteration are held exactly
              (remat_inner_steps on, the config default). The first call
              synchronizes after each learner call, for per-step times; the
              resumed ones run as the CLI does, for the whole loop's rate at
@@ -119,9 +118,31 @@ Phases, in order; any failure exits non-zero before the result lines:
              (a replay runs no wrapper; its shapes are those of its
              capture); each must be one the kernel and pool phases held to
              the plain version.
-7. result  - a [replay] line with each traced replay's kernels, one JSON
-             line listing the kernels, the nvidia-smi line, and the last
-             line ``{"ok": true, "device": {...}}``.
+7. zoo plain - gradient descent, matching nets (their published JSONs),
+             ANIL and ProtoNets (the flagship's) with the three fused flags
+             against their plain-norm twins from the same weights on the
+             train phase's batch: the first update's loss and gradient
+             (gradient descent's first support step of task 0, matching
+             nets' task 0, ANIL's and ProtoNets' first train step) under
+             the train phase's tolerances.
+8. cli zoo - each zoo learner's entry point (``train_<learner>_system.main``)
+             with the three fused flags on one flagship-width Omniglot tree
+             (written once): 2 epochs of 10 iterations, synchronized after
+             each learner call, 40 evaluation tasks and the ensemble, then
+             ``latest`` to a 3rd epoch as the CLI runs (gradient descent at
+             ``--iters_per_dispatch 5``, which it does not act on; ANIL past
+             an MSL horizon of 2). Launches per train and eval iteration
+             held exactly to ``CLI_GD_*``, ``CLI_MATCHING_NETS_*``,
+             ``CLI_ANIL_*`` and ``CLI_PROTONETS_*``
+             (tests/test_torch_zoo_launches.py counts them on the CPU);
+             ``bn_act_bwd`` runs on the train path of the three learners
+             without an inner loop. Each prints the lines of the CLI phases
+             above and the eval ms per iteration. ANIL's captured graphs
+             are held to their kernel nodes as MAML's are.
+9. result  - a [replay] line with each captured graph's kernel nodes, each
+             phase's seconds, one JSON line listing the kernels, the
+             nvidia-smi line, and the last line ``{"ok": true, "device":
+             {...}}``.
 
 Imports nothing of JAX; exits non-zero without a CUDA device.
 """
@@ -190,10 +211,13 @@ NORTH_STAR_STAGES = [(n, 96, hw, hw) for n in (25, 75) for hw in (42, 21, 10)]
 # Both kernels forced onto their streamed path (the backward takes it at
 # NORTH_STAR_TARGET; the forward at no shape of the repo).
 STREAMED_SHAPE = NORTH_STAR_SHAPE
+# One task of 64 filters, N=5: the gradient-descent and matching-nets
+# learners train task by task (and gradient descent evaluates so).
+ZOO_SHAPES = [(5, 64, hw, hw) for hw in (28, 14, 7, 3)]
 KERNEL_SHAPES = (FLAGSHIP_SHAPES + TRAIN_SHAPES + [NORTH_STAR_SHAPE, NORTH_STAR_TARGET]
-                 + NORTH_STAR_STAGES)
+                 + NORTH_STAR_STAGES + ZOO_SHAPES)
 POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE, NORTH_STAR_TARGET,
-               *(s for s in NORTH_STAR_STAGES if s[2] % 2 == 0)]
+               *(s for s in NORTH_STAR_STAGES if s[2] % 2 == 0), *ZOO_SHAPES[:2]]
 FORWARD = ("bn_stats", "bn_stats_act")
 # Launches of each kernel per serve dispatch of 4 episodes (4 stages x (5
 # adapt steps + 1 classify) forwards, 5 x 4 backwards) and per flagship
@@ -227,17 +251,67 @@ CLI_FLAGSHIP_TRAIN_FINAL = {"bn_stats": 32, "bn_stats_act": 32, "bn_act_bwd": 0,
                             "bn_act_pool_apply": 32}
 CLI_NORTH_TRAIN_FINAL = {"bn_stats": 48, "bn_stats_act": 16, "bn_act_bwd": 0,
                          "bn_act_pool_apply": 48}
+# The learner zoo's CLI phases (the three fused flags): flagship width, the
+# published gradient-descent and matching-nets JSONs, ANIL and ProtoNets on
+# the flagship's. Each forward pass runs the pooled op at the 28 and 14
+# pixel stages (bn_stats + K5) and the one-level op at 7 and 3
+# (bn_stats_act), whose backward is bn_act_bwd. Gradient descent: per
+# iteration, train and eval alike, 8 tasks in turn x (5 support + 1 target)
+# passes of one task. Matching nets: in training 8 tasks in turn x a
+# support and a target forward and their backward; in eval the 8 tasks
+# folded, no backward. ProtoNets: the 8 tasks folded, a support and a
+# target forward (and, in training, their backward). ANIL: MAML's step
+# with the head alone adapted (remat on; counted from the Functions'
+# forwards on the CPU, tests/test_torch_zoo_launches.py); its eval's
+# head-only inner gradient reaches no norm.
+GD_CONFIG = os.path.join(
+    REPO, "experiment_config", "omniglot_gradient-descent-omniglot_1_8_0.1_64_5_1.json"
+)
+MATCHING_NETS_CONFIG = os.path.join(
+    REPO, "experiment_config", "omniglot_matching-nets-omniglot_1_8_0.1_64_5_1.json"
+)
+CLI_GD_TRAIN = dict.fromkeys(("bn_stats", "bn_stats_act", "bn_act_bwd",
+                              "bn_act_pool_apply"), 96)
+CLI_GD_EVAL = CLI_GD_TRAIN
+CLI_MATCHING_NETS_TRAIN = dict.fromkeys(CLI_GD_TRAIN, 32)
+CLI_MATCHING_NETS_EVAL = {"bn_stats": 4, "bn_stats_act": 4, "bn_act_bwd": 0,
+                          "bn_act_pool_apply": 4}
+CLI_PROTONETS_TRAIN = dict.fromkeys(CLI_GD_TRAIN, 4)
+CLI_PROTONETS_EVAL = CLI_MATCHING_NETS_EVAL
+CLI_ANIL_TRAIN = {"bn_stats": 50, "bn_stats_act": 50, "bn_act_bwd": 0,
+                  "bn_act_pool_apply": 50}
+CLI_ANIL_TRAIN_FINAL = {"bn_stats": 32, "bn_stats_act": 32, "bn_act_bwd": 0,
+                        "bn_act_pool_apply": 32}
+CLI_ANIL_EVAL = {"bn_stats": 12, "bn_stats_act": 12, "bn_act_bwd": 0,
+                 "bn_act_pool_apply": 12}
+# (kind, config, learner class, entry point module) of each zoo learner,
+# and its launches per train iteration (MSL, final-only) and eval iteration.
+ZOO = (
+    ("gd", GD_CONFIG, "GradientDescentLearner", "train_gradient_descent_system"),
+    ("matching_nets", MATCHING_NETS_CONFIG, "MatchingNetsLearner",
+     "train_matching_nets_system"),
+    ("anil", FLAGSHIP, "ANILLearner", "train_anil_system"),
+    ("protonets", FLAGSHIP, "ProtoNetsLearner", "train_protonets_system"),
+)
+ZOO_LAUNCHES = {
+    "gd": (CLI_GD_TRAIN, CLI_GD_TRAIN, CLI_GD_EVAL),
+    "matching_nets": (CLI_MATCHING_NETS_TRAIN, CLI_MATCHING_NETS_TRAIN,
+                      CLI_MATCHING_NETS_EVAL),
+    "anil": (CLI_ANIL_TRAIN, CLI_ANIL_TRAIN_FINAL, CLI_ANIL_EVAL),
+    "protonets": (CLI_PROTONETS_TRAIN, CLI_PROTONETS_TRAIN, CLI_PROTONETS_EVAL),
+}
 # Meta-updates a dispatch in the graph phase and in the CLI's K>1 calls.
 GRAPH_ITERS = 5
-# Each wrapper's device kernel in csrc/fused_norm.cu, as a profiler trace
-# names it (bn_stats and bn_stats_act are two instances of one template).
-KERNEL_SYMBOLS = {"bn_stats": "bn_fwd_kernel<false>",
-                  "bn_stats_act": "bn_fwd_kernel<true>",
-                  "bn_act_bwd": "bn_bwd_kernel",
-                  "bn_act_pool_apply": "bn_act_pool_apply_kernel"}
-# Kernels a replay ran, counted in a trace of one replay of each captured
-# graph (check_replay), for the [replay] line.
-REPLAY_TRACES = []
+# Each wrapper's device kernel in csrc/fused_norm.cu, as it stands in the
+# mangled name the driver gives a graph's kernel node (bn_stats and
+# bn_stats_act are two instances of one template).
+KERNEL_SYMBOLS = {"bn_stats": "13bn_fwd_kernelILb0E",
+                  "bn_stats_act": "13bn_fwd_kernelILb1E",
+                  "bn_act_bwd": "13bn_bwd_kernel",
+                  "bn_act_pool_apply": "24bn_act_pool_apply_kernel"}
+# The fused-norm kernel nodes of each captured graph (check_replay), for
+# the [replay] line.
+REPLAY_NODES = []
 FUSED_ARGV = ["--use_pallas_fused_norm", "True", "--fused_norm_train", "True",
               "--fused_norm_pool", "True"]
 # Flops per input element each kernel does, counted from its source
@@ -700,19 +774,62 @@ def compare_with_plain(fused, plain, tag) -> dict:
     }
 
 
-def fused_and_plain(config):
-    """Learners of ``config`` with the three fused flags on and off."""
+def fused_and_plain(config, cls=None):
+    """Learners ``cls`` (MAML's by default) of ``config`` with the three
+    fused flags on and off."""
     from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
     from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
         load_maml_config,
     )
 
+    cls = cls or MAMLFewShotLearner
     return [
-        MAMLFewShotLearner(load_maml_config(config, **dict.fromkeys(
+        cls(load_maml_config(config, **dict.fromkeys(
             ("use_pallas_fused_norm", "fused_norm_train", "fused_norm_pool"), on
         )))
         for on in (True, False)
     ]
+
+
+def zoo_first_step(kind, learner, state, batch):
+    """``(loss, gradient over the trained leaves)`` of a zoo learner's first
+    update on ``batch``: gradient descent's first support step of task 0,
+    matching nets' task 0, ProtoNets' and ANIL's first train step."""
+    if kind == "anil":
+        return first_step(learner, state, batch)
+    xs, xt, ys, yt = learner._decode(learner._device_batch(state, batch))
+    bn = state.bn_state
+    if kind == "gd":
+        loss, _, _, grads = learner._task_step(state.theta, bn, xs[:1], ys[:1])
+        return loss, grads
+    if kind == "matching_nets":
+        def loss_fn(p):
+            return learner._task_losses(p, bn, xs[:1], ys[:1], xt[:1], yt[:1])[0][0], None
+    else:
+        def loss_fn(p):
+            return learner._batch_loss(p, bn, xs, ys, xt, yt)
+    loss, _, grads = learner._grads(loss_fn, state.theta)
+    return loss, grads
+
+
+def zoo_plain_phase(torch) -> dict:
+    """Each zoo learner with the three fused flags against its plain-norm
+    twin from the same weights (seed 104) on the train phase's batch: the
+    first update's loss and gradient under the train phase's tolerances."""
+    from howtotrainyourmamlpytorch_tpu_torch import models
+
+    out = {}
+    batch = train_batch(np.random.RandomState(2))
+    for kind, config, cls_name, _ in ZOO:
+        learner, plain = fused_and_plain(config, getattr(models, cls_name))
+        state0 = learner.init_state(torch.Generator().manual_seed(104))
+        out[kind] = compare_with_plain(
+            zoo_first_step(kind, learner, state0, batch),
+            zoo_first_step(kind, plain, state0, batch), f"zoo_plain {kind}",
+        )
+        del learner, plain, state0
+    torch.cuda.empty_cache()
+    return out
 
 
 def north_star_batch(rng):
@@ -873,7 +990,7 @@ def graph_phase(torch, fn) -> dict:
                 replay_ms.append((t1 - t0) * 1e3 / GRAPH_ITERS)
                 eager_ms.append((t2 - t1) * 1e3 / GRAPH_ITERS)
             for g in branches.values():
-                check_replay(torch, g, f"graph {tag}")
+                check_replay(g, f"graph {tag}")
             out[tag] = {
                 "bitwise_equal_to_eager": True, "epochs": checked,
                 "capture_ms": {("final_only" if k[1] else "msl"): g.capture_s * 1e3
@@ -890,40 +1007,79 @@ def graph_phase(torch, fn) -> dict:
     return out
 
 
-def traced_launches(torch, run) -> dict:
-    """Launches of each fused-norm kernel that the card ran during
-    ``run()``, counted by kernel name in a ``torch.profiler`` trace (CUPTI
-    reports each kernel node of a replayed graph)."""
-    from torch.profiler import ProfilerActivity, profile
+def graph_kernel_names(graph) -> list:
+    """The function names of the kernel nodes of a captured
+    ``torch.cuda.CUDAGraph`` kept with ``keep_graph=True``, read from the
+    driver: every kernel a replay launches. Fails on a child-graph or
+    conditional node (whose kernels this count would miss) and on a kernel
+    node that the instantiated graph has disabled."""
+    import ctypes
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return {k: sum(symbol in n for n in names) for k, symbol in KERNEL_SYMBOLS.items()}
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn_name, *args):
+        rc = getattr(cuda, fn_name)(*args)
+        if rc != 0:
+            fail(f"{fn_name} failed: CUresult {rc}")
+
+    class KernelNodeParams(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p),
+                    *((d, ctypes.c_uint) for d in ("grid_x", "grid_y", "grid_z", "block_x",
+                                                   "block_y", "block_z", "smem_bytes")),
+                    ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    kernel, child, conditional = 0, 4, 13  # CUgraphNodeType
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    executable = ctypes.c_void_p(graph.raw_cuda_graph_exec())
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", handle, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cuGraphGetNodes", handle, nodes, ctypes.byref(count))
+    names = []
+    for node in map(ctypes.c_void_p, nodes):
+        kind = ctypes.c_int()
+        call("cuGraphNodeGetType", node, ctypes.byref(kind))
+        if kind.value in (child, conditional):
+            fail(f"a captured graph holds a node of type {kind.value}")
+        if kind.value != kernel:
+            continue
+        enabled = ctypes.c_uint()
+        call("cuGraphNodeGetEnabled", executable, node, ctypes.byref(enabled))
+        if not enabled.value:
+            fail("a kernel node of a captured graph is disabled")
+        params = KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", node, ctypes.byref(params))
+        name = ctypes.c_char_p()
+        if params.func:
+            call("cuFuncGetName", ctypes.byref(name), ctypes.c_void_p(params.func))
+        else:
+            call("cuKernelGetName", ctypes.byref(name), ctypes.c_void_p(params.kern))
+        names.append(name.value.decode())
+    return names
 
 
-def check_replay(torch, graph, tag) -> dict:
-    """One replay of a captured train step, traced: the kernels it ran must
-    be the launches its capture counted, which the launch numbers of the
-    train and CLI phases multiply by the replays. Replays the graph on the
-    static inputs its last dispatch left (its outputs are copied out at
-    each dispatch, so nothing that was returned changes)."""
-    traced = traced_launches(torch, graph.graph.replay)
-    if traced != graph.launches:
-        fail(f"{tag}: one replay of the {graph.key} graph ran {traced}, its "
+def check_replay(graph, tag) -> dict:
+    """The fused-norm kernels one replay of a captured train step launches,
+    counted in its graph's kernel nodes: they must be the launches its
+    capture counted, which the launch numbers of the train and CLI phases
+    multiply by the replays."""
+    names = graph_kernel_names(graph.graph)
+    nodes = {k: sum(symbol in n for n in names)
+             for k, symbol in KERNEL_SYMBOLS.items()}
+    if nodes != graph.launches:
+        fail(f"{tag}: the {graph.key} graph holds the kernel nodes {nodes}, its "
              f"capture counted {graph.launches}")
-    REPLAY_TRACES.append({"phase": tag, "second_order": graph.key[0],
-                          "final_only": graph.key[1], "kernels": traced})
-    return traced
+    REPLAY_NODES.append({"phase": tag, "second_order": graph.key[0],
+                         "final_only": graph.key[1], "kernel_nodes": len(names),
+                         "kernels": nodes})
+    return nodes
 
 
 def graph_records(learner) -> dict:
     """``{key: (replays, launches per replay)}`` of the learner's captured
     train steps."""
-    graphs = learner._step_graphs
+    graphs = getattr(learner, "_step_graphs", None)
     if graphs is None:
         return {}
     return {key: (g.replays, dict(g.launches)) for key, g in graphs.graphs.items()}
@@ -1007,7 +1163,7 @@ def train_phase(torch, fn):
     ]
 
     for g in learner._step_graphs.graphs.values():
-        check_replay(torch, g, "train")
+        check_replay(g, "train")
 
     _, vm, logits = learner.run_validation_iter(state, train_batch(rng))
     if logits.shape != (8, 5, 5) or not torch.isfinite(logits).all():
@@ -1065,22 +1221,30 @@ class CliProbe:
     """Records, around each learner call that a CLI run makes, the kernel
     launches it made and its wall time, how long the loop was blocked on
     its input, and the wall time of each train loop (capture and epoch
-    boundaries included). A train call's launches are its replays' (each
-    graph's captured launches times its new replays) and, when it captured
-    a graph, the wrappers' launches of the warm-up and the capture. With
-    ``sync`` set, each learner call ends in a synchronize, so that its wall
-    time is its own; without, the loop runs as the CLI runs it."""
+    boundaries included). A MAML-family train call's launches are its
+    replays' (each graph's captured launches times its new replays) and,
+    when it captured a graph, the wrappers' launches of the warm-up and the
+    capture; a shared-weights learner's train call (one iteration, eager)
+    launches through the wrappers alone. With ``sync`` set, each learner
+    call ends in a synchronize, so that its wall time is its own; without,
+    the loop runs as the CLI runs it. Train iterations are numbered from
+    the builder's ``current_iter`` at each train loop's start."""
 
     def __init__(self, torch, fn):
         from howtotrainyourmamlpytorch_tpu_torch.experiment_builder import (
             ExperimentBuilder,
         )
         from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+        from howtotrainyourmamlpytorch_tpu_torch.models.common import (
+            SharedWeightsLearner,
+        )
 
         self.torch, self.fn = torch, fn
         self.targets = [(MAMLFewShotLearner, "run_train_iter"),
                         (MAMLFewShotLearner, "run_train_iters"),
+                        (SharedWeightsLearner, "run_train_iter"),
                         (MAMLFewShotLearner, "run_validation_iter"),
+                        (SharedWeightsLearner, "run_validation_iter"),
                         (ExperimentBuilder, "_pop_input_waits"),
                         (ExperimentBuilder, "_train_loop")]
         self.train, self.eval, self.waits, self.loops = [], [], [], []
@@ -1103,25 +1267,25 @@ class CliProbe:
             rec = {"t0": t0, "t1": t1, "synchronized": self.sync,
                    "launches": {k: self.fn.launch_counts[k] - before[k]
                                 for k in before}}
-            if train:
+            if train and not hasattr(learner, "_step_graphs"):
+                rec.update(iterations=1, k=self.k, final_only=False, per_replay=None,
+                           captured={}, replayed=None, iteration=self.next_iteration)
+                self.next_iteration += 1
+            elif train:
                 after = graph_records(learner)
                 replayed = [k for k in after
                             if after[k][0] != graphs_before.get(k, (0, None))[0]]
                 if len(replayed) != 1:
                     fail(f"a train call replayed the graphs {replayed}")
                 (key,) = replayed
-                self.captured.extend(learner._step_graphs.graphs[k] for k in after
-                                     if k not in graphs_before)
+                self.captured.extend((learner, learner._step_graphs.graphs[k])
+                                     for k in after if k not in graphs_before)
                 rec.update(
                     iterations=after[key][0] - graphs_before.get(key, (0, None))[0],
                     k=self.k, final_only=key[1], per_replay=after[key][1],
                     captured={k: after[k][1] for k in after if k not in graphs_before},
                     replayed=replayed_launches(graphs_before, after),
                 )
-                # The input state's iteration, read on the host only where
-                # the loop synchronizes anyway (a call's first record).
-                if self.sync or self.next_iteration is None:
-                    self.next_iteration = int(state.iteration)
                 rec["iteration"] = self.next_iteration
                 self.next_iteration += rec["iterations"]
             log.append(rec)
@@ -1130,7 +1294,9 @@ class CliProbe:
 
     def __enter__(self):
         self.saved = [getattr(cls, name) for cls, name in self.targets]
-        train, train_k, evaluate, waits_of, loop = self.saved
+        train, train_k, train_shared, evaluate, evaluate_shared, waits_of, loop = (
+            self.saved
+        )
 
         def pop_input_waits(builder):
             data_wait, stage_wait = waits_of(builder)
@@ -1141,6 +1307,7 @@ class CliProbe:
         def train_loop(builder, total_iters):
             start, t0 = len(self.train), time.perf_counter()
             waits = len(self.waits)
+            self.next_iteration = int(builder.state["current_iter"])
             try:
                 return loop(builder, total_iters)
             finally:
@@ -1157,7 +1324,9 @@ class CliProbe:
         for (cls, name), fn in zip(self.targets, (
             self._timed(train, self.train, True),
             self._timed(train_k, self.train, True),
+            self._timed(train_shared, self.train, True),
             self._timed(evaluate, self.eval, False),
+            self._timed(evaluate_shared, self.eval, False),
             pop_input_waits, train_loop,
         )):
             setattr(cls, name, fn)
@@ -1199,25 +1368,28 @@ def run_cli(main, argv) -> dict:
 
 
 def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train,
-              want_train_final, want_eval):
-    """Writes the tree and a derived JSON under a temporary directory and
-    drives ``train_maml_system.main`` once per entry of ``calls`` (extra
-    JSON keys, extra argv, whether the probe synchronizes after each
-    learner call, K, ``--device_prefetch``); after each, traces one replay
-    of each graph it captured (``check_replay``). Returns the phase's
-    measurements. The directory is removed at the end."""
+              want_train_final, want_eval, main=None, dataset_dir=None):
+    """Writes the tree (unless ``dataset_dir`` already holds it) and a
+    derived JSON under a temporary directory and drives the entry point's
+    ``main`` (``train_maml_system.main`` by default) once per entry of
+    ``calls`` (extra JSON keys, extra argv, whether the probe synchronizes
+    after each learner call, K, ``--device_prefetch``); after each, holds
+    each graph it captured to its kernel nodes (``check_replay``). Returns the
+    phase's measurements. The directory is removed at the end."""
     import tempfile
 
     from howtotrainyourmamlpytorch_tpu_torch.data.fast_synth import native_available
     from howtotrainyourmamlpytorch_tpu_torch.models.step_graph import WARMUP_STEPS
-    from howtotrainyourmamlpytorch_tpu_torch.train_maml_system import main
+    from howtotrainyourmamlpytorch_tpu_torch import train_maml_system
 
+    main = main or train_maml_system.main
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as tmp:
         dataset = overrides["dataset_name"]
         t0 = time.perf_counter()
-        tree_writer(os.path.join(tmp, dataset))
+        if dataset_dir is None:
+            tree_writer(os.path.join(tmp, dataset))
         tree_s = time.perf_counter() - t0
-        os.environ["DATASET_DIR"] = tmp
+        os.environ["DATASET_DIR"] = dataset_dir or tmp
         with open(config) as f:
             base = json.load(f)
         base.update(overrides, dataset_path=dataset,
@@ -1225,6 +1397,7 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
         logs = os.path.join(tmp, "experiment", "logs")
         results, probe = [], CliProbe(torch, fn)
         torch.cuda.reset_peak_memory_stats()
+        start_gb = torch.cuda.memory_allocated() / 1e9
         fn.reset_launch_counts()
         with probe:
             for extra_json, extra_argv, sync, k, prefetch in calls:
@@ -1240,8 +1413,8 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
                 results.append({"test": {k: float(v) for k, v in test.items()},
                                 "start": start, "k": k, "device_prefetch": prefetch,
                                 "first_iteration": probe.train[start]["iteration"]})
-                for graph in probe.captured:
-                    check_replay(torch, graph, name)
+                for learner, graph in probe.captured:
+                    check_replay(graph, name)
                 probe.captured.clear()
         wrappers = dict(fn.launch_counts)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1251,6 +1424,14 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
         counted = dict.fromkeys(wrappers, 0)
         for rec in probe.train:
             want = want_train_final if rec["final_only"] else want_train
+            if rec["per_replay"] is None:  # an eager learner's iteration
+                if rec["launches"] != want:
+                    fail(f"{name}: a train iteration launches {rec['launches']}, "
+                         f"expected {want}")
+                for k in wrappers:
+                    counted[k] += want[k]
+                    executed[k] += want[k]
+                continue
             if rec["per_replay"] != want:
                 fail(f"{name}: a train iteration launches {rec['per_replay']} on "
                      f"replay, expected {want}")
@@ -1282,8 +1463,10 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
             if not 0.0 <= r["test"]["test_accuracy_mean"] <= 1.0:
                 fail(f"{name}: test accuracy {r['test']}")
         per_epoch = int(base["total_iter_per_epoch"])
+        eval_ms = [(r["t1"] - r["t0"]) * 1e3 for r in probe.eval if r["synchronized"]]
         return {
             "native_episode_assembly": native_available(),
+            "eval_ms_per_iter_p50": float(np.median(eval_ms)),
             "tree_write_s": tree_s,
             "epochs": csv_rows,
             "train_iterations": sum(r["iterations"] for r in probe.train),
@@ -1294,6 +1477,7 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
             ),
             "window": probe.loops,
             "peak_mem_gb": peak_gb,
+            "mem_at_start_gb": start_gb,
             "val_accuracy": stats["val_accuracy_mean"],
             "train_loss": stats["train_loss_mean"],
             "val_loss": stats["val_loss_mean"],
@@ -1350,6 +1534,41 @@ def cli_north_star_phase(torch, fn):
         fail(f"cli_north_star: the calls started at {out['calls']}")
     return out
 
+def cli_zoo_phase(torch, fn, kind, dataset_dir):
+    """A zoo learner's entry point on the Omniglot tree in ``dataset_dir``
+    with the three fused flags: 2 epochs of 10 iterations (synchronized
+    after each learner call), 40 evaluation tasks and the ensemble test,
+    then ``latest`` to a 3rd epoch as the CLI runs (gradient descent at
+    ``--iters_per_dispatch 5``, which it does not act on; ANIL past an MSL
+    horizon of 2, its final-only graph)."""
+    import importlib
+
+    per_epoch = 10
+    _, config, _, module = next(z for z in ZOO if z[0] == kind)
+    main = importlib.import_module(
+        f"howtotrainyourmamlpytorch_tpu_torch.{module}"
+    ).main
+    want_train, want_train_final, want_eval = ZOO_LAUNCHES[kind]
+    out = cli_phase(
+        torch, fn, f"cli_{kind}", config, write_omniglot_tree,
+        {"dataset_name": "omniglot_synth", "total_epochs": 2,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 40,
+         "multi_step_loss_num_epochs": 2},
+        [({}, [], True, 1, -1),
+         ({"total_epochs": 3}, ["--continue_from_epoch", "latest"], False,
+          GRAPH_ITERS if kind == "gd" else 1, -1)],
+        want_train, want_train_final, want_eval, main=main, dataset_dir=dataset_dir,
+    )
+    if out["epochs"] != 3:
+        fail(f"cli_{kind}: {out['epochs']} CSV rows, expected 3")
+    if [c["first_iteration"] for c in out["calls"]] != [0, 2 * per_epoch]:
+        fail(f"cli_{kind}: the calls started at {out['calls']}")
+    if out["train_iterations"] != 3 * per_epoch:
+        fail(f"cli_{kind}: {out['train_iterations']} train iterations, expected "
+             f"{3 * per_epoch}")
+    return out
+
+
 def timing_reps(shape) -> int:
     """Fewer timed calls for the large north-star shapes."""
     return 20 if np.prod(shape) >= 4_000_000 else 100
@@ -1396,6 +1615,47 @@ def kernel_cells(res) -> str:
     return " ".join(cells)
 
 
+#: Seconds each phase of this run took, in order.
+PHASE_SECONDS = {}
+
+
+class phase_timer:
+    """Adds the wall seconds of its block to ``PHASE_SECONDS[name]``."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        PHASE_SECONDS[self.name] = time.perf_counter() - self.t0
+
+
+def print_cli(name, r) -> None:
+    """A CLI phase's line: per step (the synchronized call), the whole
+    loop of each unsynchronized call, eval ms, peak memory, launches per
+    iteration, the phase's seconds, then everything as JSON."""
+    step = r["per_step"]
+    windows = " | ".join(
+        f"K={w['k']} device_prefetch {w['device_prefetch']} meta_iters_per_s "
+        f"{w['meta_iters_per_s']:.3f} over {w['iterations']} iterations, "
+        f"input wait {w['input_wait_s']:.4f} s"
+        for w in r["window"] if not w["synchronized"]
+    )
+    print(f"[{name}] per step (K=1, a synchronize after each): "
+          f"meta_iters_per_s {step['meta_iters_per_s']:.3f} step_p50_ms "
+          f"{step['step_p50_ms']:.2f} input_wait_share "
+          f"{step['input_wait_share']:.4f} | whole loop (no added "
+          f"synchronize, capture and epoch boundary included): {windows} "
+          f"| eval_ms_per_iter_p50 {r['eval_ms_per_iter_p50']:.2f} "
+          f"| peak_mem_gb {r['peak_mem_gb']:.3f} (held at the start "
+          f"{r['mem_at_start_gb']:.3f}) | launches per train iteration "
+          f"{json.dumps(r['launches_per_train_iter'])}, per eval iteration "
+          f"{json.dumps(r['launches_per_eval_iter'])} | {PHASE_SECONDS[name]:.1f} s "
+          f"| {json.dumps(r)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1414,7 +1674,10 @@ def main() -> int:
     print(f"[build] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} | {smi}", flush=True)
 
+    PHASE_SECONDS["build"] = build_s
+
     # 2. kernels
+    t_kernels = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_shape = {}
     for shape in KERNEL_SHAPES:
@@ -1447,20 +1710,24 @@ def main() -> int:
     errs["bn_act_pool_apply"] = max(r["max_abs_err"] for r in pool.values())
     print(f"[kernels] max_abs_err over all shapes {errs}")
     functions = check_functions(torch, fn, gen)
+    PHASE_SECONDS["kernels"] = time.perf_counter() - t_kernels
     print(f"[functions] max_abs_err vs plain composition {json.dumps(functions)}",
           flush=True)
 
-    # 3-6. the main paths, every kernel call's input shape recorded.
+    # 3-8. the main paths, every kernel call's input shape recorded.
     with ShapeLog(fn) as shapes:
         # 3. serve
-        serve = serve_phase(torch, fn)
+        with phase_timer("serve"):
+            serve = serve_phase(torch, fn)
         print(f"[serve] {json.dumps(serve)}", flush=True)
 
         # 4. train
-        train = train_phase(torch, fn)
+        with phase_timer("train"):
+            train = train_phase(torch, fn)
         print(f"[train] meta_iters_per_s {train['meta_iters_per_s']:.3f} step_p50_ms "
               f"{train['step_p50_ms']:.2f} | {json.dumps(train)}", flush=True)
-        graph = graph_phase(torch, fn)
+        with phase_timer("graph"):
+            graph = graph_phase(torch, fn)
         for tag, g in graph.items():
             print(f"[graph] {tag}: run_train_iters(K={GRAPH_ITERS}) bitwise equal to "
                   f"{GRAPH_ITERS} eager steps at epochs 0, 1 (lr and importance moved) "
@@ -1471,7 +1738,8 @@ def main() -> int:
                   + " | eager ms per iteration "
                   + " ".join(f"{v:.2f}" for v in g["eager_ms_per_iter"])
                   + f" | {json.dumps(g)}", flush=True)
-        remat = remat_phase(torch)
+        with phase_timer("remat"):
+            remat = remat_phase(torch)
         print(f"[remat] fused against plain-norm learners, remat_inner_steps on "
               f"{json.dumps(remat)}", flush=True)
 
@@ -1479,24 +1747,29 @@ def main() -> int:
         cli = {}
         for name, phase in (("cli_flagship", cli_flagship_phase),
                             ("cli_north_star", cli_north_star_phase)):
-            cli[name] = r = phase(torch, fn)
-            step = r["per_step"]
-            windows = " | ".join(
-                f"K={w['k']} device_prefetch {w['device_prefetch']} meta_iters_per_s "
-                f"{w['meta_iters_per_s']:.3f} over {w['iterations']} iterations, "
-                f"input wait {w['input_wait_s']:.4f} s"
-                for w in r["window"] if not w["synchronized"]
-            )
-            print(f"[{name}] per step (K=1, a synchronize after each): "
-                  f"meta_iters_per_s {step['meta_iters_per_s']:.3f} step_p50_ms "
-                  f"{step['step_p50_ms']:.2f} input_wait_share "
-                  f"{step['input_wait_share']:.4f} | whole loop (no added "
-                  f"synchronize, capture and epoch boundary included): {windows} "
-                  f"| peak_mem_gb {r['peak_mem_gb']:.3f} | {json.dumps(r)}",
-                  flush=True)
+            with phase_timer(name):
+                cli[name] = phase(torch, fn)
+            print_cli(name, cli[name])
 
-    print("[replay] kernels one traced replay of each captured graph ran, each "
-          f"equal to the launches its capture counted: {json.dumps(REPLAY_TRACES)}",
+        # 7-8. the learner zoo: fused against plain, then each entry point
+        # on one shared Omniglot tree.
+        with phase_timer("zoo_plain"):
+            zoo_plain = zoo_plain_phase(torch)
+        print(f"[zoo_plain] first update, fused against plain-norm learners "
+              f"{json.dumps(zoo_plain)}", flush=True)
+        import tempfile
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_tree_") as tree:
+            with phase_timer("zoo_tree"):
+                write_omniglot_tree(os.path.join(tree, "omniglot_synth"))
+            for kind, *_ in ZOO:
+                name = f"cli_{kind}"
+                with phase_timer(name):
+                    cli[name] = cli_zoo_phase(torch, fn, kind, tree)
+                print_cli(name, cli[name])
+
+    print("[replay] fused-norm kernel nodes of each captured graph, each equal "
+          f"to the launches its capture counted: {json.dumps(REPLAY_NODES)}",
           flush=True)
 
     # Every shape a kernel was called at on the main paths was held to the
@@ -1512,11 +1785,13 @@ def main() -> int:
           f"above: {json.dumps({k: sorted(v) for k, v in shapes.shapes.items()})}",
           flush=True)
 
-    # 7. result: bn_stats_act and bn_act_bwd at the serve path's support stage-0
-    # shape, its most launched and largest adapt shape; bn_stats and K5 at
-    # the train path's stage 0, where they run together. Launches are those
-    # the serve, train and CLI runs executed together, a replay counting the
-    # launches its graph captured (which a traced replay of each confirmed).
+    # 9. result: bn_stats_act and bn_act_bwd at the serve path's support
+    # stage-0 shape, the largest of their adapt shapes (the rows earlier
+    # slices reported; the kernel lines above give every other shape);
+    # bn_stats and K5 at the train path's stage 0, where they run together.
+    # Launches are those the serve, train and CLI runs executed together, a
+    # replay counting the launches its graph captured (which its kernel
+    # nodes confirmed).
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":
@@ -1535,6 +1810,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    print(f"[seconds] each phase: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

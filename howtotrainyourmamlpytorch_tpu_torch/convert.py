@@ -7,11 +7,14 @@ once its ``BatchNormState``s are ``(running_mean, running_var)`` tuples. A
 train state is ``(theta, lslr, bn_state, (mu, nu, count), iteration)``:
 the optimizer reduced to Adam's moments over ``{"theta", "lslr"}``
 (``None`` at frozen leaves, where optax keeps a ``MaskedNode``) and its
-update count. No JAX type is read, so this module needs neither JAX nor
+update count; ANIL's is the same. The state of a shared-weights learner
+(``GDState``, ``MatchingNetsState``, ``ProtoNetsState``) is ``(theta,
+bn_state, (mu, nu, count), iteration)``, Adam over all of theta. No JAX
+type is read, so this module needs neither JAX nor
 the JAX package. Leaves are carried over one by one; ``None`` stays
 ``None``.
 
-The checkpoint archive's leaf order, the JAX ``TrainState``'s, is
+The checkpoint archive's leaf order, the JAX state's, is
 ``utils/checkpoint.train_state_paths``.
 """
 
@@ -69,22 +72,13 @@ def train_state_from_numpy(tree, learning_rate: float, device=None) -> TrainStat
     """``(theta, lslr, bn_state, (mu, nu, count), iteration)`` of numpy
     arrays -> ``TrainState`` on ``device``, the optimizer's learning rate
     at ``learning_rate`` (``run_train_iter`` sets it every step)."""
-    theta, lslr, bn_state, (mu, nu, count), iteration = tree
+    theta, lslr, bn_state, moments, iteration = tree
     istate = inference_state_from_numpy((theta, lslr, bn_state), device)
-    count, iteration = (
-        tree_from_numpy(np.asarray(a, np.int32), device) for a in (count, iteration)
-    )
+    device = istate.theta["linear"]["weight"].device
     return TrainState(
         *istate,
-        opt_state=AdamState(
-            count=count,
-            mu=tree_from_numpy(mu, device),
-            nu=tree_from_numpy(nu, device),
-            learning_rate=torch.tensor(
-                learning_rate, dtype=torch.float32, device=count.device
-            ),
-        ),
-        iteration=iteration,
+        opt_state=_adam_from_numpy(moments, learning_rate, device),
+        iteration=tree_from_numpy(np.asarray(iteration, np.int32), device),
     )
 
 
@@ -98,3 +92,42 @@ def train_state_to_numpy(state: TrainState) -> tuple:
         tree_to_numpy(state.iteration),
     )
 
+
+def _adam_from_numpy(moments, learning_rate: float, device) -> AdamState:
+    mu, nu, count = moments
+    count = tree_from_numpy(np.asarray(count, np.int32), device)
+    return AdamState(
+        count=count,
+        mu=tree_from_numpy(mu, device),
+        nu=tree_from_numpy(nu, device),
+        learning_rate=torch.tensor(
+            learning_rate, dtype=torch.float32, device=count.device
+        ),
+    )
+
+
+def shared_state_from_numpy(tree, state_type, learning_rate: float, device=None):
+    """``(theta, bn_state, (mu, nu, count), iteration)`` of numpy arrays ->
+    ``state_type`` (``GDState``, ``MatchingNetsState`` or
+    ``ProtoNetsState``) on ``device``, the learning rate at
+    ``learning_rate``."""
+    theta, bn_state, moments, iteration = tree
+    device = resolve_device(device)
+    return state_type(
+        theta=tree_from_numpy(theta, device),
+        bn_state={k: BatchNormState(*tree_from_numpy(tuple(v), device))
+                  for k, v in bn_state.items()},
+        opt_state=_adam_from_numpy(moments, learning_rate, device),
+        iteration=tree_from_numpy(np.asarray(iteration, np.int32), device),
+    )
+
+
+def shared_state_to_numpy(state) -> tuple:
+    """The inverse of :func:`shared_state_from_numpy` (the learning rate is
+    not carried)."""
+    opt = state.opt_state
+    return (
+        tree_to_numpy(state.theta), tree_to_numpy(state.bn_state),
+        tuple(tree_to_numpy(t) for t in (opt.mu, opt.nu, opt.count)),
+        tree_to_numpy(state.iteration),
+    )

@@ -24,7 +24,9 @@ experiment_builder.py``, its loop; the operations planes wait).
 * ``iters_per_dispatch`` K: K meta-updates a learner call
   (``run_train_iters``; 1 by default), in groups that never straddle an
   epoch boundary (an epoch's last group may be shorter). The summary
-  keeps one sample per meta-update at any K.
+  keeps one sample per meta-update at any K. A learner without
+  ``run_train_iters`` (gradient descent, matching nets, ProtoNets) takes
+  one batch a call (``run_train_iter``) whatever K is.
 * ``device_prefetch``: a stager thread prepares the next dispatch groups
   and copies them to the card ahead of the loop
   (``data/device_prefetch.py``); -1 (the default) sizes its depth from
@@ -189,7 +191,14 @@ class ExperimentBuilder:
         )
         self._ckpt_writer: AsyncCheckpointWriter | None = None
         self._last_ckpt_t = time.monotonic()
-        self.iters_per_dispatch = max(int(getattr(args, "iters_per_dispatch", 1) or 1), 1)
+        # K meta-updates a dispatch only for a learner with
+        # run_train_iters (MAML, ANIL); the others take one batch a call
+        # at any K, as in the JAX builder.
+        self._multi = hasattr(model, "run_train_iters")
+        self.iters_per_dispatch = (
+            max(int(getattr(args, "iters_per_dispatch", 1) or 1), 1)
+            if self._multi else 1
+        )
         prefetch = getattr(args, "device_prefetch", AUTO_DEPTH)
         self.device_prefetch = AUTO_DEPTH if prefetch is None else int(prefetch)
         budget = getattr(args, "data_fault_budget", 8)
@@ -361,11 +370,12 @@ class ExperimentBuilder:
         return current_iter
 
     def train_iteration(self, samples, epoch_idx, total_losses, current_iter):
-        """One learner dispatch (``run_train_iters``) of the K meta-updates
-        in ``samples``, a list of loader samples or a staged group; K = 1
-        included, so one path serves the JAX builder's ``train_iteration``
-        and ``train_iteration_multi``. The ``(K,)`` metrics are appended
-        whole, one sample per meta-update."""
+        """One learner dispatch of the meta-updates in ``samples``, a list
+        of loader samples or a staged group: ``run_train_iters`` of K where
+        the learner has it (K = 1 included, so one path serves the JAX
+        builder's ``train_iteration`` and ``train_iteration_multi``), else
+        ``run_train_iter`` of the group's one batch. The metrics are
+        appended whole, one sample per meta-update."""
         if isinstance(samples, StagedBatch):
             batches, shapes = samples, [a.shape for a in samples.arrays]
         else:
@@ -373,9 +383,15 @@ class ExperimentBuilder:
             shapes = [a.shape for a in batches[0]]
         if current_iter == 0:
             print("shape of data", *shapes)
-        self.train_state, losses = self.model.run_train_iters(
-            self.train_state, batches, epoch=epoch_idx
-        )
+        if self._multi:
+            self.train_state, losses = self.model.run_train_iters(
+                self.train_state, batches, epoch=epoch_idx
+            )
+        else:
+            (batch,) = [batches] if isinstance(batches, StagedBatch) else batches
+            self.train_state, losses = self.model.run_train_iter(
+                self.train_state, batch, epoch=epoch_idx
+            )
         current_iter = self._after_dispatch(losses, total_losses, current_iter,
                                             dispatch_multiplier(samples))
         return total_losses, current_iter

@@ -1,13 +1,27 @@
-"""Backbone and MAML learner of the port."""
+"""Backbone and learners of the port."""
 
+from .anil import ANILLearner
 from .backbone import BackboneConfig, VGGBackbone, build_backbone
+from .common import InferenceState
+from .gradient_descent import GDInferenceState, GDState, GradientDescentLearner
 from .maml import MAMLConfig, MAMLFewShotLearner, MAMLInferenceState, TrainState
+from .matching_nets import MatchingNetsLearner, MatchingNetsState
+from .protonets import ProtoNetsLearner, ProtoNetsState
 
 __all__ = [
+    "ANILLearner",
     "BackboneConfig",
+    "GDInferenceState",
+    "GDState",
+    "GradientDescentLearner",
+    "InferenceState",
     "MAMLConfig",
     "MAMLFewShotLearner",
     "MAMLInferenceState",
+    "MatchingNetsLearner",
+    "MatchingNetsState",
+    "ProtoNetsLearner",
+    "ProtoNetsState",
     "TrainState",
     "VGGBackbone",
     "build_backbone",

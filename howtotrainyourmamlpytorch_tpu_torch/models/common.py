@@ -2,8 +2,10 @@
 (``howtotrainyourmamlpytorch_tpu/models/common.py:39-308``): dtype casts,
 the divergence sentinel, the epoch-wise cosine LR, the outer Adam with an
 injected learning rate, the uint8 image wire format, batch preparation, the
-staged dispatch group and its host-to-device copy, and the learners'
-checkpoint methods (``:459-700``).
+staged dispatch group and its host-to-device copy, the learners'
+checkpoint methods and inference state (``:444-690``), and the trainer
+contract of the learners that share one parameter tree over every task
+(gradient descent, matching nets, prototypical networks).
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import numpy as np
 import torch
 
 from ..utils import checkpoint
-from ..utils.trees import Tree, tree_leaves, tree_map
+from ..utils.platform import resolve_device, set_f32_numerics
+from ..utils.trees import Tree, tree_leaves, tree_map, tree_unflatten
+from .backbone import build_backbone
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -263,12 +267,38 @@ def to_device(prepared: list, device) -> tuple:
     return tuple(out)
 
 
+def refuse_unported(cfg) -> None:
+    """Raises for the config values no learner of the port takes yet."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "bfloat16 compute is ROADMAP item A8; the port runs float32"
+        )
+    if cfg.task_chunk != 0:
+        raise NotImplementedError("task_chunk is ROADMAP item A8")
+    if cfg.device_augment is not None:
+        raise NotImplementedError("on-device augmentation is ROADMAP item A7")
+
+
+class InferenceState(NamedTuple):
+    """Parameters and BN running statistics of a shared-weights learner:
+    what its serving half reads. The prefix of ``GDState``,
+    ``MatchingNetsState`` and ``ProtoNetsState`` in the archive's leaf
+    order, so that a full training checkpoint restores it without building
+    the optimizer (MAML's is ``MAMLInferenceState``, with ``lslr``)."""
+
+    theta: Tree
+    bn_state: Tree
+
+
 class CheckpointableLearner:
     """Checkpoint methods of the trainer contract
     (``howtotrainyourmamlpytorch_tpu/models/common.py:459``): a train state
     and the experiment state in one archive of the JAX package's format,
     rebuilt on load from a fresh state of this learner's config. One
-    device and no lane padding, so nothing is gathered or stripped."""
+    device and no lane padding, so nothing is gathered or stripped. The
+    archive's layout follows the state (``utils/checkpoint``); a learner
+    with serve-time state beyond the checkpoint's prefix overrides
+    ``load_inference_state``."""
 
     def _path_leaves(self, state) -> list:
         return checkpoint.train_state_paths(
@@ -312,3 +342,131 @@ class CheckpointableLearner:
             filepath, self._path_leaves(template)
         )
         return self._restore(template, leaves), experiment_state
+
+
+def shared(tree: Tree, tasks: int) -> Tree:
+    """Every leaf of ``tree`` with a leading axis of ``tasks``, a view that
+    copies nothing: the backbone's per-task operand for a tree all tasks
+    share. The gradient of an ``expand`` sums over the tasks."""
+    return tree_map(lambda a: a.expand(tasks, *a.shape), tree)
+
+
+class SharedWeightsLearner(CheckpointableLearner):
+    """The trainer contract of the learners whose tasks all use one
+    parameter tree, with no inner-loop fast weights: gradient descent,
+    matching nets and prototypical networks (each JAX module repeats it).
+
+    The state is ``state_type(theta, bn_state, opt_state, iteration)``, one
+    Adam over every leaf of ``theta`` at the epoch's cosine learning rate.
+    A subclass gives ``_run_batch(state, batch, training)`` -> ``(new_state,
+    metrics, logits)`` over a device batch of ``(x_support (B, S, C, H, W),
+    x_target (B, Q, C, H, W), y_support (B, S), y_target (B, Q))``."""
+
+    state_type: type
+    #: The metrics ``run_validation_iter`` reports.
+    eval_keys = ("loss", "accuracy")
+
+    def __init__(self, cfg):
+        refuse_unported(cfg)
+        self.cfg = cfg
+        self.backbone = build_backbone(cfg.backbone)
+        self.tx = make_injected_adam(cfg.meta_learning_rate, cfg.clip_grad_value)
+        self.current_epoch = 0
+        set_f32_numerics()
+
+    def init_inference_state(self, generator: torch.Generator, device=None) -> InferenceState:
+        """Fresh parameters and unit running statistics from ``generator``
+        (drawn on the CPU, then moved)."""
+        device = resolve_device(device)
+        theta, bn_state = self.backbone.init(generator)
+        return InferenceState(
+            *(tree_map(lambda a: a.to(device), t) for t in (theta, bn_state))
+        )
+
+    def init_state(self, generator: torch.Generator, device=None):
+        """``init_inference_state``, zero Adam moments over all of theta
+        and iteration 0."""
+        istate = self.init_inference_state(generator, device)
+        device = tree_leaves(istate.theta)[0].device
+        return self.state_type(
+            istate.theta, istate.bn_state, self.tx.init(istate.theta),
+            torch.zeros((), dtype=torch.int32, device=device),
+        )
+
+    def inference_state(self, state) -> InferenceState:
+        return InferenceState(state.theta, state.bn_state)
+
+    def _epoch_lr(self, epoch: int) -> float:
+        cfg = self.cfg
+        return cosine_epoch_lr(
+            epoch, cfg.meta_learning_rate, cfg.min_learning_rate, cfg.total_epochs
+        )
+
+    def _device_batch(self, state, data_batch) -> tuple:
+        """A host episode batch through ``prepare_batch`` onto the state's
+        device, or the one batch of a staged group of K = 1."""
+        if isinstance(data_batch, StagedBatch):
+            return tuple(a[0] for a in data_batch.arrays)
+        prepared = prepare_batch(data_batch, codec=self.cfg.wire_codec)
+        device = tree_leaves(state.theta)[0].device
+        return tuple(a[0] for a in to_device([prepared], device))
+
+    def _decode(self, batch) -> tuple:
+        xs, xt, ys, yt = batch
+        codec, dtype = self.cfg.wire_codec, self.cfg.dtype
+        return (decode_images(xs, codec, dtype), decode_images(xt, codec, dtype),
+                ys.long(), yt.long())
+
+    def _embed(self, theta, bn_state, *images):
+        """The backbone over each of ``images`` (``(T, N, C, H, W)``) in
+        turn, ``theta`` and ``bn_state`` shared by the ``T`` tasks and the
+        running statistics threaded from one set to the next. Returns
+        ``(outputs (T, N, classes) per set, bn_state per task or None)``."""
+        tasks = images[0].shape[0]
+        params, bn = shared(theta, tasks), shared(bn_state, tasks)
+        outputs = []
+        for x in images:
+            out, bn = self.backbone.apply(params, bn, x, 0)
+            outputs.append(out)
+        return outputs, bn
+
+    @torch.no_grad()
+    def _embed_task(self, theta, images):
+        """One task's float32 outputs ``(N, classes)`` of wire-dtype images
+        ``(N, C, H, W)``, no running statistics kept: the serving halves'
+        embedding."""
+        x = decode_images(images, self.cfg.wire_codec, self.cfg.dtype)[None]
+        (out,), _ = self._embed(theta, None, x)
+        return out[0].float()
+
+    def _grads(self, loss_fn, theta):
+        """``(loss, aux, grads over theta)`` of ``loss_fn(theta) -> (loss,
+        aux)``; nothing of the graph is kept."""
+        leaves = [a.detach().requires_grad_() for a in tree_leaves(theta)]
+        with torch.enable_grad():
+            loss, aux = loss_fn(tree_unflatten(theta, leaves))
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), aux, tree_unflatten(theta, list(grads))
+
+    def run_train_iter(self, state, data_batch, epoch):
+        """One training pass over an episode batch (``(B, N, K, C, H, W)``
+        numpy images and ``(B, N, K)`` labels, or a staged group of one).
+        Returns ``(new_state, losses)``: ``loss``, ``accuracy`` and
+        ``nonfinite`` as device scalars, the learning rate as a float. The
+        state passed in is not changed."""
+        epoch = int(epoch)
+        self.current_epoch = epoch
+        batch = self._device_batch(state, data_batch)
+        lr = self._epoch_lr(epoch)
+        state = state._replace(opt_state=set_injected_lr(state.opt_state, lr))
+        new_state, metrics, _ = self._run_batch(state, batch, training=True)
+        return new_state, {**metrics, "learning_rate": lr}
+
+    def run_validation_iter(self, state, data_batch):
+        """``(state, losses, logits (B, Q, classes))``: the state the eval
+        pass returns (gradient descent fine-tunes in eval by design; the
+        others return the one given)."""
+        batch = self._device_batch(state, data_batch)
+        new_state, metrics, logits = self._run_batch(state, batch, training=False)
+        losses = {k: metrics[k] for k in self.eval_keys}
+        return new_state, losses, logits

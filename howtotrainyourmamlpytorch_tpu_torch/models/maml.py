@@ -61,6 +61,7 @@ from .common import (
     make_injected_adam,
     nonfinite_flag,
     prepare_batch,
+    refuse_unported,
     set_injected_lr,
     to_device,
 )
@@ -205,16 +206,7 @@ class MAMLFewShotLearner(CheckpointableLearner):
     trainer contract, and the serving half."""
 
     def __init__(self, cfg: MAMLConfig):
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "bfloat16 compute is ROADMAP item A8; the port runs float32"
-            )
-        if cfg.task_chunk != 0:
-            raise NotImplementedError("task_chunk is ROADMAP item A8")
-        if cfg.device_augment is not None:
-            raise NotImplementedError(
-                "on-device augmentation is ROADMAP item A7"
-            )
+        refuse_unported(cfg)
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone)
         self.tx = make_injected_adam(cfg.meta_learning_rate, cfg.clip_grad_value)

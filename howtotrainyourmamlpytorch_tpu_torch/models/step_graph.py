@@ -35,7 +35,10 @@ fails raises; nothing runs the eager step in its place.
 The fused-norm wrappers run at capture, not on replay: their
 ``launch_counts`` see a step once. Each graph keeps the launches it
 captured (``launches``, per replay), its number of ``replays`` and the
-seconds its warm-up and capture took (``capture_s``).
+seconds its warm-up and capture took (``capture_s``). The captured
+``cudaGraph_t`` is kept beside its executable (``keep_graph``), so the
+kernel nodes a replay launches can be read back from it
+(``graph.raw_cuda_graph()``).
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ class StepGraph:
             for _ in range(WARMUP_STEPS):
                 step()
         current.wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = dict(fused_norm.launch_counts)
         # thread_local: the prefetcher's thread may pin host memory and
         # copy on its own stream while this thread captures.
@@ -94,6 +97,7 @@ class StepGraph:
             self._metrics = torch.stack(
                 [metrics["loss"], metrics["accuracy"], metrics["nonfinite"]]
             )
+        self.graph.instantiate()
         self.launches = {
             name: fused_norm.launch_counts[name] - before[name] for name in before
         }

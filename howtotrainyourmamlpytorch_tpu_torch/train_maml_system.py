@@ -22,16 +22,23 @@ from .utils.dataset_tools import maybe_unzip_dataset
 from .utils.parser_utils import args_to_maml_config, get_args
 
 
+def run(make_learner, argv=None) -> dict:
+    """Trains, validates and tests the experiment ``argv`` names with the
+    learner ``make_learner(cfg, args)`` builds; returns the ensemble's test
+    losses. Raises without a CUDA device."""
+    args, device = get_args(argv)
+    model = make_learner(args_to_maml_config(args), args)
+    maybe_unzip_dataset(args)
+    system = ExperimentBuilder(
+        model=model, data=MetaLearningSystemDataLoader, args=args, device=device
+    )
+    return system.run_experiment()
+
+
 def main(argv=None) -> dict:
     """Trains, validates and tests the experiment ``argv`` names; returns
     the ensemble's test losses. Raises without a CUDA device."""
-    args, device = get_args(argv)
-    model = MAMLFewShotLearner(cfg=args_to_maml_config(args))
-    maybe_unzip_dataset(args)
-    maml_system = ExperimentBuilder(
-        model=model, data=MetaLearningSystemDataLoader, args=args, device=device
-    )
-    return maml_system.run_experiment()
+    return run(lambda cfg, args: MAMLFewShotLearner(cfg), argv)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ checkpoint.py``), so that a checkpoint of either package loads in the
 other.
 
 Format: a NumPy ``.npz`` archive with the state's leaves as ``leaf_{i}`` in
-the JAX ``TrainState``'s flatten order, the experiment state as a JSON
+the JAX train state's flatten order, the experiment state as a JSON
 string (``__experiment_state__``) and an integrity manifest
 (``__manifest__``: schema version, leaf count, per-leaf CRC32, the CRC32
 of the tree's key paths, the CRC32 of the experiment state). The port
@@ -62,23 +62,28 @@ MARKER_SCHEMA_VERSION = 1
 
 
 # ---------------------------------------------------------------------------
-# The JAX TrainState's flatten order and key paths
+# The JAX train states' flatten order and key paths
 # ---------------------------------------------------------------------------
 #
-# The JAX optimizer (models/maml.py _make_optimizer) is
+# Two optimizer layouts, told apart by the state (this module imports no
+# model). A state with LSLR rates (MAML's and ANIL's ``TrainState``) was
+# made by the optimizer of JAX models/maml.py _make_optimizer:
 # ``inject_hyperparams(adam)`` over ``multi_transform({"trainable": adam or
-# chain(clip, adam), "frozen": set_to_zero()})``. Its state, as optax 0.2.6
-# lays it out: InjectHyperparamsState(count, hyperparams={"learning_rate"},
-# inner_state=MultiTransformState(inner_states={label: MaskedState(
-# inner_state)})); adam is chain(scale_by_adam, scale_by_learning_rate),
+# chain(clip, adam), "frozen": set_to_zero()})``. A state without them
+# (``GDState``, ``MatchingNetsState``, ``ProtoNetsState``) by
+# ``make_injected_adam`` (JAX models/common.py:106-120) over all of theta,
+# with no mask. As optax 0.2.6 lays them out:
+# InjectHyperparamsState(count, hyperparams={"learning_rate"},
+# inner_state=chain), chain sitting under
+# MultiTransformState(inner_states={label: MaskedState(inner_state)}) in
+# the masked layout. adam is chain(scale_by_adam, scale_by_learning_rate),
 # whose state is the tuple (ScaleByAdamState(count, mu, nu), EmptyState()),
 # one level deeper behind clip's EmptyState when clipping. EmptyState,
-# set_to_zero's state and the MaskedNode of a frozen leaf hold no leaf. The
-# NamedTuples below mirror those types by field name; JAX flattens a
+# set_to_zero's state and the MaskedNode of a frozen leaf hold no leaf.
+# The NamedTuples below mirror those types by field name; JAX flattens a
 # NamedTuple in field order and a dict in sorted key order, and writes a
 # path entry as ``a:<field>``, ``d:<key>`` or ``s:<index>``
-# (``tree_crc32``). Both counts are the port's one
-# update count.
+# (``tree_crc32``). Both counts are the port's one update count.
 
 
 class _InjectState(NamedTuple):
@@ -102,20 +107,25 @@ class _AdamState(NamedTuple):
 
 
 def _is_train_state(state) -> bool:
-    """A ``TrainState`` rather than its ``MAMLInferenceState`` prefix (read
-    by field, so that this module imports no model)."""
+    """A train state rather than its inference prefix (read by field)."""
     return hasattr(state, "opt_state")
+
+
+def _is_masked(state) -> bool:
+    """Whether the state's optimizer is the masked MAML layout: the state
+    carries LSLR rates."""
+    return hasattr(state, "lslr")
 
 
 def _jax_view(state, clip: bool):
     opt = state.opt_state
     moments = _AdamState(opt.count, opt.mu, opt.nu)
     chain = ((), (moments, ())) if clip else (moments, ())
-    optax_state = _InjectState(
-        opt.count,
-        {"learning_rate": opt.learning_rate},
-        _MultiTransformState({"frozen": (), "trainable": _MaskedState(chain)}),
-    )
+    if _is_masked(state):
+        chain = _MultiTransformState(
+            {"frozen": (), "trainable": _MaskedState(chain)}
+        )
+    optax_state = _InjectState(opt.count, {"learning_rate": opt.learning_rate}, chain)
     return state._replace(opt_state=optax_state)
 
 
@@ -134,11 +144,11 @@ def _flatten_with_path(node, path=()):
 
 
 def train_state_paths(state, clip: bool) -> list:
-    """``[(path, leaf), ...]`` of a ``TrainState`` (or of its
-    ``MAMLInferenceState`` prefix) in the order and with the key paths of
-    the JAX ``TrainState`` of the same config; ``clip`` is whether the
-    config clips gradients (``MAMLConfig.clip_grad_value``). A path reads
-    like ``a:theta;d:conv0;d:conv;d:weight``."""
+    """``[(path, leaf), ...]`` of a train state (or of its inference
+    prefix) in the order and with the key paths of the JAX state of the
+    same learner and config; ``clip`` is whether the config clips
+    gradients (``MAMLConfig.clip_grad_value``). A path reads like
+    ``a:theta;d:conv0;d:conv;d:weight``."""
     if _is_train_state(state):
         state = _jax_view(state, clip)
     return list(_flatten_with_path(state))
@@ -162,14 +172,16 @@ def _unflatten(node, leaves):
 
 
 def train_state_from_leaves(template, leaves, clip: bool):
-    """``template`` (a ``TrainState`` or its ``MAMLInferenceState`` prefix)
-    with its leaves replaced by ``leaves``, given in ``train_state_paths``
+    """``template`` (a train state or its inference prefix) with its
+    leaves replaced by ``leaves``, given in ``train_state_paths``
     order. Of the two update counts the archive holds, Adam's is kept."""
     if not _is_train_state(template):
         return _unflatten(template, iter(leaves))
     view = _unflatten(_jax_view(template, clip), iter(leaves))
     inject = view.opt_state
-    chain = inject.inner_state.inner_states["trainable"].inner_state
+    chain = inject.inner_state
+    if _is_masked(template):
+        chain = chain.inner_states["trainable"].inner_state
     adam = chain[1][0] if clip else chain[0]
     return view._replace(opt_state=type(template.opt_state)(
         count=adam.count, mu=adam.mu, nu=adam.nu,

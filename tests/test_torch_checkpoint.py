@@ -6,7 +6,10 @@ module (CPU).
 A JAX ``TrainState`` and the port's hold the same values
 (``tests/test_torch_train.learner_pair``), over the configurations whose
 optimizer states lay out differently: gradient clip on and off, frozen
-LSLR rates, frozen batch-norm gamma and beta.
+LSLR rates, frozen batch-norm gamma and beta. The same holds for the
+states of the gradient-descent, matching-nets and ProtoNets learners,
+whose Adam runs over all of theta with no mask, with the clip and
+without.
 """
 
 import json
@@ -23,11 +26,28 @@ from jax.tree_util import (
     tree_flatten_with_path,
 )
 
+from howtotrainyourmamlpytorch_tpu.models import (
+    GradientDescentLearner as JGradientDescentLearner,
+    MatchingNetsLearner as JMatchingNetsLearner,
+    ProtoNetsLearner as JProtoNetsLearner,
+)
 from howtotrainyourmamlpytorch_tpu.utils import checkpoint as jckpt
-from howtotrainyourmamlpytorch_tpu_torch.convert import train_state_from_numpy
+from howtotrainyourmamlpytorch_tpu_torch.convert import (
+    shared_state_from_numpy,
+    train_state_from_numpy,
+)
+from howtotrainyourmamlpytorch_tpu_torch.models import (
+    GradientDescentLearner,
+    InferenceState,
+    MatchingNetsLearner,
+    ProtoNetsLearner,
+)
+from howtotrainyourmamlpytorch_tpu_torch.models.common import CheckpointableLearner
 from howtotrainyourmamlpytorch_tpu_torch.utils import checkpoint as ckpt
+from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
-from test_torch_train import jax_config, jax_train_state_numpy, learner_pair
+from test_torch_gradient_descent import shared_state_numpy, zoo_config
+from test_torch_train import jax_config, jax_train_state_numpy, learner_pair, port_config
 
 CONFIGS = {
     "default": {},
@@ -109,6 +129,68 @@ def test_inference_prefix_of_a_jax_checkpoint(pair, tmp_path):
     istate, exp = learner.load_inference_state(path, device="cpu")
     assert exp == EXP
     _assert_same_leaves(learner, istate, type(istate)(*state[:3]))
+
+
+# ---------------------------------------------------------------------------
+# The shared-weights learners' states: Adam over all of theta, no mask
+# ---------------------------------------------------------------------------
+
+ZOO = {
+    "gd": (JGradientDescentLearner, GradientDescentLearner),
+    "matching_nets": (JMatchingNetsLearner, MatchingNetsLearner),
+    "protonets": (JProtoNetsLearner, ProtoNetsLearner),
+}
+
+
+@pytest.fixture(params=[(k, c) for k in ZOO for c in (None, 10.0)],
+                ids=[f"{k}-{'clip' if c else 'no-clip'}" for k in ZOO for c in (None, 10.0)],
+                scope="module")
+def zoo_pair_moved(request):
+    """A JAX ``GDState``/``MatchingNetsState``/``ProtoNetsState`` moved off
+    its init (every leaf distinct) and the port's copy; with the +-10 clip
+    the optax chain is one level deeper."""
+    kind, clip = request.param
+    jcls, cls = ZOO[kind]
+    jcfg = zoo_config(False, clip_grad_value=clip)
+    jlearner, learner = jcls(jcfg), cls(port_config(jcfg))
+    jstate = jlearner.init_state(jax.random.PRNGKey(3))
+    rng = np.random.RandomState(1)
+    jstate = jax.tree.map(
+        lambda a: a + np.asarray(rng.rand(*np.shape(a))).astype(a.dtype)
+        if np.issubdtype(a.dtype, np.floating) else a + 3,
+        jstate,
+    )
+    lr = float(jstate.opt_state.hyperparams["learning_rate"])
+    state = shared_state_from_numpy(shared_state_numpy(jstate), learner.state_type,
+                                    lr, "cpu")
+    return jlearner, jstate, learner, state
+
+
+def test_zoo_paths_and_fingerprint_match_jax(zoo_pair_moved):
+    test_paths_and_fingerprint_match_jax(zoo_pair_moved)
+
+
+def test_zoo_jax_checkpoint_loads_in_the_port(zoo_pair_moved, tmp_path):
+    test_jax_checkpoint_loads_in_the_port(zoo_pair_moved, tmp_path)
+
+
+def test_zoo_port_checkpoint_loads_in_jax(zoo_pair_moved, tmp_path):
+    test_port_checkpoint_loads_in_jax(zoo_pair_moved, tmp_path)
+
+
+def test_zoo_inference_prefix_of_a_jax_checkpoint(zoo_pair_moved, tmp_path):
+    """The parameters and BN statistics (``InferenceState``) lead the
+    archive; the learners' own ``load_inference_state`` (gradient descent
+    adds its fine-tune rate) reads the same prefix."""
+    _, jstate, learner, state = zoo_pair_moved
+    path = str(tmp_path / "ckpt")
+    jckpt.save_checkpoint(path, jstate, EXP)
+    istate, exp = CheckpointableLearner.load_inference_state(learner, path, device="cpu")
+    assert exp == EXP and type(istate) is InferenceState
+    _assert_same_leaves(learner, istate, InferenceState(*state[:2]))
+    served, _ = learner.load_inference_state(path, device="cpu")
+    for a, b in zip(served[:2], istate):
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
 # ---------------------------------------------------------------------------

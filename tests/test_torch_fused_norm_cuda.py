@@ -52,7 +52,8 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize(
-    "shape", [(5, 256, 28, 28), (15, 256, 3, 3), (3, 5, 7, 9)]
+    "shape", [(5, 256, 28, 28), (15, 256, 3, 3), (3, 5, 7, 9),
+              (5, 64, 28, 28), (5, 64, 3, 3)]  # one task of 64 filters
 )
 def test_kernels_match_plain(shape, cuda):
     x, gamma, beta, g = _inputs(shape, cuda)
@@ -79,6 +80,9 @@ def test_kernels_match_plain(shape, cuda):
         ((4, 1, 14, 14), False),   # C = 1
         ((3, 5, 7, 9), False),
         ((25, 96, 84, 84), False),  # a cluster of 8 blocks
+        ((5, 64, 28, 28), False),  # one task of 64 filters, a block a channel
+        ((5, 64, 14, 14), False),  # one task, a warp a channel
+        ((5, 64, 7, 7), False),
         ((5, 256, 28, 28), True),  # forced onto the streamed path
         ((3, 5, 7, 9), True),
     ],
@@ -113,6 +117,9 @@ def test_forward_kernels_match_plain(shape, streamed, cuda):
         ((1, 8, 28, 28), False),   # N = 1
         ((4, 1, 14, 14), False),   # C = 1
         ((25, 96, 84, 84), False),  # a cluster of blocks
+        ((5, 64, 28, 28), False),  # one task of 64 filters
+        ((5, 64, 7, 7), False),
+        ((5, 64, 3, 3), False),
         ((5, 256, 28, 28), True),  # forced onto the streamed path
         ((3, 5, 7, 9), True),
     ],
@@ -161,7 +168,8 @@ def test_function_matches_plain_and_is_deterministic(cuda):
     _close(dx, p_dx)
 
 
-@pytest.mark.parametrize("shape", [(5, 512, 28, 28), (5, 512, 14, 14), (3, 5, 6, 10)])
+@pytest.mark.parametrize("shape", [(5, 512, 28, 28), (5, 512, 14, 14), (3, 5, 6, 10),
+                                   (5, 64, 28, 28), (5, 64, 14, 14)])
 def test_pool_kernel_matches_plain(shape, cuda):
     x, gamma, beta, _ = _inputs(shape, cuda)
     mean, var = tfn.plain_stats(x)
@@ -298,3 +306,43 @@ def test_fused_train_step_runs_the_kernels(cuda):
     _, plain = MAMLFewShotLearner(plain_cfg).run_train_iter(state, batch, epoch=0)
     np.testing.assert_allclose(float(losses["loss"]), float(plain["loss"]),
                                rtol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "cls, per_iteration",
+    [("GradientDescentLearner", 2 * (2 + 1) * 2), ("MatchingNetsLearner", 2 * 2 * 2),
+     ("ProtoNetsLearner", 2 * 2)],
+    ids=["gradient_descent", "matching_nets", "protonets"],
+)
+def test_shared_weights_train_iteration_runs_bn_act_bwd(cls, per_iteration, cuda):
+    """The one-level op on a train path: a train iteration of each
+    shared-weights learner (2 tasks, 2 support steps, 4 stages of 8
+    filters, stages 0-1 pooled) launches each kernel ``per_iteration``
+    times, ``bn_act_bwd`` included, and gives the plain-norm learner's loss
+    from the same state."""
+    from howtotrainyourmamlpytorch_tpu_torch import models
+
+    cfg = MAMLConfig(
+        backbone=BackboneConfig(
+            num_stages=4, num_filters=8, num_classes=5, use_pallas_fused_norm=True,
+            fused_norm_train=True, fused_norm_pool=True,
+        ),
+        number_of_training_steps_per_iter=2,
+        number_of_evaluation_steps_per_iter=2,
+    )
+    plain_cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
+        cfg.backbone, use_pallas_fused_norm=False, fused_norm_train=False,
+        fused_norm_pool=False,
+    ))
+    learner = getattr(models, cls)(cfg)
+    state = learner.init_state(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    xs = (rng.rand(2, 5, 1, 1, 28, 28) > 0.8).astype(np.float32)
+    ys = np.tile(np.arange(5)[None, :, None], (2, 1, 1))
+    batch = (xs, xs.copy(), ys, ys.copy())
+    tfn.reset_launch_counts()
+    _, losses = learner.run_train_iter(state, batch, epoch=0)
+    torch.cuda.synchronize()
+    assert tfn.launch_counts == dict.fromkeys(tfn.KERNELS, per_iteration), tfn.launch_counts
+    _, plain = getattr(models, cls)(plain_cfg).run_train_iter(state, batch, epoch=0)
+    np.testing.assert_allclose(float(losses["loss"]), float(plain["loss"]), rtol=1e-4)

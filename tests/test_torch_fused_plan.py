@@ -24,6 +24,8 @@ MAX_SMEM = 227 * 1024
 SERVE = [(n, 256, hw, hw) for n in (5, 15) for hw in (28, 14, 7, 3)]
 TRAIN = [(5, 512, hw, hw) for hw in (28, 14, 7, 3)]
 NORTH_STAR = [(n, 96, hw, hw) for n in (25, 75) for hw in (84, 42, 21, 10)]
+# One task of 64 filters: the gradient-descent and matching-nets learners.
+ZOO = [(5, 64, hw, hw) for hw in (28, 14, 7, 3)]
 
 
 def _coverage(shape, plan):
@@ -67,12 +69,12 @@ def _check_plan_shape(shape, row_bytes):
         assert plan.threads == 32 * plan.channels_per_block
 
 
-@pytest.mark.parametrize("shape", SERVE + TRAIN + NORTH_STAR, ids=str)
+@pytest.mark.parametrize("shape", SERVE + TRAIN + NORTH_STAR + ZOO, ids=str)
 def test_plan_covers_every_channel_once(shape):
     _check_plan_shape(shape, tfn.FWD_ROW_BYTES)
 
 
-@pytest.mark.parametrize("shape", SERVE + TRAIN + NORTH_STAR, ids=str)
+@pytest.mark.parametrize("shape", SERVE + TRAIN + NORTH_STAR + ZOO, ids=str)
 def test_backward_plan_covers_every_channel_once(shape):
     """The backward stages x and the cotangent: 8 bytes a row."""
     _check_plan_shape(shape, tfn.BWD_ROW_BYTES)

@@ -22,6 +22,7 @@ import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.data.device_prefetch import DevicePrefetcher
 from howtotrainyourmamlpytorch_tpu_torch.models import (
+    ANILLearner,
     BackboneConfig,
     MAMLConfig,
     MAMLFewShotLearner,
@@ -46,10 +47,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def learner_of(**kw):
+def learner_of(cls=MAMLFewShotLearner, **kw):
     """4 stages of 8 filters on 28x28, per-step BN over 2 steps, the fused
     train ops, remat on, MSL over 2 epochs of a 4-epoch cosine schedule."""
-    return MAMLFewShotLearner(MAMLConfig(
+    return cls(MAMLConfig(
         backbone=BackboneConfig(
             num_stages=4, num_filters=8, per_step_bn_statistics=True,
             num_steps=2, num_classes=5, fused_norm_train=True, fused_norm_pool=True,
@@ -98,7 +99,17 @@ def test_replays_equal_eager_steps_across_branches_and_epochs(cuda):
     graph, another learning rate and importance vector) and epoch 2 (past
     the MSL horizon, a second graph). A state held from before each
     dispatch is unchanged after it."""
-    learner = learner_of()
+    _check_replays_against_eager(learner_of())
+
+
+def test_anil_replays_equal_eager_steps_across_branches_and_epochs(cuda):
+    """The same for ANIL, whose captured step adapts the head alone and
+    sends the outer gradient to the frozen body through every inner
+    step's forward."""
+    _check_replays_against_eager(learner_of(ANILLearner))
+
+
+def _check_replays_against_eager(learner):
     rng = np.random.RandomState(0)
     state = learner.init_state(torch.Generator().manual_seed(1))
     assert learner._epoch_lr(0) != learner._epoch_lr(1)
@@ -116,6 +127,25 @@ def test_replays_equal_eager_steps_across_branches_and_epochs(cuda):
     graphs = learner._step_graphs.graphs
     assert sorted(g.key for g in graphs.values()) == [(True, False), (True, True)]
     assert sum(g.replays for g in graphs.values()) == 9
+
+
+@pytest.mark.parametrize("cls", [MAMLFewShotLearner, ANILLearner])
+def test_graph_kernel_nodes_are_the_captured_launches(cuda, cls):
+    """Each captured graph keeps its ``cudaGraph_t``: its fused-norm kernel
+    nodes, read from the driver, are the launches its capture counted."""
+    import chip_smoke
+
+    learner = learner_of(cls)
+    rng = np.random.RandomState(4)
+    state = learner.init_state(torch.Generator().manual_seed(5))
+    for epoch in (0, 2):
+        state, _ = learner.run_train_iters(state, batches(rng, 2), epoch)
+    for graph in learner._step_graphs.graphs.values():
+        names = chip_smoke.graph_kernel_names(graph.graph)
+        nodes = {k: sum(symbol in n for n in names)
+                 for k, symbol in chip_smoke.KERNEL_SYMBOLS.items()}
+        assert nodes == graph.launches, graph.key
+        assert len(names) > sum(nodes.values())  # and the convolutions' kernels
 
 
 def test_eager_step_is_reproducible_across_process_history(cuda):
