@@ -23,6 +23,10 @@ Phases, in order; any failure exits non-zero before the result lines:
              two entries' statistics and the backward's two routes to each
              other bitwise, and times each kernel beside its plain version,
              its bound and the library yardsticks, with its launch plan.
+             The same at ResNet-12's fused sites at its LeakyReLU slope
+             0.1 (train and eval: 8 tasks x 64|128|256|512 filters, N=5, at
+             28|14|7|3 pixels, up to 4096 channels of 45 rows; serve: 4
+             tasks, N=5|15) and at the stride-2 VGG's (5, 512, 4|2).
    pool    - K5 (``bn_act_pool_apply``) against ``plain_pool_apply`` at the
              train path's pooled stages (5, 512, 28, 28) and (5, 512, 14,
              14) and at the north star's (25|75, 96, 84|42|10); the same
@@ -60,6 +64,12 @@ Phases, in order; any failure exits non-zero before the result lines:
              loss and meta-gradient against a plain-norm learner on the
              same state; one past-horizon iteration's launches; one
              ``run_validation_iter`` with finite logits.
+   resnet serve - the same on the Omniglot ResNet-12 JSON, random weights
+             from seed 104 (per dispatch bn_stats_act 48, bn_act_bwd 40,
+             bn_stats and K5 0); ResNet-12 from random weights is chaotic
+             through its inner steps, so whole episodes are held to the
+             plain engine as SENSITIVITY_* says, classify alone to the
+             CLASSIFY bar.
    graph   - the flagship and north-star learners with remat on, as the
              CLIs train, from one state over 5 batches: ``run_train_iters``
              (K=5 replays of the captured step) against 5 eager
@@ -80,6 +90,20 @@ Phases, in order; any failure exits non-zero before the result lines:
              learner's first loss and meta-gradient bitwise equal to its
              own without remat, and held to the plain-norm learner's under
              the train phase's tolerances.
+   resnet graph - the ResNet-12 learner from its JSON with the three fused
+             flags and remat on, through the graph phase's checks (captured
+             launches per iteration bn_stats_act 200 MSL, 128 final-only;
+             bn_stats and K5 0) and the remat phase's, its first loss and
+             meta-gradient held to the plain-norm learner's as
+             SENSITIVITY_* says; capture, replay and eager ms and the peak
+             memory.
+   backbone options - the flagship JSON with max_pooling False (stride-2
+             convs, the fused norm unpooled, a global average pool),
+             norm_layer layer_norm and block_order norm_conv (no fused
+             site), remat off: one first second-order step against the
+             plain-norm learner (the train phase's bars where the kernels
+             run, bitwise where none does) and one run_validation_iter
+             with finite logits; their launches held exactly.
 5. cli flagship - the training command line
              (``train_maml_system.main``, in this process) on the flagship
              JSON with the three fused flags, over a synthetic Omniglot-shaped
@@ -114,10 +138,10 @@ Phases, in order; any failure exits non-zero before the result lines:
              included, and the seconds it waited for its input, at K=1 and
              at K=5, prefetcher on and off; peak
              device memory, the validation and test accuracy and the
-             launches. Phases 3-6 record every kernel call's input shape
-             (a replay runs no wrapper; its shapes are those of its
-             capture); each must be one the kernel and pool phases held to
-             the plain version.
+             launches. Phases 3-9 record every kernel call's input shape
+             and LeakyReLU slope (a replay runs no wrapper; its calls are
+             those of its capture); each (shape, slope) must be one the
+             kernel and pool phases held to the plain version.
 7. zoo plain - gradient descent, matching nets (their published JSONs),
              ANIL and ProtoNets (the flagship's) with the three fused flags
              against their plain-norm twins from the same weights on the
@@ -139,7 +163,14 @@ Phases, in order; any failure exits non-zero before the result lines:
              without an inner loop. Each prints the lines of the CLI phases
              above and the eval ms per iteration. ANIL's captured graphs
              are held to their kernel nodes as MAML's are.
-9. result  - a [replay] line with each captured graph's kernel nodes, each
+9. cli resnet12 - train_maml_system.main on the ResNet-12 JSON with the
+             three fused flags over the zoo's Omniglot tree: 2 epochs of 10
+             iterations (synchronized), 40 evaluation tasks and the
+             ensemble, then ``latest`` to a 3rd epoch at
+             ``--iters_per_dispatch 5`` past an MSL horizon of 2; launches
+             per train and eval iteration held to CLI_RESNET12_*
+             (tests/test_torch_resnet.py counts them on the CPU).
+10. result - a [replay] line with each captured graph's kernel nodes, each
              phase's seconds, one JSON line listing the kernels, the
              nvidia-smi line, and the last line ``{"ok": true, "device":
              {...}}``.
@@ -194,6 +225,19 @@ EPISODE_MEDIAN_ATOL, EPISODE_MAX_ATOL = 1e-4, 5e-2
 # printed with its gap and held to ROUTING_RTOL * max|plain|.
 GRAD_RTOL, GRAD_ATOL, ROUTING_RTOL = 1e-3, 1e-5, 5e-2
 TRAIN_LOSS_RTOL = 1e-4
+# ResNet-12 from random weights is chaotic through its 5 inner steps at
+# rate 0.1: the plain-norm path alone, its weights moved by one unit in
+# the last place, moves served logits by a median 1.65 (of up to 96) and
+# the first train loss by 3.5e-3 relative (this script on an NVIDIA H100
+# 80GB HBM3, PERF.md §6), so the bars above cannot separate the kernels
+# from rounding there.
+# On ResNet-12 the fused path's gap to the plain path is held to
+# SENSITIVITY_FACTOR times the plain path's own gap under such a move
+# (the largest over SENSITIVITY_SEEDS draws), or to the bar above where
+# that is larger; the kernels themselves are held to their plain versions
+# at every ResNet shape and slope in the kernel phase, and classify alone
+# (a forward pass) to the CLASSIFY bar.
+SENSITIVITY_FACTOR, SENSITIVITY_SEEDS = 2.0, (1, 2)
 TRAIN_ITERS = 10
 
 FLAGSHIP_SHAPES = [
@@ -214,11 +258,31 @@ STREAMED_SHAPE = NORTH_STAR_SHAPE
 # One task of 64 filters, N=5: the gradient-descent and matching-nets
 # learners train task by task (and gradient descent evaluates so).
 ZOO_SHAPES = [(5, 64, hw, hw) for hw in (28, 14, 7, 3)]
+# The VGG without max pooling (stride-2 convs, the flagship's width): 8
+# tasks x 64 filters at 14, 7, 4 and 2 pixels, none pooled.
+STRIDE2_SHAPES = [(5, 512, hw, hw) for hw in (14, 7, 4, 2)]
 KERNEL_SHAPES = (FLAGSHIP_SHAPES + TRAIN_SHAPES + [NORTH_STAR_SHAPE, NORTH_STAR_TARGET]
-                 + NORTH_STAR_STAGES + ZOO_SHAPES)
+                 + NORTH_STAR_STAGES + ZOO_SHAPES
+                 + [s for s in STRIDE2_SHAPES if s not in TRAIN_SHAPES])
+# The VGG's LeakyReLU slope and ResNet-12's.
+SLOPE, RESNET_SLOPE = 0.01, 0.1
+RESNET12 = os.path.join(
+    REPO, "experiment_config_local", "omniglot_maml++-omniglot-resnet12_1_8_0.1_64_5_1.json"
+)
+# ResNet-12's fused sites (conv0 and conv1 of each stage) at the Omniglot
+# JSON's widths 64, 128, 256 and 512, at the stage inputs 28, 14, 7 and 3:
+# train and eval fold 8 tasks (5 support and 5 target images), serve 4
+# tasks (5 support, 15 queries).
+RESNET_STAGES = tuple(zip((64, 128, 256, 512), (28, 14, 7, 3)))
+RESNET_TRAIN_SHAPES = [(5, 8 * w, hw, hw) for w, hw in RESNET_STAGES]
+RESNET_SERVE_SHAPES = [(n, 4 * w, hw, hw) for n in (5, 15) for w, hw in RESNET_STAGES]
+# Every (shape, slope) the kernel phase holds bn_stats_act and bn_act_bwd
+# to their plain versions at (bn_stats takes no slope; it is checked at
+# every shape).
+KERNEL_CASES = ([(s, SLOPE) for s in KERNEL_SHAPES]
+                + [(s, RESNET_SLOPE) for s in RESNET_TRAIN_SHAPES + RESNET_SERVE_SHAPES])
 POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE, NORTH_STAR_TARGET,
                *(s for s in NORTH_STAR_STAGES if s[2] % 2 == 0), *ZOO_SHAPES[:2]]
-FORWARD = ("bn_stats", "bn_stats_act")
 # Launches of each kernel per serve dispatch of 4 episodes (4 stages x (5
 # adapt steps + 1 classify) forwards, 5 x 4 backwards) and per flagship
 # MSL train iteration (5 steps x support and target x 4 stages; stages 0-1
@@ -284,6 +348,35 @@ CLI_ANIL_TRAIN_FINAL = {"bn_stats": 32, "bn_stats_act": 32, "bn_act_bwd": 0,
                         "bn_act_pool_apply": 32}
 CLI_ANIL_EVAL = {"bn_stats": 12, "bn_stats_act": 12, "bn_act_bwd": 0,
                  "bn_act_pool_apply": 12}
+# ResNet-12 (the three fused flags, remat on): 8 fused sites a forward
+# pass, none pooled, so no bn_stats and no K5; the any-order op on the
+# train path (5 inner steps x support and target, 1.5 of every 2 forwards
+# recomputed: 25 forwards a site; past the MSL horizon 16), the one-level
+# op in eval and serving (5 support + 1 target forwards a site and a
+# bn_act_bwd for each of the 5 inner gradients). Counted on the CPU in
+# tests/test_torch_resnet.py.
+CLI_RESNET12_TRAIN = {"bn_stats": 0, "bn_stats_act": 200, "bn_act_bwd": 0,
+                      "bn_act_pool_apply": 0}
+CLI_RESNET12_TRAIN_FINAL = {"bn_stats": 0, "bn_stats_act": 128, "bn_act_bwd": 0,
+                            "bn_act_pool_apply": 0}
+CLI_RESNET12_EVAL = {"bn_stats": 0, "bn_stats_act": 48, "bn_act_bwd": 40,
+                     "bn_act_pool_apply": 0}
+RESNET_SERVE_LAUNCHES = CLI_RESNET12_EVAL
+# The VGG's other options on the flagship JSON (the backbone_options
+# phase), and the launches of its first second-order step without remat (5
+# inner steps x support and target forwards a stage: the any-order op)
+# plus one eval iteration (5 + 1 forwards a stage and 5 backwards, the
+# one-level op): only the stride-2 VGG has fused sites.
+BACKBONE_OPTIONS = (("stride2", {"max_pooling": False}),
+                    ("layer_norm", {"norm_layer": "layer_norm"}),
+                    ("norm_conv", {"block_order": "norm_conv"}))
+BACKBONE_OPTION_LAUNCHES = {
+    "stride2": {"bn_stats": 0, "bn_stats_act": 64, "bn_act_bwd": 20,
+                "bn_act_pool_apply": 0},
+    "layer_norm": dict.fromkeys(("bn_stats", "bn_stats_act", "bn_act_bwd",
+                                 "bn_act_pool_apply"), 0),
+}
+BACKBONE_OPTION_LAUNCHES["norm_conv"] = BACKBONE_OPTION_LAUNCHES["layer_norm"]
 # (kind, config, learner class, entry point module) of each zoo learner,
 # and its launches per train iteration (MSL, final-only) and eval iteration.
 ZOO = (
@@ -393,6 +486,20 @@ def err_ok(got, want) -> tuple[float, bool]:
     return err, err <= ATOL + RTOL * float(want.abs().max())
 
 
+def one_ulp(torch, tree, seed: int):
+    """``tree`` with every float leaf moved by one unit in the last place
+    (2^-23 relative, a random sign per element drawn from ``seed``)."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def move(a):
+        sign = torch.randint(0, 2, a.shape, generator=gen).to(a.device) * 2 - 1
+        return a * (1 + sign * 2.0 ** -23)
+
+    return tree_map(move, tree)
+
+
 def bound_ms(name: str, shape) -> tuple[float, str]:
     """Least time for the work: bytes each input read once and each output
     written once, against float32 operations at the non-tensor peak."""
@@ -412,13 +519,15 @@ def _inputs(torch, shape, gen):
     return x, gamma, beta
 
 
-def check_and_time_forward(torch, fn, x, gamma, beta, reps, streamed=False):
-    """``bn_stats_act`` and ``bn_stats`` on ``x`` against the plain version,
-    two calls bitwise equal and both entries' statistics bitwise equal;
-    then times, with the launch plan."""
+def check_and_time_forward(torch, fn, x, gamma, beta, reps, streamed=False,
+                           slope=SLOPE):
+    """``bn_stats_act`` at ``slope`` and ``bn_stats`` on ``x`` against the
+    plain version, two calls bitwise equal and both entries' statistics
+    bitwise equal; then times, with the launch plan."""
+    eps = fn.EPS
     plan = fn.fwd_plan(x, streamed=streamed)
-    y, mean, var = fn.bn_stats_act(x, gamma, beta, plan=plan)
-    again = fn.bn_stats_act(x, gamma, beta, plan=plan)
+    y, mean, var = fn.bn_stats_act(x, gamma, beta, eps, slope, plan=plan)
+    again = fn.bn_stats_act(x, gamma, beta, eps, slope, plan=plan)
     stats = fn.bn_stats(x, plan=plan)
     torch.cuda.synchronize()
     shape = tuple(x.shape)
@@ -427,7 +536,7 @@ def check_and_time_forward(torch, fn, x, gamma, beta, reps, streamed=False):
     if not all(torch.equal(a, b) for a, b in zip((mean, var), stats)):
         fail(f"bn_stats and bn_stats_act statistics differ at {shape} ({plan})")
     p_mean, p_var = fn.plain_stats(x)
-    p_y = fn.plain_apply(x, p_mean, p_var, gamma, beta)
+    p_y = fn.plain_apply(x, p_mean, p_var, gamma, beta, eps, slope)
     out = {}
     for name, pairs in (
         ("bn_stats", [(mean, p_mean), (var, p_var)]),
@@ -435,14 +544,14 @@ def check_and_time_forward(torch, fn, x, gamma, beta, reps, streamed=False):
     ):
         errs = [err_ok(a, b) for a, b in pairs]
         if not all(ok for _, ok in errs):
-            fail(f"{name} at {shape} ({plan}) disagrees with its plain version: "
-                 f"max_abs_err {[e for e, _ in errs]}")
+            fail(f"{name} at {shape} slope {slope} ({plan}) disagrees with its "
+                 f"plain version: max_abs_err {[e for e, _ in errs]}")
         out[name] = {"max_abs_err": max(e for e, _ in errs), "plan": plan._asdict()}
     runs = {
         "bn_stats": (lambda: fn.bn_stats(x, plan=plan), lambda: fn.plain_stats(x)),
         "bn_stats_act": (
-            lambda: fn.bn_stats_act(x, gamma, beta, plan=plan),
-            lambda: fn.plain_apply(x, *fn.plain_stats(x), gamma, beta),
+            lambda: fn.bn_stats_act(x, gamma, beta, eps, slope, plan=plan),
+            lambda: fn.plain_apply(x, *fn.plain_stats(x), gamma, beta, eps, slope),
         ),
     }
     calls = max(2, reps // 5)
@@ -461,32 +570,35 @@ def check_and_time_forward(torch, fn, x, gamma, beta, reps, streamed=False):
     return out
 
 
-def check_and_time_backward(torch, fn, x, gamma, beta, g, reps, streamed=False):
-    """``bn_act_bwd`` from the statistics ``FusedBNLeakyReLU`` saved, called
-    directly and (on its own plan) through the Function's backward, against
-    ``plain_bwd`` on the same statistics, so that both take the same
-    LeakyReLU branch where pre lies within rounding of 0; two calls and the
-    two routes bitwise equal; then times, with the launch plan."""
-    shape = tuple(x.shape)
+def check_and_time_backward(torch, fn, x, gamma, beta, g, reps, streamed=False,
+                            slope=SLOPE):
+    """``bn_act_bwd`` at ``slope`` from the statistics ``FusedBNLeakyReLU``
+    saved, called directly and (on its own plan) through the Function's
+    backward, against ``plain_bwd`` on the same statistics, so that both
+    take the same LeakyReLU branch where pre lies within rounding of 0; two
+    calls and the two routes bitwise equal; then times, with the launch
+    plan."""
+    shape, eps = tuple(x.shape), fn.EPS
     plan = fn.bwd_plan(x, streamed=streamed)
     leaves = [t.clone().requires_grad_() for t in (x, gamma, beta)]
-    y, mean, var = fn.FusedBNLeakyReLU.apply(*leaves, fn.EPS, fn.SLOPE)
+    y, mean, var = fn.FusedBNLeakyReLU.apply(*leaves, eps, slope)
     through = torch.autograd.grad(y, leaves, g)
     mean, var = mean.detach(), var.detach()
-    got = fn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=plan)
-    again = fn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=plan)
+    got = fn.bn_act_bwd(x, g, mean, var, gamma, beta, eps, slope, plan=plan)
+    again = fn.bn_act_bwd(x, g, mean, var, gamma, beta, eps, slope, plan=plan)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"bn_act_bwd at {shape} ({plan}) differs between two calls")
     if not streamed and not all(torch.equal(a, b) for a, b in zip(got, through)):
         fail(f"bn_act_bwd at {shape} ({plan}) differs from the Function's backward")
-    want = fn.plain_bwd(x, g, mean, var, gamma, beta)
+    want = fn.plain_bwd(x, g, mean, var, gamma, beta, eps, slope)
     errs = [err_ok(a, b) for a, b in zip((*got, *through), (*want, *want))]
     if not all(ok for _, ok in errs):
-        fail(f"bn_act_bwd at {shape} ({plan}) disagrees with its plain version: "
-             f"max_abs_err {[e for e, _ in errs]}")
-    kernel = lambda: fn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=plan)  # noqa: E731
-    plain = lambda: fn.plain_bwd(x, g, mean, var, gamma, beta)  # noqa: E731
+        fail(f"bn_act_bwd at {shape} slope {slope} ({plan}) disagrees with its "
+             f"plain version: max_abs_err {[e for e, _ in errs]}")
+    kernel = lambda: fn.bn_act_bwd(x, g, mean, var, gamma, beta, eps, slope,  # noqa: E731
+                                   plan=plan)
+    plain = lambda: fn.plain_bwd(x, g, mean, var, gamma, beta, eps, slope)  # noqa: E731
     b, by = bound_ms("bn_act_bwd", shape)
     calls = max(2, reps // 5)
     return {
@@ -498,14 +610,19 @@ def check_and_time_backward(torch, fn, x, gamma, beta, g, reps, streamed=False):
     }
 
 
-def check_and_time_kernels(torch, fn, shape, gen, reps) -> dict:
-    """The forward and the backward (above), then the pair yardsticks."""
+def check_and_time_kernels(torch, fn, shape, gen, reps, slope=SLOPE) -> dict:
+    """The forward and the backward (above) at ``slope``, then, at the VGG's
+    slope, the pair yardsticks."""
     import torch.nn.functional as F
 
     x, gamma, beta = _inputs(torch, shape, gen)
     g = torch.randn(shape, device=x.device, generator=gen)
-    out = check_and_time_forward(torch, fn, x, gamma, beta, reps)
-    out["bn_act_bwd"] = check_and_time_backward(torch, fn, x, gamma, beta, g, reps)
+    out = check_and_time_forward(torch, fn, x, gamma, beta, reps, slope=slope)
+    out["bn_act_bwd"] = check_and_time_backward(
+        torch, fn, x, gamma, beta, g, reps, slope=slope
+    )
+    if slope != fn.SLOPE:
+        return out
 
     # Pair yardsticks: the whole forward and backward against PyTorch's
     # batch norm (training mode) + LeakyReLU and their autograd backward.
@@ -631,7 +748,13 @@ def make_episodes(rng, count, query=15):
     return eps
 
 
-def serve_phase(torch, fn):
+def serve_phase(torch, fn, config=FLAGSHIP, per_dispatch=SERVE_LAUNCHES,
+                chaotic=False):
+    """32 episodes of bucket 5x1x15 served by a ``use_pallas_fused_norm``
+    engine on ``config`` (meta-batch 4, one support set repeated), held to
+    ``per_dispatch`` launches, to itself run to run and to the plain-norm
+    engine; with ``chaotic``, whole episodes to the plain engine as the
+    SENSITIVITY_* note says."""
     from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
     from howtotrainyourmamlpytorch_tpu_torch.serve import (
         ServeConfig,
@@ -641,7 +764,7 @@ def serve_phase(torch, fn):
         load_maml_config,
     )
 
-    cfg = load_maml_config(FLAGSHIP, use_pallas_fused_norm=True)
+    cfg = load_maml_config(config, use_pallas_fused_norm=True)
     learner = MAMLFewShotLearner(cfg)
     istate = learner.init_inference_state(torch.Generator().manual_seed(104))
     plain_cfg = dataclasses.replace(
@@ -666,10 +789,10 @@ def serve_phase(torch, fn):
     wall = time.perf_counter() - t0
     launches = dict(fn.launch_counts)
     stats = engine.stats
-    want = {k: n * stats.batches_dispatched for k, n in SERVE_LAUNCHES.items()}
+    want = {k: n * stats.batches_dispatched for k, n in per_dispatch.items()}
     if launches != want:
         fail(f"serve launches {launches} over {stats.batches_dispatched} "
-             f"dispatches, expected {SERVE_LAUNCHES} per dispatch")
+             f"dispatches, expected {per_dispatch} per dispatch")
     if stats.cache_hits != 1:
         fail(f"expected one cache hit, got {stats.cache_hits}")
     got = np.stack(logits)
@@ -681,7 +804,7 @@ def serve_phase(torch, fn):
         fail("serving the same episodes again gave other logits")
 
     # Classify alone: both learners on the plain engine's adapted weights.
-    dev = torch.device("cuda")
+    dev = istate.theta["linear"]["weight"].device
     xs, ys, xq = (
         torch.from_numpy(np.stack([getattr(ep, k) for ep in eps[:4]])).to(dev)
         for k in ("x_support", "y_support", "x_query")
@@ -696,10 +819,22 @@ def serve_phase(torch, fn):
     # Whole episodes against the plain-norm engine.
     ref = np.stack(plain.dispatch([plain.prepare_episode(*e) for e in raw]))
     per_episode = np.abs(got - ref).reshape(len(eps), -1).max(axis=1)
-    if (np.median(per_episode) > EPISODE_MEDIAN_ATOL
-            or per_episode.max() > EPISODE_MAX_ATOL):
-        fail(f"fused episodes differ from the plain-norm engine: per-episode "
-             f"max abs {per_episode.tolist()}")
+    median_bar, max_bar, sensitivity = EPISODE_MEDIAN_ATOL, EPISODE_MAX_ATOL, []
+    if chaotic:
+        for seed in SENSITIVITY_SEEDS:
+            moved = ServingEngine(plain_learner, istate._replace(
+                theta=one_ulp(torch, istate.theta, seed)
+            ), ServeConfig(meta_batch_size=4))
+            gap = np.abs(np.stack(moved.dispatch(
+                [moved.prepare_episode(*e) for e in raw])) - ref)
+            sensitivity.append(gap.reshape(len(eps), -1).max(axis=1))
+        median_bar = max(median_bar, SENSITIVITY_FACTOR * max(
+            float(np.median(g)) for g in sensitivity))
+        max_bar = max(max_bar, SENSITIVITY_FACTOR * max(float(g.max()) for g in sensitivity))
+    if np.median(per_episode) > median_bar or per_episode.max() > max_bar:
+        fail(f"fused episodes differ from the plain-norm engine beyond median "
+             f"{median_bar} and max {max_bar}: per-episode max abs "
+             f"{per_episode.tolist()}")
     serve = {
         "episodes": len(eps),
         "dispatches": stats.batches_dispatched,
@@ -712,6 +847,10 @@ def serve_phase(torch, fn):
         "episode_median_abs_err_vs_plain": float(np.median(per_episode)),
         "episodes_over_1e-4": int((per_episode > 1e-4).sum()),
         "max_abs_logit": float(np.abs(ref).max()),
+        "episode_bars": {"median": median_bar, "max": max_bar},
+        "plain_one_ulp_episode_gap": [
+            {"median": float(np.median(g)), "max": float(g.max())} for g in sensitivity
+        ],
         "launches": launches,
         "launches_per_dispatch": {
             k: v / stats.batches_dispatched for k, v in launches.items()
@@ -739,27 +878,53 @@ def first_step(learner, state0, batch):
     return loss, grads
 
 
-def compare_with_plain(fused, plain, tag) -> dict:
+def _gaps(candidate, reference) -> tuple[float, float]:
+    """``(relative loss gap, worst leaf's gradient gap over its GRAD bar)``
+    of one ``first_step`` against another."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    (loss, grads), (ref_loss, ref_grads) = candidate, reference
+    worst = max(
+        float((a - b).abs().max()) / (GRAD_ATOL + GRAD_RTOL * float(b.abs().max()))
+        for a, b in zip(tree_leaves(grads), tree_leaves(ref_grads))
+    )
+    return abs(float(loss) - float(ref_loss)) / abs(float(ref_loss)), worst
+
+
+def compare_with_plain(fused, plain, tag, sensitivity=None) -> dict:
     """``first_step`` of the fused learner against the plain-norm learner's
     on the same state and batch, per leaf under the GRAD/ROUTING
-    tolerances."""
+    tolerances; or, given ``sensitivity`` (the plain learner's
+    ``first_step`` from one-ulp moves of the state), the loss gap and the
+    worst leaf's gap over its GRAD bar against SENSITIVITY_FACTOR times the
+    plain learner's own."""
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import (
         tree_leaves,
         tree_map_with_path,
     )
 
     (fused_loss, fused_grads), (plain_loss, plain_grads) = fused, plain
-    loss_gap = abs(float(fused_loss) - float(plain_loss)) / abs(float(plain_loss))
+    loss_gap, worst = _gaps(fused, plain)
+    if sensitivity is not None:
+        own = [_gaps(moved, plain) for moved in sensitivity]
+        loss_bar = max(TRAIN_LOSS_RTOL, SENSITIVITY_FACTOR * max(g for g, _ in own))
+        worst_bar = max(1.0, SENSITIVITY_FACTOR * max(w for _, w in own))
+        if loss_gap > loss_bar or worst > worst_bar:
+            fail(f"{tag}: first loss gap {loss_gap} (bar {loss_bar}) or worst "
+                 f"gradient leaf at {worst} of its bar (bar {worst_bar}) beyond "
+                 f"the plain learner's own one-ulp gaps {own}")
+        return {"first_loss_rel_gap_vs_plain": loss_gap,
+                "worst_grad_gap_over_tolerance": worst,
+                "plain_one_ulp_gaps": own, "bars": [loss_bar, worst_bar]}
     if loss_gap > TRAIN_LOSS_RTOL:
         fail(f"{tag}: first loss {float(fused_loss)} vs plain {float(plain_loss)}")
-    worst, routed = 0.0, []
+    routed = []
     names = tree_leaves(tree_map_with_path(
         lambda p, a: None if a is None else "/".join(p), plain_grads
     ))
     for name, a, b in zip(names, tree_leaves(fused_grads), tree_leaves(plain_grads)):
         scale = float(b.abs().max())
         gap = float((a - b).abs().max())
-        worst = max(worst, gap / (GRAD_ATOL + GRAD_RTOL * scale))
         if gap > GRAD_ATOL + GRAD_RTOL * scale:
             routed.append((name, gap, scale))
             print(f"[{tag}] routing gap: {name} max|fused-plain| {gap:.3e} "
@@ -774,9 +939,9 @@ def compare_with_plain(fused, plain, tag) -> dict:
     }
 
 
-def fused_and_plain(config, cls=None):
-    """Learners ``cls`` (MAML's by default) of ``config`` with the three
-    fused flags on and off."""
+def fused_and_plain(config, cls=None, **overrides):
+    """Learners ``cls`` (MAML's by default) of ``config`` (and the JSON
+    keys in ``overrides``) with the three fused flags on and off."""
     from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
     from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
         load_maml_config,
@@ -784,7 +949,7 @@ def fused_and_plain(config, cls=None):
 
     cls = cls or MAMLFewShotLearner
     return [
-        cls(load_maml_config(config, **dict.fromkeys(
+        cls(load_maml_config(config, **overrides, **dict.fromkeys(
             ("use_pallas_fused_norm", "fused_norm_train", "fused_norm_pool"), on
         )))
         for on in (True, False)
@@ -842,7 +1007,7 @@ def north_star_batch(rng):
     return xs, xt, ys, yt
 
 
-def remat_phase(torch) -> dict:
+def remat_phase(torch, cases=None, chaotic=False) -> dict:
     """``remat_inner_steps`` on, as the CLI trains (the configs leave it at
     its default), at flagship width on the train phase's batch and at
     north-star width: the fused learner's first loss and meta-gradient
@@ -852,7 +1017,7 @@ def remat_phase(torch) -> dict:
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
     out = {}
-    for tag, config, batch in (
+    for tag, config, batch in cases or (
         ("remat_flagship", FLAGSHIP, train_batch(np.random.RandomState(2))),
         ("remat_north_star", NORTH_STAR, north_star_batch(np.random.RandomState(3))),
     ):
@@ -869,8 +1034,13 @@ def remat_phase(torch) -> dict:
         if not same:
             fail(f"{tag}: remat changed the fused learner's first loss or "
                  f"meta-gradient ({float(fused[0])} against {float(kept[0])})")
+        sensitivity = [
+            first_step(plain, state0._replace(theta=one_ulp(torch, state0.theta, seed)),
+                       batch)
+            for seed in (SENSITIVITY_SEEDS if chaotic else ())
+        ]
         out[tag] = {"bitwise_equal_without_remat": same, **compare_with_plain(
-            fused, first_step(plain, state0, batch), tag
+            fused, first_step(plain, state0, batch), tag, sensitivity or None
         )}
         del learner, plain, no_remat, state0, fused, kept
         torch.cuda.empty_cache()
@@ -901,11 +1071,12 @@ def eager_steps(learner, state, batches, epoch):
                    for k in ("loss", "accuracy", "nonfinite")}
 
 
-def graph_phase(torch, fn) -> dict:
-    """The captured train step against the eager one at both widths, remat
-    on: bit for bit across both branches and an epoch change, a held state
-    unchanged, every captured launch on the capture's stream; then capture,
-    replay and eager times."""
+def graph_phase(torch, fn, cases=None) -> dict:
+    """The captured train step against the eager one at both widths (or
+    ``cases``: (tag, config, batch maker, MSL and final-only launches per
+    iteration)), remat on: bit for bit across both branches and an epoch
+    change, a held state unchanged, every captured launch on the capture's
+    stream; then capture, replay and eager times."""
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
     def same(a, b):
@@ -923,7 +1094,7 @@ def graph_phase(torch, fn) -> dict:
     out = {}
     fn._stream = recording_stream
     try:
-        for tag, config, make, msl, final in (
+        for tag, config, make, msl, final in cases or (
             ("flagship", FLAGSHIP, train_batch, CLI_FLAGSHIP_TRAIN,
              CLI_FLAGSHIP_TRAIN_FINAL),
             ("north_star", NORTH_STAR, north_star_batch, CLI_NORTH_TRAIN,
@@ -1569,26 +1740,125 @@ def cli_zoo_phase(torch, fn, kind, dataset_dir):
     return out
 
 
+def resnet_graph_phase(torch, fn) -> dict:
+    """The ResNet-12 learner from its JSON with the three fused flags and
+    remat on, as the CLI trains: the graph phase's checks (K=5 replays
+    bitwise equal to 5 eager steps at epochs 0, 1 and 2, past an MSL horizon
+    of 2; the captures' launches and every graph's kernel nodes held to
+    ``CLI_RESNET12_*``) and the remat phase's (the first loss and
+    meta-gradient bitwise equal without remat, and held to the plain-norm
+    learner's)."""
+    out = graph_phase(torch, fn, [("resnet12", RESNET12, train_batch,
+                                   CLI_RESNET12_TRAIN, CLI_RESNET12_TRAIN_FINAL)])
+    out.update(remat_phase(torch, [
+        ("remat_resnet12", RESNET12, train_batch(np.random.RandomState(2))),
+    ], chaotic=True))
+    return out
+
+
+def cli_resnet12_phase(torch, fn, dataset_dir):
+    """``train_maml_system.main`` on the ResNet-12 JSON with the three fused
+    flags over the Omniglot tree in ``dataset_dir``: 2 epochs of 10
+    iterations (synchronized after each learner call), 40 evaluation tasks
+    and the ensemble test, then ``latest`` to a 3rd epoch at
+    ``--iters_per_dispatch 5``, past an MSL horizon of 2 (the final-only
+    graph). Launches per iteration held to ``CLI_RESNET12_*``."""
+    per_epoch = 10
+    out = cli_phase(
+        torch, fn, "cli_resnet12", RESNET12, write_omniglot_tree,
+        {"dataset_name": "omniglot_synth", "total_epochs": 2,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 40,
+         "multi_step_loss_num_epochs": 2},
+        [({}, [], True, 1, -1),
+         ({"total_epochs": 3}, ["--continue_from_epoch", "latest"], False,
+          GRAPH_ITERS, -1)],
+        CLI_RESNET12_TRAIN, CLI_RESNET12_TRAIN_FINAL, CLI_RESNET12_EVAL,
+        dataset_dir=dataset_dir,
+    )
+    if out["epochs"] != 3:
+        fail(f"cli_resnet12: {out['epochs']} CSV rows, expected 3")
+    if [c["first_iteration"] for c in out["calls"]] != [0, 2 * per_epoch]:
+        fail(f"cli_resnet12: the calls started at {out['calls']}")
+    if out["train_iterations"] != 3 * per_epoch:
+        fail(f"cli_resnet12: {out['train_iterations']} train iterations")
+    return out
+
+
+def backbone_options_phase(torch, fn) -> dict:
+    """The VGG's other options on the flagship JSON, the three fused flags
+    on, remat off: ``max_pooling False`` (stride-2 convs, the fused norm
+    unpooled at 14, 7, 4 and 2 pixels, a global average pool),
+    ``norm_layer layer_norm`` and ``block_order norm_conv`` (neither has a
+    fused site). For each, the first second-order step's loss and
+    meta-gradient against the plain-norm learner's (held to the train
+    phase's tolerances where the kernels run, bitwise where none does) and
+    one ``run_validation_iter`` with finite logits; the launches of both
+    held to ``BACKBONE_OPTION_LAUNCHES``."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    out = {}
+    batch = train_batch(np.random.RandomState(2))
+    for tag, overrides in BACKBONE_OPTIONS:
+        learner, plain = (
+            type(a)(dataclasses.replace(a.cfg, remat_inner_steps=False))
+            for a in fused_and_plain(FLAGSHIP, **overrides)
+        )
+        state0 = learner.init_state(torch.Generator().manual_seed(104))
+        fn.reset_launch_counts()
+        fused = first_step(learner, state0, batch)
+        _, metrics, logits = learner.run_validation_iter(
+            state0, train_batch(np.random.RandomState(3))
+        )
+        torch.cuda.synchronize()
+        launches = dict(fn.launch_counts)
+        if launches != BACKBONE_OPTION_LAUNCHES[tag]:
+            fail(f"backbone_options {tag}: launches {launches}, expected "
+                 f"{BACKBONE_OPTION_LAUNCHES[tag]}")
+        if logits.shape != (8, 5, 5) or not torch.isfinite(logits).all():
+            fail(f"backbone_options {tag}: validation logits {tuple(logits.shape)}")
+        reference = first_step(plain, state0, batch)
+        res = {"launches": launches, "validation_loss": float(metrics["loss"]),
+               "first_loss": float(fused[0])}
+        if any(launches.values()):
+            res.update(compare_with_plain(fused, reference, f"backbone_options {tag}"))
+        elif not (torch.equal(fused[0], reference[0]) and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(fused[1]),
+                                                  tree_leaves(reference[1])))):
+            fail(f"backbone_options {tag}: no kernel runs, yet the first step "
+                 "differs from the plain-norm learner's")
+        out[tag] = res
+        del learner, plain, state0, fused, reference
+    torch.cuda.empty_cache()
+    return out
+
+
 def timing_reps(shape) -> int:
     """Fewer timed calls for the large north-star shapes."""
     return 20 if np.prod(shape) >= 4_000_000 else 100
 
 
 class ShapeLog:
-    """Records the input shape of every kernel wrapper call while active.
-    The wrappers in ``fn`` are swapped for recording ones; the Functions
-    look them up in the module when called, so the swap sees every
-    launch."""
+    """Records the input shape and LeakyReLU slope (``None`` for
+    ``bn_stats``, which takes none) of every kernel wrapper call while
+    active. The wrappers in ``fn`` are swapped for recording ones; the
+    Functions look them up in the module when called, so the swap sees
+    every launch."""
 
     def __init__(self, fn):
         self.fn = fn
         self.shapes = {name: set() for name in fn.KERNELS}
 
     def __enter__(self):
+        import inspect
+
         self.saved = {name: getattr(self.fn, name) for name in self.fn.KERNELS}
         for name, orig in self.saved.items():
-            def record(x, *args, _name=name, _orig=orig, **kwargs):
-                self.shapes[_name].add(tuple(x.shape))
+            signature = inspect.signature(orig)
+
+            def record(x, *args, _name=name, _orig=orig, _sig=signature, **kwargs):
+                bound = _sig.bind(x, *args, **kwargs)
+                bound.apply_defaults()
+                self.shapes[_name].add((tuple(x.shape), bound.arguments.get("slope")))
                 return _orig(x, *args, **kwargs)
             setattr(self.fn, name, record)
         return self
@@ -1630,6 +1900,20 @@ class phase_timer:
 
     def __exit__(self, *exc):
         PHASE_SECONDS[self.name] = time.perf_counter() - self.t0
+
+
+def print_graph(phase, tag, g) -> None:
+    """A graph phase's line: capture, replay and eager ms, then everything
+    as JSON."""
+    print(f"[{phase}] {tag}: run_train_iters(K={GRAPH_ITERS}) bitwise equal to "
+          f"{GRAPH_ITERS} eager steps at epochs 0, 1 (lr and importance moved) "
+          f"and 2 (final-only), held state unchanged | capture ms "
+          + " ".join(f"{k} {v:.1f}" for k, v in g["capture_ms"].items())
+          + " | replay ms per iteration "
+          + " ".join(f"{v:.2f}" for v in g["replay_ms_per_iter"])
+          + " | eager ms per iteration "
+          + " ".join(f"{v:.2f}" for v in g["eager_ms_per_iter"])
+          + f" | peak_mem_gb {g['peak_mem_gb']:.3f} | {json.dumps(g)}", flush=True)
 
 
 def print_cli(name, r) -> None:
@@ -1680,13 +1964,14 @@ def main() -> int:
     t_kernels = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_shape = {}
-    for shape in KERNEL_SHAPES:
-        res = check_and_time_kernels(torch, fn, shape, gen, timing_reps(shape))
-        per_shape[shape] = res
-        pairs = " ".join(f"{k}={v:.4f}" for k, v in res["pairs"].items())
-        print(f"[kernels] {shape} ms graph/plain graph/bound/eager/plain eager "
-              f"{kernel_cells(res)} | var_mean graph="
-              f"{res['bn_stats']['library_ms']:.4f} | eager pairs {pairs}", flush=True)
+    for shape, slope in KERNEL_CASES:
+        res = check_and_time_kernels(torch, fn, shape, gen, timing_reps(shape), slope)
+        per_shape[shape, slope] = res
+        pairs = " ".join(f"{k}={v:.4f}" for k, v in res.get("pairs", {}).items())
+        print(f"[kernels] {shape} slope {slope} ms graph/plain graph/bound/eager/"
+              f"plain eager {kernel_cells(res)} | var_mean graph="
+              f"{res['bn_stats']['library_ms']:.4f}"
+              + (f" | eager pairs {pairs}" if pairs else ""), flush=True)
     x, gamma, beta = _inputs(torch, STREAMED_SHAPE, gen)
     streamed = check_and_time_forward(torch, fn, x, gamma, beta, 20, streamed=True)
     g = torch.randn(STREAMED_SHAPE, device=x.device, generator=gen)
@@ -1716,10 +2001,14 @@ def main() -> int:
 
     # 3-8. the main paths, every kernel call's input shape recorded.
     with ShapeLog(fn) as shapes:
-        # 3. serve
+        # 3. serve, MAML++ on the VGG and on ResNet-12
         with phase_timer("serve"):
             serve = serve_phase(torch, fn)
         print(f"[serve] {json.dumps(serve)}", flush=True)
+        with phase_timer("resnet_serve"):
+            resnet_serve = serve_phase(torch, fn, RESNET12, RESNET_SERVE_LAUNCHES,
+                                       chaotic=True)
+        print(f"[resnet_serve] {json.dumps(resnet_serve)}", flush=True)
 
         # 4. train
         with phase_timer("train"):
@@ -1729,19 +2018,20 @@ def main() -> int:
         with phase_timer("graph"):
             graph = graph_phase(torch, fn)
         for tag, g in graph.items():
-            print(f"[graph] {tag}: run_train_iters(K={GRAPH_ITERS}) bitwise equal to "
-                  f"{GRAPH_ITERS} eager steps at epochs 0, 1 (lr and importance moved) "
-                  f"and 2 (final-only), held state unchanged | capture ms "
-                  + " ".join(f"{k} {v:.1f}" for k, v in g["capture_ms"].items())
-                  + " | replay ms per iteration "
-                  + " ".join(f"{v:.2f}" for v in g["replay_ms_per_iter"])
-                  + " | eager ms per iteration "
-                  + " ".join(f"{v:.2f}" for v in g["eager_ms_per_iter"])
-                  + f" | {json.dumps(g)}", flush=True)
+            print_graph("graph", tag, g)
         with phase_timer("remat"):
             remat = remat_phase(torch)
         print(f"[remat] fused against plain-norm learners, remat_inner_steps on "
               f"{json.dumps(remat)}", flush=True)
+        with phase_timer("resnet_graph"):
+            resnet_graph = resnet_graph_phase(torch, fn)
+        print_graph("resnet_graph", "resnet12", resnet_graph["resnet12"])
+        print(f"[resnet_graph] fused against the plain-norm learner, remat on, "
+              f"and remat on against off: {json.dumps(resnet_graph['remat_resnet12'])}",
+              flush=True)
+        with phase_timer("backbone_options"):
+            options = backbone_options_phase(torch, fn)
+        print(f"[backbone_options] {json.dumps(options)}", flush=True)
 
         # 5-6. the training command line
         cli = {}
@@ -1767,22 +2057,27 @@ def main() -> int:
                 with phase_timer(name):
                     cli[name] = cli_zoo_phase(torch, fn, kind, tree)
                 print_cli(name, cli[name])
+            # 9. MAML++ on ResNet-12 through the same entry point.
+            with phase_timer("cli_resnet12"):
+                cli["cli_resnet12"] = cli_resnet12_phase(torch, fn, tree)
+            print_cli("cli_resnet12", cli["cli_resnet12"])
 
     print("[replay] fused-norm kernel nodes of each captured graph, each equal "
           f"to the launches its capture counted: {json.dumps(REPLAY_NODES)}",
           flush=True)
 
-    # Every shape a kernel was called at on the main paths was held to the
-    # plain version above.
-    checked = {name: set(per_shape) for name in FORWARD + ("bn_act_bwd",)}
-    checked["bn_act_pool_apply"] = set(pool)
+    # Every (shape, slope) a kernel was called at on the main paths was held
+    # to the plain version above.
+    checked = {name: set(per_shape) for name in ("bn_stats_act", "bn_act_bwd")}
+    checked["bn_stats"] = {(shape, None) for shape, _ in per_shape}
+    checked["bn_act_pool_apply"] = {(shape, SLOPE) for shape in pool}
     unchecked = {k: sorted(v - checked[k]) for k, v in shapes.shapes.items()
                  if v - checked[k]}
     if unchecked:
-        fail(f"kernel shapes of the main paths that no check compared with the "
-             f"plain version: {unchecked}")
-    print("[coverage] shapes each kernel ran at on the main paths, each checked "
-          f"above: {json.dumps({k: sorted(v) for k, v in shapes.shapes.items()})}",
+        fail(f"kernel (shape, slope) pairs of the main paths that no check "
+             f"compared with the plain version: {unchecked}")
+    print("[coverage] (shape, slope) each kernel ran at on the main paths, each "
+          f"checked above: {json.dumps({k: sorted(v) for k, v in shapes.shapes.items()})}",
           flush=True)
 
     # 9. result: bn_stats_act and bn_act_bwd at the serve path's support
@@ -1797,14 +2092,15 @@ def main() -> int:
         if name == "bn_act_pool_apply":
             r = pool[POOL_SHAPES[0]]
         elif name == "bn_stats":
-            r = per_shape[TRAIN_SHAPES[0]][name]
+            r = per_shape[TRAIN_SHAPES[0], SLOPE][name]
         else:
-            r = per_shape[FLAGSHIP_SHAPES[0]][name]
+            r = per_shape[FLAGSHIP_SHAPES[0], SLOPE][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_norm.cu",
             "replaces": REPLACES[name],
-            "launches": serve["launches"][name] + train["launches"][name]
+            "launches": serve["launches"][name] + resnet_serve["launches"][name]
+            + train["launches"][name]
             + sum(r["launches"][name] for r in cli.values()),
             "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -51,15 +51,24 @@ def tree_to_numpy(tree: Tree) -> Tree:
     return tree.detach().cpu().numpy()
 
 
+def bn_state_from_numpy(tree, device=None):
+    """A BN-state tree of numpy arrays -> the same of ``BatchNormState``s
+    on ``device``: dicts at any depth (the VGG's ``conv{i}``, ResNet-12's
+    ``res{i}/conv{j}|shortcut``) down to ``(running_mean, running_var)``
+    pairs."""
+    if isinstance(tree, dict):
+        return {k: bn_state_from_numpy(v, device) for k, v in tree.items()}
+    return BatchNormState(*tree_from_numpy(tuple(tree), device))
+
+
 def inference_state_from_numpy(tree, device=None) -> MAMLInferenceState:
     """``(theta, lslr, bn_state)`` of numpy arrays -> ``MAMLInferenceState``
-    on ``device``; each ``bn_state`` entry is ``(running_mean,
-    running_var)``."""
-    theta, lslr, bn_state = (tree_from_numpy(t, device) for t in tuple(tree))
+    on ``device``; ``bn_state`` as :func:`bn_state_from_numpy` takes it."""
+    theta, lslr, bn_state = tuple(tree)
     return MAMLInferenceState(
-        theta=theta,
-        lslr=lslr,
-        bn_state={k: BatchNormState(*v) for k, v in bn_state.items()},
+        theta=tree_from_numpy(theta, device),
+        lslr=tree_from_numpy(lslr, device),
+        bn_state=bn_state_from_numpy(bn_state, device),
     )
 
 
@@ -115,8 +124,7 @@ def shared_state_from_numpy(tree, state_type, learning_rate: float, device=None)
     device = resolve_device(device)
     return state_type(
         theta=tree_from_numpy(theta, device),
-        bn_state={k: BatchNormState(*tree_from_numpy(tuple(v), device))
-                  for k, v in bn_state.items()},
+        bn_state=bn_state_from_numpy(bn_state, device),
         opt_state=_adam_from_numpy(moments, learning_rate, device),
         iteration=tree_from_numpy(np.asarray(iteration, np.int32), device),
     )

@@ -7,6 +7,7 @@ from .gradient_descent import GDInferenceState, GDState, GradientDescentLearner
 from .maml import MAMLConfig, MAMLFewShotLearner, MAMLInferenceState, TrainState
 from .matching_nets import MatchingNetsLearner, MatchingNetsState
 from .protonets import ProtoNetsLearner, ProtoNetsState
+from .resnet import ResNet12Backbone
 
 __all__ = [
     "ANILLearner",
@@ -22,6 +23,7 @@ __all__ = [
     "MatchingNetsState",
     "ProtoNetsLearner",
     "ProtoNetsState",
+    "ResNet12Backbone",
     "TrainState",
     "VGGBackbone",
     "build_backbone",

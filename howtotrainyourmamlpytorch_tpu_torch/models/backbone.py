@@ -1,9 +1,13 @@
 """The 4-stage VGG conv backbone with an explicit task axis
-(``howtotrainyourmamlpytorch_tpu/models/backbone.py``).
+(``howtotrainyourmamlpytorch_tpu/models/backbone.py``), and the pieces the
+ResNet-12 backbone (``models/resnet.py``) shares with it.
 
 Each stage is 3x3 conv -> per-step batch norm on batch statistics ->
-LeakyReLU(0.01) -> 2x2 max pool; a linear head follows. The parameter tree
-is the JAX package's::
+LeakyReLU(0.01) -> 2x2 max pool; a linear head follows. The options of
+the JAX backbone are all taken but lane padding: ``layer_norm`` over each
+task's ``(C, H, W)``, ``norm_conv`` (norm of the stage input, then conv
+and LeakyReLU, never fused) and, without max pooling, stride-2 convs and a
+global average pool. The parameter tree is the JAX package's::
 
     params = {
       "conv0": {"conv": {"weight": (F, C, k, k), "bias": (F,)},
@@ -11,6 +15,9 @@ is the JAX package's::
       ...,
       "linear": {"weight": (num_classes, feat), "bias": (num_classes,)},
     }
+
+with ``layer_norm``, ``"norm": {"weight": (C, h, w), "bias": (C, h, w)}``
+and no running state.
 
 Task axis. JAX serves many tasks by ``jax.vmap`` of a one-task function.
 Here ``apply`` takes the task axis itself: images are ``(T, N, C, H, W)``
@@ -41,10 +48,11 @@ from ..ops.norm import (
     BatchNormState,
     batch_norm,
     init_batch_norm_state,
+    layer_norm,
     step_row,
     update_running,
 )
-from ..ops.pool import max_pool2d
+from ..ops.pool import avg_pool2d, max_pool2d
 from ..utils.trees import tree_map_with_path
 
 Params = dict[str, Any]
@@ -54,10 +62,8 @@ SLOPE = 0.01
 
 @dataclasses.dataclass(frozen=True)
 class BackboneConfig:
-    """Architecture hyperparameters, field for field the JAX package's. The
-    port's VGG takes the values the flagship runs: ``vgg``, ``batch_norm``,
-    ``conv_norm``, max pooling, no lane padding; the rest raise
-    ``NotImplementedError`` naming their slice."""
+    """Architecture hyperparameters, field for field the JAX package's.
+    Lane padding raises ``NotImplementedError`` naming its ROADMAP item."""
 
     architecture: str = "vgg"
     num_stages: int = 4
@@ -102,8 +108,18 @@ class BackboneConfig:
 
     @property
     def feature_dim(self) -> int:
-        h, w = self.stage_spatial_shapes()[-1]
-        return self.num_filters * h * w
+        """Features entering the head: ResNet-12's last stage width after
+        its global average pool; the VGG's flattened last stage, or its
+        ``num_filters`` after the global average pool without max
+        pooling."""
+        if self.architecture == "resnet12":
+            if self.resnet_widths is not None:
+                return self.resnet_widths[-1]
+            return 8 * self.num_filters
+        if self.max_pooling:
+            h, w = self.stage_spatial_shapes()[-1]
+            return self.num_filters * h * w
+        return self.num_filters
 
     @property
     def per_step_affine(self) -> bool:
@@ -116,11 +132,17 @@ class BackboneConfig:
 
 
 _UNPORTED = (
-    ("norm_layer", "batch_norm", "layer_norm is ROADMAP item A1"),
-    ("block_order", "conv_norm", "norm_conv is ROADMAP item A3"),
-    ("max_pooling", True, "stride-2 convs with average pooling are ROADMAP item A3"),
     ("lane_pad_channels", False, "lane padding is ROADMAP item A8"),
 )
+
+
+def refuse_unported_options(cfg: BackboneConfig) -> None:
+    """Raises ``NotImplementedError`` for a backbone option not ported."""
+    for field, supported, why in _UNPORTED:
+        if getattr(cfg, field) != supported:
+            raise NotImplementedError(
+                f"{field}={getattr(cfg, field)!r} is not ported yet: {why}"
+            )
 
 
 def leaky_relu(x: torch.Tensor, slope: float = SLOPE) -> torch.Tensor:
@@ -147,26 +169,56 @@ class VGGBackbone:
     """``init`` makes the trees, ``apply`` runs them."""
 
     def __init__(self, cfg: BackboneConfig):
-        for field, supported, why in _UNPORTED:
-            if getattr(cfg, field) != supported:
-                raise NotImplementedError(
-                    f"{field}={getattr(cfg, field)!r} is not ported yet: {why}"
-                )
+        refuse_unported_options(cfg)
+        if cfg.block_order not in ("conv_norm", "norm_conv"):
+            raise ValueError(f"unknown block_order {cfg.block_order!r}")
+        if cfg.norm_layer not in ("batch_norm", "layer_norm"):
+            raise ValueError(f"unknown norm_layer {cfg.norm_layer!r}")
         self.cfg = cfg
+
+    def _norm_spatial_shape(self, stage: int) -> tuple[int, int]:
+        """(H, W) the norm of ``stage`` sees: the conv output for
+        ``conv_norm``, the stage input for ``norm_conv``."""
+        cfg = self.cfg
+        h, w = cfg.image_height, cfg.image_width
+        if cfg.block_order == "norm_conv":
+            return (h, w) if stage == 0 else cfg.stage_spatial_shapes()[stage - 1]
+        if stage:
+            h, w = cfg.stage_spatial_shapes()[stage - 1]
+        conv = lambda a: (a + 2 * cfg.conv_padding - cfg.kernel_size) // cfg.conv_stride + 1  # noqa: E731
+        return conv(h), conv(w)
 
     def init(
         self, generator: torch.Generator, dtype=torch.float32, device=None
     ) -> tuple[Params, Params]:
         """``(params, bn_state)``: Xavier-uniform weights, zero biases,
-        gamma ones, beta zeros, drawn from ``generator`` in stage order."""
+        gamma (or the layer norm's weight) ones, beta (bias) zeros, drawn
+        from ``generator`` in stage order. ``norm_conv`` normalizes the
+        stage input, so its norm follows the input channels."""
         cfg = self.cfg
         params: Params = {}
         bn_state: Params = {}
         in_ch = cfg.image_channels
         k = cfg.kernel_size
         f = cfg.num_filters
-        affine = (cfg.num_steps, f) if cfg.per_step_affine else (f,)
         for i in range(cfg.num_stages):
+            norm_ch = in_ch if cfg.block_order == "norm_conv" else f
+            if cfg.norm_layer == "layer_norm":
+                shape = (norm_ch, *self._norm_spatial_shape(i))
+                norm = {
+                    "weight": torch.ones(shape, dtype=dtype, device=device),
+                    "bias": torch.zeros(shape, dtype=dtype, device=device),
+                }
+            else:
+                affine = (cfg.num_steps, norm_ch) if cfg.per_step_affine else (norm_ch,)
+                norm = {
+                    "gamma": torch.ones(affine, dtype=dtype, device=device),
+                    "beta": torch.zeros(affine, dtype=dtype, device=device),
+                }
+                bn_state[f"conv{i}"] = init_batch_norm_state(
+                    norm_ch, cfg.num_steps if cfg.per_step_bn_statistics else None,
+                    dtype, device,
+                )
             params[f"conv{i}"] = {
                 "conv": {
                     "weight": xavier_uniform(
@@ -174,15 +226,8 @@ class VGGBackbone:
                     ),
                     "bias": torch.zeros(f, dtype=dtype, device=device),
                 },
-                "norm": {
-                    "gamma": torch.ones(affine, dtype=dtype, device=device),
-                    "beta": torch.zeros(affine, dtype=dtype, device=device),
-                },
+                "norm": norm,
             }
-            bn_state[f"conv{i}"] = init_batch_norm_state(
-                f, cfg.num_steps if cfg.per_step_bn_statistics else None,
-                dtype, device,
-            )
             in_ch = f
         params["linear"] = {
             "weight": xavier_uniform(
@@ -211,20 +256,23 @@ class VGGBackbone:
           step: inner-loop step; selects per-step BN rows, clamped.
           fused: ``None`` (config default), ``"off"``/``False``,
             ``"vjp"``/``True`` (the one-level kernel pair) or ``"jvp"`` (the
-            any-order op, for the train path).
+            any-order op, for the train path). ``norm_conv`` has no
+            norm-activation pair and runs ``"off"``.
 
         Returns:
           ``(logits (T, N, num_classes), new_bn_state or None)``.
         """
         cfg = self.cfg
         variant = resolve_fused_variant(cfg, fused)
+        if cfg.block_order != "conv_norm":
+            variant = "off"
         tasks, n = x.shape[:2]
         out = x.transpose(0, 1).reshape(n, tasks * x.shape[2], *x.shape[3:])
         new_bn_state: Params | None = None if bn_state is None else {}
-        for i in range(cfg.num_stages):
-            stage = params[f"conv{i}"]
+
+        def conv(out, stage):
             weight = stage["conv"]["weight"]
-            out = conv2d(
+            return conv2d(
                 out,
                 weight.reshape(-1, *weight.shape[2:]),
                 stage["conv"]["bias"].reshape(-1),
@@ -232,37 +280,41 @@ class VGGBackbone:
                 padding=cfg.conv_padding,
                 groups=tasks,
             )
-            gamma = _fold(stage["norm"]["gamma"])
-            beta = _fold(stage["norm"]["beta"])
-            state = None
-            if bn_state is not None:
-                state = BatchNormState(*(_fold(a) for a in bn_state[f"conv{i}"]))
-            # Fuse the 2x2 max pool into the norm where it is exact: floor-mode
-            # pooling drops an odd trailing row or column that the
-            # statistics still cover (JAX backbone.py:369-386). The conv's
-            # output is the pre-pool shape.
-            pool = (
-                cfg.fused_norm_pool and variant != "off"
-                and out.shape[2] % 2 == 0 and out.shape[3] % 2 == 0
+
+        def norm(out, stage, i, activate, pool=False):
+            if cfg.norm_layer == "layer_norm":
+                out = task_layer_norm(out, stage["norm"], tasks, cfg.bn_eps)
+                return leaky_relu(out) if activate else out
+            state = None if bn_state is None else bn_state[f"conv{i}"]
+            out, state = norm_act(
+                out, stage["norm"], state, step, cfg, tasks,
+                variant=variant, activate=activate, pool=pool,
             )
-            if variant != "off":
-                out, state = fused_norm_act(
-                    out, gamma, beta, state, step,
-                    eps=cfg.bn_eps, momentum=cfg.bn_momentum,
-                    variant=variant, pool=pool,
-                )
-            else:
-                out, state = batch_norm(
-                    out, gamma, beta, state, step,
-                    momentum=cfg.bn_momentum, eps=cfg.bn_eps,
-                )
-                out = leaky_relu(out)
             if new_bn_state is not None:
-                new_bn_state[f"conv{i}"] = BatchNormState(
-                    *(_unfold(a, tasks) for a in state)
+                new_bn_state[f"conv{i}"] = state
+            return out
+
+        for i in range(cfg.num_stages):
+            stage = params[f"conv{i}"]
+            pool = False
+            if cfg.block_order == "norm_conv":
+                out = leaky_relu(conv(norm(out, stage, i, activate=False), stage))
+            else:
+                out = conv(out, stage)
+                # Fuse the 2x2 max pool into the norm where it is exact:
+                # floor-mode pooling drops an odd trailing row or column
+                # that the statistics still cover (JAX backbone.py:369-386).
+                # The conv's output is the pre-pool shape.
+                pool = (
+                    cfg.fused_norm_pool and cfg.max_pooling and variant != "off"
+                    and cfg.norm_layer == "batch_norm"
+                    and out.shape[2] % 2 == 0 and out.shape[3] % 2 == 0
                 )
-            if not pool:
+                out = norm(out, stage, i, activate=True, pool=pool)
+            if cfg.max_pooling and not pool:
                 out = max_pool2d(out, 2, 2)
+        if not cfg.max_pooling:
+            out = avg_pool2d(out, out.shape[2])
         features = out.reshape(n, tasks, -1).transpose(0, 1)
         logits = linear(
             features, params["linear"]["weight"], params["linear"]["bias"]
@@ -272,10 +324,57 @@ class VGGBackbone:
     def inner_loop_mask(self, params: Params) -> Params:
         """True on the leaves the inner loop adapts: everything but the
         norm parameters, unless ``enable_inner_loop_optimizable_bn_params``."""
-        enable_bn = self.cfg.enable_inner_loop_optimizable_bn_params
-        return tree_map_with_path(
-            lambda path, _: enable_bn or "norm" not in path, params
+        return norm_excluded_mask(self.cfg, params)
+
+
+def norm_excluded_mask(cfg: BackboneConfig, params: Params) -> Params:
+    """The inner-loop mask of both backbones (the reference's
+    ``get_inner_loop_parameter_dict``): every leaf but those under a
+    ``norm`` key, unless ``enable_inner_loop_optimizable_bn_params``."""
+    enable_bn = cfg.enable_inner_loop_optimizable_bn_params
+    return tree_map_with_path(
+        lambda path, _: enable_bn or "norm" not in path, params
+    )
+
+
+def task_layer_norm(x, norm: Params, tasks: int, eps: float) -> torch.Tensor:
+    """Layer norm of the folded ``(N, T·C, H, W)`` activation over each
+    task's own ``(C, H, W)``; ``norm``'s ``weight``/``bias`` are ``(T, C, H,
+    W)``."""
+    n, _, h, w = x.shape
+    out = layer_norm(
+        x.reshape(n, tasks, -1, h, w), norm["weight"], norm["bias"],
+        eps=eps, normalized_ndim=3,
+    )
+    return out.reshape(x.shape)
+
+
+def norm_act(x, norm: Params, state: BatchNormState | None, step, cfg, tasks,
+             *, variant: str, activate: bool, slope: float = SLOPE,
+             pool: bool = False):
+    """Per-task batch norm of the folded activation, LeakyReLU(``slope``)
+    when ``activate`` and the pooled epilogue when ``pool``: the fused op
+    for an activated site when ``variant`` is not ``"off"``, the plain
+    ``batch_norm`` otherwise. ``norm``'s ``gamma``/``beta`` and ``state``'s
+    arrays carry the leading ``T`` axis. Returns ``(out, new state with
+    the T axis, or None)``."""
+    gamma, beta = _fold(norm["gamma"]), _fold(norm["beta"])
+    if state is not None:
+        state = BatchNormState(*(_fold(a) for a in state))
+    if activate and variant != "off":
+        x, state = fused_norm_act(
+            x, gamma, beta, state, step, eps=cfg.bn_eps,
+            momentum=cfg.bn_momentum, slope=slope, variant=variant, pool=pool,
         )
+    else:
+        x, state = batch_norm(
+            x, gamma, beta, state, step, momentum=cfg.bn_momentum, eps=cfg.bn_eps,
+        )
+        if activate:
+            x = leaky_relu(x, slope)
+    if state is None:
+        return x, None
+    return x, BatchNormState(*(_unfold(a, tasks) for a in state))
 
 
 def resolve_fused_variant(cfg: BackboneConfig, fused) -> str:
@@ -323,9 +422,13 @@ def fused_norm_act(x, gamma, beta, state, step, *, eps, momentum, slope=SLOPE,
     )
 
 
-def build_backbone(cfg: BackboneConfig) -> VGGBackbone:
+def build_backbone(cfg: BackboneConfig):
+    """The backbone of ``cfg.architecture``: ``VGGBackbone`` or
+    ``ResNet12Backbone``."""
     if cfg.architecture == "vgg":
         return VGGBackbone(cfg)
     if cfg.architecture == "resnet12":
-        raise NotImplementedError("ResNet-12 is ROADMAP item A9 (learner zoo)")
+        from .resnet import ResNet12Backbone
+
+        return ResNet12Backbone(cfg)
     raise ValueError(f"unknown backbone architecture {cfg.architecture!r}")

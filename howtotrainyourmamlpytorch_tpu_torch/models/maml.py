@@ -221,12 +221,15 @@ class MAMLFewShotLearner(CheckpointableLearner):
 
     def trainable_mask(self, outer: Tree) -> Tree:
         """True on the ``{"theta", "lslr"}`` leaves outer Adam updates: BN
-        gamma/beta unless frozen by config, the LSLR rates when learnable
+        gamma/beta unless frozen by config, never the layer norm's weight
+        (frozen at 1, as in the reference), the LSLR rates when learnable
         (``maml.py:622-648``)."""
         cfg = self.cfg
 
         def theta_label(path, _):
             if "norm" in path:
+                if cfg.backbone.norm_layer == "layer_norm" and path[-1] == "weight":
+                    return False
                 if path[-1] == "gamma":
                     return cfg.learnable_bn_gamma
                 if path[-1] == "beta":

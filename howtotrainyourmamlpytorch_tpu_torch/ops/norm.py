@@ -1,5 +1,6 @@
 """Batch normalization on batch statistics with explicit (per-step) running
-state (``howtotrainyourmamlpytorch_tpu/ops/norm.py:34-122``).
+state (``howtotrainyourmamlpytorch_tpu/ops/norm.py:34-122``), and layer
+normalization (``:125-142``).
 
 As in the reference, outputs are always normalized with the current batch's
 statistics; the running statistics are a side output that never influences
@@ -93,3 +94,25 @@ def batch_norm(
     return out, update_running(
         state, step, mean.detach(), var.detach(), n, momentum
     )
+
+
+def layer_norm(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    *,
+    eps: float = 1e-5,
+    normalized_ndim: int | None = None,
+) -> torch.Tensor:
+    """Layer norm with float32 statistics over the trailing
+    ``normalized_ndim`` dims of ``x`` (``weight.ndim`` by default, as in
+    JAX), then ``* weight + bias``, both broadcast against ``x``'s trailing
+    dims. A leading task axis on ``weight``/``bias`` takes
+    ``normalized_ndim`` explicitly, so that no statistic spans tasks."""
+    ndim = weight.dim() if normalized_ndim is None else normalized_ndim
+    dims = tuple(range(x.dim() - ndim, x.dim()))
+    in_dtype = x.dtype
+    x = x.float()
+    var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    return (out * weight + bias).to(in_dtype)

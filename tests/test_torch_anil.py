@@ -27,13 +27,14 @@ from test_torch_gradient_descent import (
     LOSS_RTOL,
     theta_without_conv_biases,
 )
-from test_torch_train import (
+from test_torch_train import (  # noqa: F401 (one_intra_op_thread)
     GRAD_ATOL,
     GRAD_RTOL,
     assert_tree_close,
     episode_batch,
     jax_config,
     jax_train_state_numpy,
+    one_intra_op_thread,
     port_config,
 )
 

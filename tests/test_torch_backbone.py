@@ -24,6 +24,7 @@ from howtotrainyourmamlpytorch_tpu_torch.convert import tree_from_numpy
 from howtotrainyourmamlpytorch_tpu_torch.models.backbone import (
     BackboneConfig,
     VGGBackbone,
+    build_backbone,
 )
 from howtotrainyourmamlpytorch_tpu_torch.ops.losses import cross_entropy, nll
 from howtotrainyourmamlpytorch_tpu_torch.ops.norm import BatchNormState
@@ -32,6 +33,7 @@ from howtotrainyourmamlpytorch_tpu_torch.utils.trees import (
     tree_map,
     tree_unflatten,
 )
+from test_torch_train import one_intra_op_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -42,6 +44,20 @@ ODD = dict(num_stages=4, num_filters=4, per_step_bn_statistics=True,
            num_steps=2, num_classes=5, image_height=28, image_width=28)
 # The same with the pool fused into the norm on the even stages (28, 14).
 ODD_POOL = dict(ODD, fused_norm_pool=True)
+# The VGG's other options on SMALL: layer norm over each task's (C, H, W);
+# the norm of the stage input before the conv (no fused site); stride-2
+# convs (8 -> 4 -> 2) and a global average pool, the fused norm unpooled.
+LAYER_NORM = dict(SMALL, norm_layer="layer_norm")
+NORM_CONV = dict(SMALL, block_order="norm_conv")
+STRIDE2 = dict(SMALL, max_pooling=False, fused_norm_pool=True)
+CASES = [
+    *((kw, kid, fused) for kid, kw in (("small", SMALL), ("odd-stages", ODD),
+                                       ("odd-stages-pool", ODD_POOL))
+      for fused in ("off", "vjp", "jvp")),
+    (LAYER_NORM, "layer-norm", "off"), (NORM_CONV, "norm-conv", "off"),
+    (NORM_CONV, "norm-conv", "jvp"),
+    *((STRIDE2, "stride2", fused) for fused in ("off", "vjp", "jvp")),
+]
 
 
 def _numpy(tree):
@@ -77,34 +93,36 @@ def _setup(kw, rng, n=5):
     jcfg = JBackboneConfig(**kw)
     jnet = JVGGBackbone(jcfg)
     params, bn = jnet.init(jax.random.PRNGKey(3))
-    # Non-trivial per-step affine rows, so the step select shows.
+    # Non-trivial per-step affine rows (or layer-norm weight and bias), so
+    # the step select shows.
     for i in range(jcfg.num_stages):
         norm = params[f"conv{i}"]["norm"]
-        norm["gamma"] = jnp.asarray(rng.rand(*norm["gamma"].shape) + 0.5, jnp.float32)
-        norm["beta"] = jnp.asarray(rng.randn(*norm["beta"].shape) * 0.1, jnp.float32)
+        for k, v in norm.items():
+            scale, offset = (1.0, 0.5) if k in ("gamma", "weight") else (0.1, 0.0)
+            noise = rng.rand(*v.shape) if offset else rng.randn(*v.shape)
+            norm[k] = jnp.asarray(noise * scale + offset, jnp.float32)
     x = (rng.rand(n, 1, jcfg.image_height, jcfg.image_width) > 0.5).astype(np.float32)
     y = np.arange(n) % jcfg.num_classes
     net = VGGBackbone(BackboneConfig(**dataclasses.asdict(jcfg)))
     return jnet, params, bn, net, x, y
 
 
-@pytest.mark.parametrize("fused", ["off", "vjp", "jvp"])
 @pytest.mark.parametrize(
-    "kw", [SMALL, ODD, ODD_POOL], ids=["small", "odd-stages", "odd-stages-pool"]
+    "kw,fused", [(kw, fused) for kw, _, fused in CASES],
+    ids=[f"{kid}-{fused}" for _, kid, fused in CASES],
 )
 def test_apply_and_inner_grad_match_jax(kw, fused, rng):
     jnet, jparams, jbn, net, x, y = _setup(kw, rng)
     params = tree_from_numpy(_numpy(jparams), "cpu")
     bn = _port_bn(tree_from_numpy(_numpy(jbn), "cpu"))
+
+    def jloss(p, step):
+        logits, new_bn = jnet.apply(p, jbn, jnp.asarray(x), step, fused=fused)
+        return j_cross_entropy(logits, jnp.asarray(y)), (logits, new_bn)
+
+    jvalue_and_grad = jax.jit(jax.value_and_grad(jloss, has_aux=True))
     for step in range(kw["num_steps"] + 1):  # the last step clamps
-
-        def jloss(p):
-            logits, new_bn = jnet.apply(p, jbn, jnp.asarray(x), step, fused=fused)
-            return j_cross_entropy(logits, jnp.asarray(y)), (logits, new_bn)
-
-        (_, (jlogits, jnew)), jgrads = jax.value_and_grad(jloss, has_aux=True)(
-            jparams
-        )
+        (_, (jlogits, jnew)), jgrads = jvalue_and_grad(jparams, step)
         leaves = [a.clone().requires_grad_() for a in tree_leaves(params)]
         p = _with_task_axis(tree_unflatten(params, leaves))
         logits, new_bn = net.apply(
@@ -129,7 +147,22 @@ def test_folded_tasks_equal_per_task_loop(fused, rng):
     """Three tasks with their own weights and images, folded into channels,
     give each task's own logits, running stats and inner gradient: the
     batch statistics never span tasks."""
-    _, jparams, jbn, net, _, _ = _setup(dict(SMALL, fused_norm_pool=True), rng)
+    _check_folded_tasks(dict(SMALL, fused_norm_pool=True), fused, rng)
+
+
+@pytest.mark.parametrize(
+    "kw,fused", [(LAYER_NORM, "off"), (NORM_CONV, "off"), (STRIDE2, "jvp")],
+    ids=["layer-norm", "norm-conv", "stride2"],
+)
+def test_folded_tasks_equal_per_task_loop_options(kw, fused, rng):
+    """The same for the other options: the layer norm's statistics over
+    each task's (C, H, W), the stage input's batch norm, the stride-2
+    stages and their average pool stay within a task."""
+    _check_folded_tasks(kw, fused, rng)
+
+
+def _check_folded_tasks(kw, fused, rng):
+    _, jparams, jbn, net, _, _ = _setup(kw, rng)
     tasks, n = 3, 5
     base = tree_from_numpy(_numpy(jparams), "cpu")
     params = tree_map(
@@ -162,12 +195,22 @@ def test_folded_tasks_equal_per_task_loop(fused, rng):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="layer_norm"):
-        VGGBackbone(BackboneConfig(norm_layer="layer_norm"))
-    with pytest.raises(NotImplementedError, match="A3"):
-        VGGBackbone(BackboneConfig(block_order="norm_conv"))
+    """Lane padding is the one option not ported (both backbones); unknown
+    values and ResNet-12's unsupported ones raise as in JAX."""
     with pytest.raises(NotImplementedError, match="A8"):
         VGGBackbone(BackboneConfig(lane_pad_channels=True))
+    with pytest.raises(NotImplementedError, match="A8"):
+        build_backbone(BackboneConfig(architecture="resnet12", lane_pad_channels=True))
+    with pytest.raises(ValueError, match="batch_norm"):
+        build_backbone(BackboneConfig(architecture="resnet12", norm_layer="layer_norm"))
+    with pytest.raises(ValueError, match="stage widths"):
+        build_backbone(BackboneConfig(architecture="resnet12", resnet_widths=(4, 6, 8)))
+    with pytest.raises(ValueError, match="block_order"):
+        VGGBackbone(BackboneConfig(block_order="sideways"))
+    with pytest.raises(ValueError, match="architecture"):
+        build_backbone(BackboneConfig(architecture="vit"))
+    for kw in (LAYER_NORM, NORM_CONV, STRIDE2):
+        VGGBackbone(BackboneConfig(**kw))
     net = VGGBackbone(BackboneConfig(**SMALL, fused_norm_pool=True))
     params, _ = net.init(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="sideways"):
@@ -178,11 +221,14 @@ def test_unported_options_raise():
 
 
 def test_init_layout_matches_jax():
-    jparams, jbn = JVGGBackbone(JBackboneConfig(**SMALL)).init(jax.random.PRNGKey(0))
-    params, bn = VGGBackbone(BackboneConfig(**SMALL)).init(
-        torch.Generator().manual_seed(0)
-    )
-    shapes = tree_map(lambda a: tuple(a.shape), params)
-    assert shapes == jax.tree.map(lambda a: a.shape, jparams)
-    for k in jbn:
-        assert [tuple(a.shape) for a in bn[k]] == [b.shape for b in jbn[k]]
+    for kw in (SMALL, LAYER_NORM, NORM_CONV, STRIDE2):
+        jparams, jbn = JVGGBackbone(JBackboneConfig(**kw)).init(jax.random.PRNGKey(0))
+        params, bn = VGGBackbone(BackboneConfig(**kw)).init(
+            torch.Generator().manual_seed(0)
+        )
+        shapes = tree_map(lambda a: tuple(a.shape), params)
+        assert shapes == jax.tree.map(lambda a: a.shape, jparams)
+        assert set(bn) == set(jbn)
+        for k in jbn:
+            assert [tuple(a.shape) for a in bn[k]] == [b.shape for b in jbn[k]]
+        assert BackboneConfig(**kw).feature_dim == JBackboneConfig(**kw).feature_dim

@@ -6,7 +6,8 @@ module (CPU).
 A JAX ``TrainState`` and the port's hold the same values
 (``tests/test_torch_train.learner_pair``), over the configurations whose
 optimizer states lay out differently: gradient clip on and off, frozen
-LSLR rates, frozen batch-norm gamma and beta. The same holds for the
+LSLR rates, frozen batch-norm gamma and beta; and a ResNet-12 state, whose
+parameters and BN statistics nest two levels deep. The same holds for the
 states of the gradient-descent, matching-nets and ProtoNets learners,
 whose Adam runs over all of theta with no mask, with the clip and
 without.
@@ -47,13 +48,22 @@ from howtotrainyourmamlpytorch_tpu_torch.utils import checkpoint as ckpt
 from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
 from test_torch_gradient_descent import shared_state_numpy, zoo_config
-from test_torch_train import jax_config, jax_train_state_numpy, learner_pair, port_config
+from test_torch_train import (  # noqa: F401 (one_intra_op_thread)
+    jax_config,
+    jax_train_state_numpy,
+    learner_pair,
+    one_intra_op_thread,
+    port_config,
+)
 
 CONFIGS = {
     "default": {},
     "clip": {"clip_grad_value": 10.0},
     "frozen_lslr": {"learnable_per_layer_per_step_inner_loop_learning_rate": False},
     "frozen_gamma_beta": {"learnable_bn_gamma": False, "learnable_bn_beta": False},
+    # ResNet-12: two-level paths (a:theta;d:res0;d:conv0;...) and BN state.
+    "resnet12": {"backbone": {"architecture": "resnet12", "resnet_widths": (4, 4, 8, 8),
+                              "image_height": 16, "image_width": 16}},
 }
 EXP = {"current_iter": 7, "best_val_acc": 0.5, "per_epoch_statistics": {"a": [1.0]}}
 
@@ -91,6 +101,9 @@ def test_paths_and_fingerprint_match_jax(pair):
     jax_paths = [_encode(p) for p, _ in tree_flatten_with_path(jstate)[0]]
     port = learner._path_leaves(state)
     assert [p for p, _ in port] == jax_paths
+    if learner.cfg.backbone.architecture == "resnet12":
+        assert "a:theta;d:res0;d:conv0;d:conv;d:weight" in jax_paths
+        assert "a:bn_state;d:res3;d:shortcut;a:running_var" in jax_paths
     assert ckpt.tree_crc32(p for p, _ in port) == jckpt._tree_fingerprint(jstate)
     for (_, got), want in zip(port, jax.tree.leaves(jstate)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))

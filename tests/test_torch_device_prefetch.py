@@ -45,7 +45,7 @@ from howtotrainyourmamlpytorch_tpu_torch.models.common import (
 from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 from test_data import make_dataset_dir
 from test_torch_experiment import _run_port
-from test_torch_train import SMALL
+from test_torch_train import SMALL, one_intra_op_thread  # noqa: F401
 
 CODEC = WireCodec(1.0, None, None)
 

@@ -42,6 +42,7 @@ from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
 from test_data import make_dataset_dir
 from test_experiment import _experiment_args
+from test_torch_train import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # The train slice's bar (tests/test_torch_train.py).

@@ -72,6 +72,27 @@ def test_kernels_match_plain(shape, cuda):
 
 
 @pytest.mark.parametrize(
+    "shape", [(5, 512, 28, 28), (5, 1024, 14, 14), (5, 2048, 7, 7),
+              (5, 4096, 3, 3), (15, 2048, 3, 3)]  # ResNet-12's fused sites
+)
+def test_kernels_match_plain_at_resnet_slope(shape, cuda):
+    """bn_stats_act and bn_act_bwd at ResNet-12's LeakyReLU slope 0.1
+    against the plain version at the same slope."""
+    x, gamma, beta, g = _inputs(shape, cuda)
+    mean, var = tfn.plain_stats(x)
+    got_y = tfn.bn_stats_act(x, gamma, beta, tfn.EPS, 0.1)
+    got_bwd = tfn.bn_act_bwd(x, g, mean, var, gamma, beta, tfn.EPS, 0.1)
+    torch.cuda.synchronize()
+    want_y = tfn.plain_apply(x, mean, var, gamma, beta, tfn.EPS, 0.1)
+    for a, b in zip(got_y, (want_y, mean, var)):
+        _close(a, b)
+    for a, b in zip(got_bwd, tfn.plain_bwd(x, g, mean, var, gamma, beta, tfn.EPS, 0.1)):
+        _close(a, b)
+    # The slope reaches the kernels: at 0.01 the negative half differs.
+    assert not torch.equal(tfn.bn_stats_act(x, gamma, beta)[0], got_y[0])
+
+
+@pytest.mark.parametrize(
     "shape,streamed",
     [
         ((5, 512, 7, 7), False),   # H*W 49: scalar copies, 3 channels a block

@@ -26,6 +26,14 @@ TRAIN = [(5, 512, hw, hw) for hw in (28, 14, 7, 3)]
 NORTH_STAR = [(n, 96, hw, hw) for n in (25, 75) for hw in (84, 42, 21, 10)]
 # One task of 64 filters: the gradient-descent and matching-nets learners.
 ZOO = [(5, 64, hw, hw) for hw in (28, 14, 7, 3)]
+# ResNet-12 at the Omniglot JSON's widths: train and eval fold 8 tasks
+# (up to 4096 channels of 45 rows), serve 4 (5 support, 15 queries); and
+# the VGG without max pooling at its stride-2 stages.
+RESNET_STAGES = tuple(zip((64, 128, 256, 512), (28, 14, 7, 3)))
+RESNET = ([(5, 8 * w, hw, hw) for w, hw in RESNET_STAGES]
+          + [(n, 4 * w, hw, hw) for n in (5, 15) for w, hw in RESNET_STAGES])
+STRIDE2 = [(5, 512, hw, hw) for hw in (4, 2)]
+SHAPES = SERVE + TRAIN + NORTH_STAR + ZOO + RESNET + STRIDE2
 
 
 def _coverage(shape, plan):
@@ -69,12 +77,12 @@ def _check_plan_shape(shape, row_bytes):
         assert plan.threads == 32 * plan.channels_per_block
 
 
-@pytest.mark.parametrize("shape", SERVE + TRAIN + NORTH_STAR + ZOO, ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_plan_covers_every_channel_once(shape):
     _check_plan_shape(shape, tfn.FWD_ROW_BYTES)
 
 
-@pytest.mark.parametrize("shape", SERVE + TRAIN + NORTH_STAR + ZOO, ids=str)
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_backward_plan_covers_every_channel_once(shape):
     """The backward stages x and the cotangent: 8 bytes a row."""
     _check_plan_shape(shape, tfn.BWD_ROW_BYTES)

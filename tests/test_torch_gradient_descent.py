@@ -38,7 +38,13 @@ from howtotrainyourmamlpytorch_tpu_torch.models import (
     GradientDescentLearner,
 )
 
-from test_torch_train import _adam_state, assert_tree_close, episode_batch, port_config
+from test_torch_train import (  # noqa: F401 (one_intra_op_thread)
+    _adam_state,
+    assert_tree_close,
+    episode_batch,
+    one_intra_op_thread,
+    port_config,
+)
 
 SMALL = dict(num_stages=3, num_filters=8, num_classes=5, image_height=12,
              image_width=12)

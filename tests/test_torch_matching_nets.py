@@ -32,7 +32,12 @@ from test_torch_gradient_descent import (
     zoo_config,
     zoo_pair,
 )
-from test_torch_train import assert_tree_close, episode_batch, port_config
+from test_torch_train import (  # noqa: F401 (one_intra_op_thread)
+    assert_tree_close,
+    episode_batch,
+    one_intra_op_thread,
+    port_config,
+)
 
 PARITY = pytest.mark.parametrize("parity_bug", [False, True], ids=["fixed", "parity_bug"])
 FUSED = pytest.mark.parametrize("fused", [True, False], ids=["fused", "off"])

@@ -33,7 +33,7 @@ from howtotrainyourmamlpytorch_tpu_torch.models.common import (
 from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 from test_data import make_dataset_dir
 from test_torch_experiment import _args, _run_port, _seed_checkpoint, _stats
-from test_torch_train import (
+from test_torch_train import (  # noqa: F401 (one_intra_op_thread)
     GRAD_ATOL,
     GRAD_RTOL,
     LOSS_ATOL,
@@ -42,6 +42,7 @@ from test_torch_train import (
     episode_batch,
     jax_config,
     learner_pair,
+    one_intra_op_thread,
 )
 from test_torch_train_iter import _split_conv_biases
 

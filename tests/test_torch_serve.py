@@ -38,6 +38,7 @@ from howtotrainyourmamlpytorch_tpu_torch.models import (
 from howtotrainyourmamlpytorch_tpu_torch.serve import ServeConfig, ServingEngine
 from howtotrainyourmamlpytorch_tpu_torch.serve.cache import AdaptedParamsCache
 from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import load_maml_config
+from test_torch_train import one_intra_op_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,6 +48,10 @@ FLAGSHIP = os.path.join(
 MINI_IMAGENET = os.path.join(
     REPO, "experiment_config",
     "mini-imagenet_maml++-mini-imagenet_5_2_0.01_48_5_0.json",
+)
+RESNET12 = os.path.join(
+    REPO, "experiment_config_local",
+    "omniglot_maml++-omniglot-resnet12_1_8_0.1_64_5_1.json",
 )
 
 
@@ -165,8 +170,9 @@ def test_engine_dispatch_matches_jax_with_padding_and_cache_hit(learners, rng):
         (FLAGSHIP, {"use_pallas_fused_norm": True}),
         (FLAGSHIP, {"transfer_dtype": "uint8"}),
         (MINI_IMAGENET, {"transfer_dtype": "uint8"}),
+        (RESNET12, {}),
     ],
-    ids=["flagship-fused", "flagship-uint8", "mini-imagenet-uint8"],
+    ids=["flagship-fused", "flagship-uint8", "mini-imagenet-uint8", "resnet12"],
 )
 def test_json_config_gives_jax_config(config, overrides):
     args = vars(j_parser.get_parser().parse_args([]))

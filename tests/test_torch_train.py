@@ -42,6 +42,19 @@ from howtotrainyourmamlpytorch_tpu_torch.models import (
 from howtotrainyourmamlpytorch_tpu_torch.models import common, maml
 from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import load_maml_config
 
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """The port's CPU tests run tensors of a few kilobytes through thousands
+    of small ops. With several test workers on the same cores, each op's
+    intra-op thread pool then waits on the others' (one launch-count test
+    took 654 s against 17 s, six at a time); one thread a worker keeps each
+    op on its own core. Modules that import this fixture get it too."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SMALL = dict(num_stages=3, num_filters=4, per_step_bn_statistics=True,
              num_steps=2, num_classes=5, image_height=12, image_width=12)
 # The bar of tests/test_pallas_fused_norm_ho.py:346-350.
@@ -87,6 +100,14 @@ def _moments(tree):
     )
 
 
+def bn_tuples(bn):
+    """A BN-state tree with its ``BatchNormState``s as plain tuples, at any
+    depth (the VGG's one level, ResNet-12's two)."""
+    if isinstance(bn, dict):
+        return {k: bn_tuples(v) for k, v in bn.items()}
+    return tuple(bn)
+
+
 def jax_train_state_numpy(jstate) -> tuple:
     """A JAX ``TrainState`` in ``convert.train_state_from_numpy``'s form."""
     theta, lslr, bn = jax.tree.map(
@@ -94,7 +115,7 @@ def jax_train_state_numpy(jstate) -> tuple:
     )
     adam = _adam_state(jstate.opt_state)
     return (
-        theta, lslr, {k: tuple(v) for k, v in bn.items()},
+        theta, lslr, bn_tuples(bn),
         (_moments(adam.mu), _moments(adam.nu), np.asarray(adam.count)),
         np.asarray(jstate.iteration),
     )

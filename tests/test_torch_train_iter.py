@@ -7,9 +7,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.convert import tree_to_numpy
-from test_torch_train import (
+from test_torch_train import (  # noqa: F401 (one_intra_op_thread)
     GRAD_ATOL,
     GRAD_RTOL,
     LOSS_ATOL,
@@ -18,6 +19,7 @@ from test_torch_train import (
     episode_batch,
     jax_config,
     learner_pair,
+    one_intra_op_thread,
 )
 
 ITERS = 5
@@ -78,6 +80,40 @@ def test_final_only_second_order_matches_jax(rng):
     its epoch 10 on (plain norm; the fused ops' final-only pass is in the
     first-order case above)."""
     _check_trajectory(False, 20, second_order=True, rng=rng)
+
+
+@pytest.mark.parametrize(
+    "backbone",
+    [{"norm_layer": "layer_norm"}, {"block_order": "norm_conv"},
+     {"max_pooling": False}],
+    ids=["layer-norm", "norm-conv", "stride2"],
+)
+def test_backbone_options_train_iter_matches_jax(backbone, rng):
+    """The VGG's other options through 5 second-order MSL meta-updates,
+    the fused flags on: the layer norm (its weight frozen by outer Adam as
+    in JAX), the norm of the stage input (no fused site) and stride-2 convs
+    with a global average pool (the fused norm unpooled)."""
+    _check_trajectory(True, 0, second_order=True, rng=rng, backbone=backbone)
+
+
+def test_layer_norm_weight_stays_frozen(rng):
+    """Outer Adam keeps the layer norm's weight at 1 (no moments, no
+    update), as the JAX learner's mask does; its bias trains."""
+    jlearner, jstate, learner, state = learner_pair(
+        jax_config(False, backbone={"norm_layer": "layer_norm"})
+    )
+    norm = state.opt_state.mu["theta"]["conv0"]["norm"]
+    assert norm["weight"] is None and norm["bias"] is not None
+    assert learner.trainable_mask({"theta": state.theta, "lslr": state.lslr})[
+        "theta"]["conv1"]["norm"] == {"weight": False, "bias": True}
+    new, _ = learner.run_train_iter(state, episode_batch(rng), epoch=0)
+    for i in range(3):
+        before, after = state.theta[f"conv{i}"]["norm"], new.theta[f"conv{i}"]["norm"]
+        assert torch.equal(after["weight"], before["weight"])
+        assert torch.equal(after["weight"], torch.ones_like(after["weight"]))
+        assert not torch.equal(after["bias"], before["bias"])
+    labels = jlearner._label_fn({"theta": jstate.theta, "lslr": jstate.lslr})
+    assert labels["theta"]["conv1"]["norm"] == {"weight": "frozen", "bias": "trainable"}
 
 
 def _check_trajectory(fused, epoch, second_order, rng, **settings):

@@ -54,6 +54,7 @@ from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
 
 from test_data import make_dataset_dir
 from test_experiment import _experiment_args
+from test_torch_train import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-5

@@ -14,6 +14,7 @@ Omniglot, 4 stages, the 28 and 14 pixel stages pooled), the meta-batch of
 filters.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -31,6 +32,7 @@ from howtotrainyourmamlpytorch_tpu_torch.ops import fused_norm as fn
 from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import load_maml_config
 
 import chip_smoke
+from test_torch_train import one_intra_op_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FUSED = dict.fromkeys(("use_pallas_fused_norm", "fused_norm_train", "fused_norm_pool"), True)
@@ -156,3 +158,24 @@ def test_zoo_kernel_shapes_are_checked_in_chip_smoke():
         assert (5, 64, hw, hw) in chip_smoke.KERNEL_SHAPES
     for hw in (28, 14):
         assert (5, 64, hw, hw) in chip_smoke.POOL_SHAPES
+
+
+@pytest.mark.parametrize("tag, overrides", chip_smoke.BACKBONE_OPTIONS,
+                         ids=[t for t, _ in chip_smoke.BACKBONE_OPTIONS])
+def test_backbone_options_launch_what_chip_smoke_holds(counted, tag, overrides):
+    """chip_smoke.py's backbone_options phase: the first second-order step
+    without remat (5 inner steps x support and target forwards a stage, the
+    any-order op) and one eval iteration (5 + 1 forwards a stage and 5
+    backwards, the one-level op). Only the stride-2 VGG has fused sites,
+    none of them pooled; layer norm and ``norm_conv`` launch nothing."""
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+
+    learner = _learner(MAMLFewShotLearner, os.path.basename(chip_smoke.FLAGSHIP),
+                       **overrides)
+    learner = MAMLFewShotLearner(dataclasses.replace(learner.cfg, remat_inner_steps=False))
+    state = learner.init_state(torch.Generator().manual_seed(0), "cpu")
+    for name in counted:
+        counted[name] = 0
+    chip_smoke.first_step(learner, state, _batch(np.random.RandomState(0)))
+    learner.run_validation_iter(state, _batch(np.random.RandomState(1)))
+    assert counted == chip_smoke.BACKBONE_OPTION_LAUNCHES[tag]

@@ -2,11 +2,12 @@
 """Where one meta-training iteration of the PyTorch port spends its time,
 run eagerly and replayed as a CUDA graph.
 
-    python3 tools/port_train_profile.py [--remat] [--config flagship|north_star]
-        [--step eager graph]
+    python3 tools/port_train_profile.py [--remat]
+        [--config flagship|north_star|resnet12] [--step eager graph]
 
-Builds the MAML++ learner of the Omniglot flagship (default) or of the
-mini-ImageNet north star (84x84x3, 48 filters) with fused_norm_train=True
+Builds the MAML++ learner of the Omniglot flagship (default), of the
+mini-ImageNet north star (84x84x3, 48 filters) or of the Omniglot ResNet-12
+config (64/128/256/512 channels) with fused_norm_train=True
 and fused_norm_pool=True (remat_inner_steps off unless ``--remat``, as
 chip_smoke.py's train phase runs it; the CLI keeps the config default, on),
 random weights from seed 104, and one synthetic binary batch of the
@@ -51,8 +52,9 @@ from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (  # noqa: E4
 from port_serve_profile import busy_ms  # noqa: E402
 
 CONFIGS = {
-    "flagship": "omniglot_maml++-omniglot_1_8_0.1_64_5_0.json",
-    "north_star": "mini-imagenet_maml++-mini-imagenet_5_2_0.01_48_5_0.json",
+    "flagship": "experiment_config/omniglot_maml++-omniglot_1_8_0.1_64_5_0.json",
+    "north_star": "experiment_config/mini-imagenet_maml++-mini-imagenet_5_2_0.01_48_5_0.json",
+    "resnet12": "experiment_config_local/omniglot_maml++-omniglot-resnet12_1_8_0.1_64_5_1.json",
 }
 ITERS = 3
 # Kernel-name fragments of the fused-norm kernels in csrc/fused_norm.cu.
@@ -169,7 +171,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("port_train_profile: no CUDA device", file=sys.stderr)
         return 1
-    run_args = load_args(os.path.join(REPO, "experiment_config", CONFIGS[args.config]),
+    run_args = load_args(os.path.join(REPO, CONFIGS[args.config]),
                          fused_norm_train=True, fused_norm_pool=True)
     cfg = dataclasses.replace(args_to_maml_config(run_args),
                               remat_inner_steps=args.remat)
