@@ -23,7 +23,9 @@ Phases, in order; any failure exits non-zero before the result lines:
              two entries' statistics and the backward's two routes to each
              other bitwise, and times each kernel beside its plain version,
              its bound and the library yardsticks, with its launch plan.
-             The same at ResNet-12's fused sites at its LeakyReLU slope
+             The same at the north star's serve shapes (4 tasks x 48
+             filters folded into 192 channels, N=25|15, at 84, 42, 21 and
+             10 pixels). The same at ResNet-12's fused sites at its LeakyReLU slope
              0.1 (train and eval: 8 tasks x 64|128|256|512 filters, N=5, at
              28|14|7|3 pixels, up to 4096 channels of 45 rows; serve: 4
              tasks, N=5|15) and at the stride-2 VGG's (5, 512, 4|2).
@@ -70,6 +72,34 @@ Phases, in order; any failure exits non-zero before the result lines:
              through its inner steps, so whole episodes are held to the
              plain engine as SENSITIVITY_* says, classify alone to the
              CLASSIFY bar.
+   serve http - the flagship JSON (use_pallas_fused_norm) behind
+             ``make_http_server`` on an ephemeral loopback port with
+             ``ServeConfig`` defaults (meta-batch 4, a 2 ms window):
+             ``/healthz`` 503 before the 5x1x15 warmup and 200 after; 31
+             episodes POSTed from 4 client threads, then a repeat of
+             episode 0's support set, which alone must hit the cache.
+             Launches held exactly to the dispatches the metrics counted
+             (per dispatch that adapts a miss bn_stats_act 24, bn_act_bwd
+             20; per dispatch that only classifies 4 and 0); logits held to
+             the plain-norm engine at the serve bars, classify alone to the
+             CLASSIFY bar, and bit for bit to a fresh engine's dispatch in
+             groups of 4 (an episode's bits do not depend on its batch
+             mates); ``/admin/promote`` of a checkpoint the port saved bumps
+             ``state_version``, a corrupt copy answers 409 and the promoted
+             state's logits stay bitwise the same; ``/metrics`` scraped for
+             the adapt, classify and request p50 and p99.
+   serve cli - ``python3 -m howtotrainyourmamlpytorch_tpu_torch.serve_maml``
+             on the flagship JSON (``--use_pallas_fused_norm True
+             --init_from_scratch --port 0 --port_file --warmup 5x1x15``) as
+             a subprocess: it names its port, answers /healthz and one
+             episode, and exits 0 on SIGTERM.
+   serve api north star - the north-star JSON (use_pallas_fused_norm)
+             through ``ServingAPI``, warmed at 5x5x15: 8 episodes of 84x84
+             RGB from 4 threads, launches held exactly as above; from
+             random weights the north star's inner loop is chaotic at the
+             serve bars, so whole episodes are held to the plain engine as
+             SENSITIVITY_* says, classify alone to the CLASSIFY bar, and
+             bit for bit to a fresh engine.
    graph   - the flagship and north-star learners with remat on, as the
              CLIs train, from one state over 5 batches: ``run_train_iters``
              (K=5 replays of the captured step) against 5 eager
@@ -138,7 +168,7 @@ Phases, in order; any failure exits non-zero before the result lines:
              included, and the seconds it waited for its input, at K=1 and
              at K=5, prefetcher on and off; peak
              device memory, the validation and test accuracy and the
-             launches. Phases 3-9 record every kernel call's input shape
+             launches. Phases 3-9 (the serve CLI's subprocess aside) record every kernel call's input shape
              and LeakyReLU slope (a replay runs no wrapper; its calls are
              those of its capture); each (shape, slope) must be one the
              kernel and pool phases held to the plain version.
@@ -258,12 +288,17 @@ STREAMED_SHAPE = NORTH_STAR_SHAPE
 # One task of 64 filters, N=5: the gradient-descent and matching-nets
 # learners train task by task (and gradient descent evaluates so).
 ZOO_SHAPES = [(5, 64, hw, hw) for hw in (28, 14, 7, 3)]
+# The north star served at meta-batch 4 (bucket 5x5x15): 4 tasks x 48
+# filters folded into 192 channels, support N=25 and query N=15 at the
+# 84, 42, 21 and 10 pixel stages (the one-level op, pool separate).
+NORTH_STAR_SERVE_SHAPES = [(n, 192, hw, hw) for n in (25, 15) for hw in (84, 42, 21, 10)]
 # The VGG without max pooling (stride-2 convs, the flagship's width): 8
 # tasks x 64 filters at 14, 7, 4 and 2 pixels, none pooled.
 STRIDE2_SHAPES = [(5, 512, hw, hw) for hw in (14, 7, 4, 2)]
 KERNEL_SHAPES = (FLAGSHIP_SHAPES + TRAIN_SHAPES + [NORTH_STAR_SHAPE, NORTH_STAR_TARGET]
                  + NORTH_STAR_STAGES + ZOO_SHAPES
-                 + [s for s in STRIDE2_SHAPES if s not in TRAIN_SHAPES])
+                 + [s for s in STRIDE2_SHAPES if s not in TRAIN_SHAPES]
+                 + NORTH_STAR_SERVE_SHAPES)
 # The VGG's LeakyReLU slope and ResNet-12's.
 SLOPE, RESNET_SLOPE = 0.01, 0.1
 RESNET12 = os.path.join(
@@ -289,6 +324,10 @@ POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE, NORTH_STAR_TA
 # pooled).
 SERVE_LAUNCHES = {"bn_stats": 0, "bn_stats_act": 24, "bn_act_bwd": 20,
                   "bn_act_pool_apply": 0}
+# A serve dispatch whose episodes all hit the adapted-params cache: the
+# classify forward alone, one launch a stage.
+SERVE_HIT_LAUNCHES = {"bn_stats": 0, "bn_stats_act": 4, "bn_act_bwd": 0,
+                      "bn_act_pool_apply": 0}
 TRAIN_LAUNCHES = {"bn_stats": 20, "bn_stats_act": 20, "bn_act_bwd": 0,
                   "bn_act_pool_apply": 20}
 # The CLI phases (fused_norm_train, fused_norm_pool, use_pallas_fused_norm,
@@ -748,16 +787,56 @@ def make_episodes(rng, count, query=15):
     return eps
 
 
+def classify_alone(torch, learner, plain_learner, istate, eps, tag) -> float:
+    """The fused learner's classify of ``eps`` (a task axis) against the
+    plain one's, both on the plain learner's adapted weights: a forward
+    pass, held to the CLASSIFY bar."""
+    dev = istate.theta["linear"]["weight"].device
+    xs, ys, xq = (
+        torch.from_numpy(np.stack([getattr(ep, k) for ep in eps])).to(dev)
+        for k in ("x_support", "y_support", "x_query")
+    )
+    fast = plain_learner.serve_adapt(istate, xs, ys)
+    a = learner.serve_classify(istate, fast, xq)
+    b = plain_learner.serve_classify(istate, fast, xq)
+    err = float((a - b).abs().max())
+    if err > CLASSIFY_ATOL + CLASSIFY_RTOL * float(b.abs().max()):
+        fail(f"{tag}: fused classify differs from the plain-norm one by {err}")
+    return err
+
+
+def episode_bars(torch, plain_learner, istate, raw, ref, chaotic):
+    """``(median bar, max bar, one-ulp gaps)`` for whole served episodes
+    against the plain-norm engine's logits ``ref`` of ``raw``: the serve
+    bars, or with ``chaotic`` at least ``SENSITIVITY_FACTOR`` times the
+    plain engine's own per-episode gap when its weights move by one ulp
+    (each of ``SENSITIVITY_SEEDS``)."""
+    from howtotrainyourmamlpytorch_tpu_torch.serve import ServeConfig, ServingEngine
+
+    median_bar, max_bar, sensitivity = EPISODE_MEDIAN_ATOL, EPISODE_MAX_ATOL, []
+    if chaotic:
+        for seed in SENSITIVITY_SEEDS:
+            moved = ServingEngine(plain_learner, istate._replace(
+                theta=one_ulp(torch, istate.theta, seed)
+            ), ServeConfig(meta_batch_size=4))
+            gap = np.abs(np.stack(moved.dispatch(
+                [moved.prepare_episode(*e) for e in raw])) - ref)
+            sensitivity.append(gap.reshape(len(raw), -1).max(axis=1))
+        median_bar = max(median_bar, SENSITIVITY_FACTOR * max(
+            float(np.median(g)) for g in sensitivity))
+        max_bar = max(max_bar, SENSITIVITY_FACTOR * max(float(g.max()) for g in sensitivity))
+    return median_bar, max_bar, sensitivity
+
+
 def serve_phase(torch, fn, config=FLAGSHIP, per_dispatch=SERVE_LAUNCHES,
                 chaotic=False):
     """32 episodes of bucket 5x1x15 served by a ``use_pallas_fused_norm``
     engine on ``config`` (meta-batch 4, one support set repeated), held to
-    ``per_dispatch`` launches, to itself run to run and to the plain-norm
-    engine; with ``chaotic``, whole episodes to the plain engine as the
-    SENSITIVITY_* note says."""
+    ``per_dispatch`` launches and as ``hold_episodes`` says."""
     from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
     from howtotrainyourmamlpytorch_tpu_torch.serve import (
         ServeConfig,
+        ServeMetrics,
         ServingEngine,
     )
     from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
@@ -767,17 +846,12 @@ def serve_phase(torch, fn, config=FLAGSHIP, per_dispatch=SERVE_LAUNCHES,
     cfg = load_maml_config(config, use_pallas_fused_norm=True)
     learner = MAMLFewShotLearner(cfg)
     istate = learner.init_inference_state(torch.Generator().manual_seed(104))
-    plain_cfg = dataclasses.replace(
-        cfg, backbone=dataclasses.replace(cfg.backbone, use_pallas_fused_norm=False)
-    )
-    plain_learner = MAMLFewShotLearner(plain_cfg)
+    plain_learner = MAMLFewShotLearner(dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, use_pallas_fused_norm=False)))
     engine = ServingEngine(learner, istate, ServeConfig(meta_batch_size=4))
-    plain = ServingEngine(plain_learner, istate, ServeConfig(meta_batch_size=4))
     rng = np.random.RandomState(0)
-    warm = [engine.prepare_episode(*e) for e in make_episodes(rng, 4)]
-    engine.dispatch(warm)
-    plain.dispatch([plain.prepare_episode(*e) for e in make_episodes(rng, 4)])
-    engine.stats = type(engine.stats)()
+    engine.dispatch([engine.prepare_episode(*e) for e in make_episodes(rng, 4)])
+    engine.metrics = metrics = ServeMetrics()
 
     raw = make_episodes(rng, 32)
     eps = [engine.prepare_episode(*e) for e in raw]
@@ -788,60 +862,134 @@ def serve_phase(torch, fn, config=FLAGSHIP, per_dispatch=SERVE_LAUNCHES,
     logits = engine.dispatch(eps)
     wall = time.perf_counter() - t0
     launches = dict(fn.launch_counts)
-    stats = engine.stats
-    want = {k: n * stats.batches_dispatched for k, n in per_dispatch.items()}
+    dispatches = metrics.batches_dispatched.value
+    want = {k: n * dispatches for k, n in per_dispatch.items()}
     if launches != want:
-        fail(f"serve launches {launches} over {stats.batches_dispatched} "
+        fail(f"serve launches {launches} over {dispatches} "
              f"dispatches, expected {per_dispatch} per dispatch")
-    if stats.cache_hits != 1:
-        fail(f"expected one cache hit, got {stats.cache_hits}")
-    got = np.stack(logits)
-    if got.shape != (32, 15, 5) or not np.isfinite(got).all():
-        fail(f"logits of shape {got.shape}, finite={np.isfinite(got).all()}")
-    # The same logits run to run: a second engine, empty cache, serves again.
-    again = ServingEngine(learner, istate, ServeConfig(meta_batch_size=4))
-    if not np.array_equal(np.stack(again.dispatch(eps)), got):
-        fail("serving the same episodes again gave other logits")
-
-    # Classify alone: both learners on the plain engine's adapted weights.
-    dev = istate.theta["linear"]["weight"].device
-    xs, ys, xq = (
-        torch.from_numpy(np.stack([getattr(ep, k) for ep in eps[:4]])).to(dev)
-        for k in ("x_support", "y_support", "x_query")
-    )
-    fast = plain_learner.serve_adapt(istate, xs, ys)
-    a = learner.serve_classify(istate, fast, xq)
-    b = plain_learner.serve_classify(istate, fast, xq)
-    classify_err = float((a - b).abs().max())
-    if classify_err > CLASSIFY_ATOL + CLASSIFY_RTOL * float(b.abs().max()):
-        fail(f"fused classify differs from the plain-norm one by {classify_err}")
-
-    # Whole episodes against the plain-norm engine.
-    ref = np.stack(plain.dispatch([plain.prepare_episode(*e) for e in raw]))
-    per_episode = np.abs(got - ref).reshape(len(eps), -1).max(axis=1)
-    median_bar, max_bar, sensitivity = EPISODE_MEDIAN_ATOL, EPISODE_MAX_ATOL, []
-    if chaotic:
-        for seed in SENSITIVITY_SEEDS:
-            moved = ServingEngine(plain_learner, istate._replace(
-                theta=one_ulp(torch, istate.theta, seed)
-            ), ServeConfig(meta_batch_size=4))
-            gap = np.abs(np.stack(moved.dispatch(
-                [moved.prepare_episode(*e) for e in raw])) - ref)
-            sensitivity.append(gap.reshape(len(eps), -1).max(axis=1))
-        median_bar = max(median_bar, SENSITIVITY_FACTOR * max(
-            float(np.median(g)) for g in sensitivity))
-        max_bar = max(max_bar, SENSITIVITY_FACTOR * max(float(g.max()) for g in sensitivity))
-    if np.median(per_episode) > median_bar or per_episode.max() > max_bar:
-        fail(f"fused episodes differ from the plain-norm engine beyond median "
-             f"{median_bar} and max {max_bar}: per-episode max abs "
-             f"{per_episode.tolist()}")
-    serve = {
+    if metrics.cache_hits.value != 1:
+        fail(f"expected one cache hit, got {metrics.cache_hits.value}")
+    held = hold_episodes(torch, logits, learner, plain_learner, istate, raw,
+                         "[serve]", chaotic)
+    return {
         "episodes": len(eps),
-        "dispatches": stats.batches_dispatched,
-        "cache_hits": stats.cache_hits,
-        "adapt_p50_ms": float(np.median(stats.adapt_ms)),
-        "classify_p50_ms": float(np.median(stats.classify_ms)),
+        "dispatches": dispatches,
+        "cache_hits": metrics.cache_hits.value,
+        "adapt_p50_ms": metrics.adapt_latency.percentile(50),
+        "classify_p50_ms": metrics.classify_latency.percentile(50),
         "episodes_per_s": len(eps) / wall,
+        **held,
+        "launches": launches,
+        "launches_per_dispatch": {k: v / dispatches for k, v in launches.items()},
+    }
+
+
+def http_call(url, payload=None, timeout=300):
+    """``(status, body bytes, headers)`` of one loopback request (a POST
+    of ``payload`` as JSON, else a GET); an HTTP error status is an answer
+    too."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read(), resp.headers
+    except urllib.error.HTTPError as err:
+        return err.code, err.read(), err.headers
+
+
+def episode_json(xs, ys, xq) -> dict:
+    return {"support": np.asarray(xs).tolist(),
+            "support_labels": np.asarray(ys).reshape(-1).tolist(),
+            "query": np.asarray(xq).tolist()}
+
+
+def post_concurrently(base, episodes, clients=4) -> tuple[list, float]:
+    """POSTs ``episodes`` to ``/v1/episode`` from ``clients`` threads (client
+    ``c`` sends episodes ``c, c + clients, ...`` in turn); returns each
+    episode's ``(status, body)`` in order and the wall seconds."""
+    import threading
+
+    answers = [None] * len(episodes)
+
+    def client(c):
+        for i in range(c, len(episodes), clients):
+            status, body, _ = http_call(f"{base}/v1/episode", episode_json(*episodes[i]))
+            answers[i] = (status, json.loads(body))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or None in answers:
+        fail("an HTTP client did not finish")
+    return answers, wall
+
+
+def expected_serve_launches(metrics, before) -> tuple[dict, int, int]:
+    """The launches the dispatches ``metrics`` counted since ``before``
+    (``(batches, adapt count)``) call for: ``SERVE_LAUNCHES`` for each
+    dispatch that adapted a cache miss, ``SERVE_HIT_LAUNCHES`` for each
+    that only classified."""
+    misses = metrics.adapt_latency.snapshot()["count"] - before[1]
+    hits_only = metrics.batches_dispatched.value - before[0] - misses
+    want = {k: SERVE_LAUNCHES[k] * misses + SERVE_HIT_LAUNCHES[k] * hits_only
+            for k in SERVE_LAUNCHES}
+    return want, misses, hits_only
+
+
+def metric_counts(metrics) -> tuple[int, int]:
+    return metrics.batches_dispatched.value, metrics.adapt_latency.snapshot()["count"]
+
+
+def scrape_quantiles(text: str) -> dict:
+    """``{"adapt_p50_ms": ..., "adapt_p99_ms": ..., ...}`` from the
+    ``/metrics`` text's latency summaries."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("maml_serve_") and "_latency_ms{quantile=" in line:
+            name, value = line.rsplit(" ", 1)
+            stage = name[len("maml_serve_"):name.index("_latency_ms")]
+            q = name.split('quantile="')[1].rstrip('"}')
+            out[f"{stage}_p{round(float(q) * 100)}_ms"] = float(value)
+    return out
+
+
+def hold_episodes(torch, got, learner, plain_learner, istate, raw, tag,
+                  chaotic=False) -> dict:
+    """Served logits ``got`` (per episode) held to the plain-norm engine's
+    dispatch of ``raw`` (as ``episode_bars`` says), classify alone to the
+    CLASSIFY bar, and every episode bit for bit to a fresh fused engine's
+    dispatch in groups of 4 (an episode's bits do not depend on the
+    traffic it was batched with)."""
+    from howtotrainyourmamlpytorch_tpu_torch.serve import ServeConfig, ServingEngine
+
+    plain = ServingEngine(plain_learner, istate, ServeConfig(meta_batch_size=4))
+    engine = ServingEngine(learner, istate, ServeConfig(meta_batch_size=4))
+    ref = np.stack(plain.dispatch([plain.prepare_episode(*e) for e in raw]))
+    eps = [engine.prepare_episode(*e) for e in raw]
+    again = np.stack(engine.dispatch(eps))
+    got = np.stack(got)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        fail(f"{tag}: logits of shape {got.shape}, finite={np.isfinite(got).all()}")
+    classify_err = classify_alone(torch, learner, plain_learner, istate, eps[:4], tag)
+    per_episode = np.abs(got - ref).reshape(len(raw), -1).max(axis=1)
+    median_bar, max_bar, sensitivity = episode_bars(
+        torch, plain_learner, istate, raw, ref, chaotic)
+    if np.median(per_episode) > median_bar or per_episode.max() > max_bar:
+        fail(f"{tag}: served episodes differ from the plain-norm engine beyond "
+             f"median {median_bar} and max {max_bar}: {per_episode.tolist()}")
+    moved = np.abs(got - again).reshape(len(raw), -1).max(axis=1)
+    if moved.max() > 0:
+        fail(f"{tag}: {int((moved > 0).sum())} of {len(raw)} episodes moved against a "
+             f"fresh engine's dispatch in groups of 4, by up to {moved.max()}")
+    return {
         "classify_max_abs_err_vs_plain": classify_err,
         "episode_max_abs_err_vs_plain": float(per_episode.max()),
         "episode_median_abs_err_vs_plain": float(np.median(per_episode)),
@@ -851,12 +999,237 @@ def serve_phase(torch, fn, config=FLAGSHIP, per_dispatch=SERVE_LAUNCHES,
         "plain_one_ulp_episode_gap": [
             {"median": float(np.median(g)), "max": float(g.max())} for g in sensitivity
         ],
-        "launches": launches,
-        "launches_per_dispatch": {
-            k: v / stats.batches_dispatched for k, v in launches.items()
-        },
+        "bitwise_vs_fresh_engine": True,
     }
-    return serve
+
+
+def serve_http_phase(torch, fn) -> dict:
+    """The flagship JSON (``use_pallas_fused_norm``) behind
+    ``make_http_server`` on an ephemeral port, ``ServeConfig`` defaults
+    (meta-batch 4, 2 ms window): ``/healthz`` 503 before the 5x1x15 warmup
+    and 200 after; 31 episodes from 4 client threads over loopback, then a
+    repeat of episode 0's support set, which must come from the cache;
+    launches held exactly to the dispatches the metrics counted; logits
+    held to the plain-norm engine and to a fresh engine bit for bit; a
+    promote of a checkpoint the port saved, a corrupt copy's 409 with the
+    promoted state's logits unmoved; ``/metrics`` scraped."""
+    import shutil
+    import tempfile
+    import threading
+
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+    from howtotrainyourmamlpytorch_tpu_torch.serve import (
+        ServeConfig,
+        ServingAPI,
+        make_http_server,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import checkpoint_digest
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import load_maml_config
+
+    cfg = load_maml_config(FLAGSHIP, use_pallas_fused_norm=True)
+    learner = MAMLFewShotLearner(cfg)
+    istate = learner.init_inference_state(torch.Generator().manual_seed(104))
+    plain_learner = MAMLFewShotLearner(dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, use_pallas_fused_norm=False)))
+    api = ServingAPI(learner, istate, ServeConfig())
+    server = make_http_server(api, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        if http_call(f"{base}/healthz")[0] != 503:
+            fail("[serve_http] /healthz answered other than 503 before warmup")
+        api.warmup([(5, 1, 15)])
+        if http_call(f"{base}/healthz")[0] != 200:
+            fail("[serve_http] /healthz answered other than 200 after warmup")
+
+        raw = make_episodes(np.random.RandomState(0), 32)
+        repeat = raw.pop(16)  # episode 0's support set, new queries
+        fn.reset_launch_counts()
+        before = metric_counts(api.metrics)
+        answers, wall = post_concurrently(base, raw)
+        status, body, _ = http_call(f"{base}/v1/episode", episode_json(*repeat))
+        answers.append((status, json.loads(body)))
+        launches = dict(fn.launch_counts)
+        want, misses, hits_only = expected_serve_launches(api.metrics, before)
+        if launches != want:
+            fail(f"[serve_http] launches {launches} over {misses} cache-miss and "
+                 f"{hits_only} cache-hit dispatches, expected {want}")
+        if any(s != 200 for s, _ in answers):
+            fail(f"[serve_http] statuses {[s for s, _ in answers]}")
+        if not answers[-1][1]["cache_hit"] or any(b["cache_hit"] for _, b in answers[:-1]):
+            fail("[serve_http] the repeated support set, and only it, must hit the cache")
+        raw.append(repeat)
+        got = [np.asarray(b["logits"], np.float32) for _, b in answers]
+        held = hold_episodes(torch, got, learner, plain_learner, istate, raw,
+                             "[serve_http]")
+        text = http_call(f"{base}/metrics")[1].decode()
+        quantiles = scrape_quantiles(text)
+        if 'maml_serve_program_compiles{program="adapt:4x5"} 1' not in text:
+            fail("[serve_http] /metrics lacks the adapt:4x5 signature")
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_promote_") as tmp:
+            ckpt, bad = os.path.join(tmp, "train_model_7"), os.path.join(tmp, "corrupt")
+            learner.save_model(ckpt, learner.init_state(torch.Generator().manual_seed(7)),
+                               {"current_iter": 0})
+            status, body, _ = http_call(f"{base}/admin/promote", {"checkpoint": ckpt})
+            promoted = json.loads(body)
+            if status != 200 or promoted["state_version"] != 1:
+                fail(f"[serve_http] promote answered {status} {promoted}")
+            probe = episode_json(*raw[1])
+            _, after, _ = http_call(f"{base}/v1/episode", probe)
+            after = json.loads(after)
+            shutil.copy(ckpt, bad)
+            with open(bad, "r+b") as f:
+                f.truncate(128)
+            status, body, _ = http_call(f"{base}/admin/promote", {"checkpoint": bad})
+            if status != 409 or json.loads(body)["reason"] != "corrupt_checkpoint":
+                fail(f"[serve_http] a corrupt checkpoint's promote answered {status} {body!r}")
+            api.engine.cache.clear()  # so that the promoted state adapts again
+            _, still, _ = http_call(f"{base}/v1/episode", probe)
+            still = json.loads(still)
+            health = json.loads(http_call(f"{base}/healthz")[1])
+            if (after["state_version"], still["state_version"]) != (1, 1) or still["cache_hit"]:
+                fail(f"[serve_http] versions {after['state_version']}, "
+                     f"{still['state_version']}; second answer cache_hit {still['cache_hit']}")
+            if still["logits"] != after["logits"]:
+                fail("[serve_http] the promoted state's logits moved after a rejected promote")
+            if after["logits"] == answers[1][1]["logits"]:
+                fail("[serve_http] the promoted state answered the old state's logits")
+            if health["checkpoint_digest"] != checkpoint_digest(ckpt):
+                fail("[serve_http] /healthz does not name the promoted checkpoint")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        api.close()
+    return {
+        "episodes": len(raw),
+        "clients": 4,
+        "episodes_per_s": (len(raw) - 1) / wall,
+        **quantiles,
+        "dispatches": misses + hits_only,
+        "cache_miss_dispatches": misses,
+        "cache_hit_dispatches": hits_only,
+        **held,
+        "promote": {"state_version": promoted["state_version"],
+                    "buckets_canaried": promoted["buckets_canaried"],
+                    "corrupt_copy": 409, "logits_unmoved": True},
+        "launches": launches,
+    }
+
+
+def serve_cli_phase(torch) -> dict:
+    """``python3 -m howtotrainyourmamlpytorch_tpu_torch.serve_maml`` on the
+    flagship JSON with ``--use_pallas_fused_norm True --init_from_scratch
+    --port 0 --port_file <file> --warmup 5x1x15`` as a subprocess: it names
+    its port, answers ``/healthz`` and one episode, and exits 0 on
+    SIGTERM. The process is killed if anything fails."""
+    import signal
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_cli_") as tmp:
+        port_file = os.path.join(tmp, "serve.port")
+        log_path = os.path.join(tmp, "serve.log")
+        cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve_maml",
+               "--config", FLAGSHIP, "--init_from_scratch", "--port", "0",
+               "--port_file", port_file, "--warmup", "5x1x15",
+               "--use_pallas_fused_norm", "True"]
+        with open(log_path, "w") as log:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            while not os.path.exists(port_file):
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    fail(f"[serve_cli] the server did not come up:\n{open(log_path).read()}")
+                time.sleep(0.05)
+            ready_s = time.perf_counter() - t0
+            with open(port_file) as f:
+                base = f"http://127.0.0.1:{f.read().strip()}"
+            status, body, _ = http_call(f"{base}/healthz")
+            if status != 200 or not json.loads(body)["ready"]:
+                fail(f"[serve_cli] /healthz answered {status} {body!r}")
+            t1 = time.perf_counter()
+            status, body, _ = http_call(
+                f"{base}/v1/episode",
+                episode_json(*make_episodes(np.random.RandomState(2), 2)[0]))
+            episode_ms = (time.perf_counter() - t1) * 1e3
+            logits = np.asarray(json.loads(body).get("logits", []), np.float32)
+            if status != 200 or logits.shape != (15, 5) or not np.isfinite(logits).all():
+                fail(f"[serve_cli] the episode answered {status}, logits {logits.shape}")
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+            if code != 0:
+                fail(f"[serve_cli] exit code {code} on SIGTERM:\n{open(log_path).read()}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        lines = open(log_path).read().splitlines()
+    return {"ready_s": ready_s, "first_episode_ms": episode_ms, "exit_code": code,
+            "log": [line for line in lines if line.startswith(("serving", "warming"))]}
+
+
+def north_star_episodes(rng, count):
+    """Normalised 84x84 RGB episodes of bucket 5x5x15."""
+    return [(rng.randn(5, 5, 3, 84, 84).astype(np.float32),
+             np.tile(np.arange(5)[:, None], (1, 5)),
+             rng.randn(15, 3, 84, 84).astype(np.float32)) for _ in range(count)]
+
+
+def serve_api_north_star_phase(torch, fn) -> dict:
+    """The north-star JSON (``use_pallas_fused_norm``) through
+    ``ServingAPI`` with ``ServeConfig`` defaults, warmed at 5x5x15: 8
+    episodes from 4 threads, launches held exactly to the dispatches the
+    metrics counted, logits held to the plain-norm engine and to a fresh
+    engine bit for bit."""
+    import threading
+
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+    from howtotrainyourmamlpytorch_tpu_torch.serve import ServeConfig, ServingAPI
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import load_maml_config
+
+    cfg = load_maml_config(NORTH_STAR, use_pallas_fused_norm=True)
+    learner = MAMLFewShotLearner(cfg)
+    istate = learner.init_inference_state(torch.Generator().manual_seed(104))
+    plain_learner = MAMLFewShotLearner(dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, use_pallas_fused_norm=False)))
+    api = ServingAPI(learner, istate, ServeConfig())
+    raw = north_star_episodes(np.random.RandomState(1), 8)
+    answers = [None] * len(raw)
+
+    def client(c):
+        for i in range(c, len(raw), 4):
+            answers[i] = api.classify(*raw[i])
+
+    try:
+        api.warmup([(5, 5, 15)])
+        fn.reset_launch_counts()
+        before = metric_counts(api.metrics)
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = dict(fn.launch_counts)
+        if None in answers:
+            fail("[serve_api_north_star] a client did not finish")
+        want, misses, hits_only = expected_serve_launches(api.metrics, before)
+        if launches != want or hits_only:
+            fail(f"[serve_api_north_star] launches {launches} over {misses} cache-miss "
+                 f"and {hits_only} cache-hit dispatches, expected {want}")
+        if {a["bucket"] for a in answers} != {"5x5x15"}:
+            fail(f"[serve_api_north_star] buckets {[a['bucket'] for a in answers]}")
+        held = hold_episodes(torch, [a["logits"] for a in answers], learner,
+                             plain_learner, istate, raw, "[serve_api_north_star]",
+                             chaotic=True)
+        quantiles = scrape_quantiles(api.metrics_text())
+    finally:
+        api.close()
+    return {"episodes": len(raw), "clients": 4, "episodes_per_s": len(raw) / wall,
+            **quantiles, "dispatches": misses, **held, "launches": launches}
 
 
 def train_batch(rng, tasks=8):
@@ -1916,6 +2289,20 @@ def print_graph(phase, tag, g) -> None:
           + f" | peak_mem_gb {g['peak_mem_gb']:.3f} | {json.dumps(g)}", flush=True)
 
 
+def print_serve(name, r) -> None:
+    """A serving front-door phase's line: episodes/s, the latency
+    quantiles scraped from /metrics, the gaps to the plain engine, then
+    everything as JSON."""
+    print(f"[{name}] episodes_per_s {r['episodes_per_s']:.2f} ({r['episodes']} episodes, "
+          f"{r['clients']} clients) | ms p50/p99 adapt {r['adapt_p50_ms']:.2f}/"
+          f"{r['adapt_p99_ms']:.2f} classify {r['classify_p50_ms']:.2f}/"
+          f"{r['classify_p99_ms']:.2f} request {r['request_p50_ms']:.2f}/"
+          f"{r['request_p99_ms']:.2f} | vs plain engine median "
+          f"{r['episode_median_abs_err_vs_plain']:.3e} max "
+          f"{r['episode_max_abs_err_vs_plain']:.3e}, bitwise vs a fresh engine | "
+          f"{PHASE_SECONDS[name]:.1f} s | {json.dumps(r)}", flush=True)
+
+
 def print_cli(name, r) -> None:
     """A CLI phase's line: per step (the synchronized call), the whole
     loop of each unsynchronized call, eval ms, peak memory, launches per
@@ -1981,10 +2368,13 @@ def main() -> int:
     print(f"[kernels] {STREAMED_SHAPE} streamed ms graph/plain graph/bound/eager/"
           f"plain eager {kernel_cells(streamed)} | var_mean graph="
           f"{streamed['bn_stats']['library_ms']:.4f}", flush=True)
-    errs = {
-        k: max(r[k]["max_abs_err"] for r in [*per_shape.values(), streamed] if k in r)
+    cases = [*per_shape.items(), ((STREAMED_SHAPE, "streamed"), streamed)]
+    worst = {
+        k: max(((r[k]["max_abs_err"], case) for case, r in cases if k in r),
+               key=lambda e: e[0])
         for k in fn.KERNELS if k != "bn_act_pool_apply"
     }
+    errs = {k: e for k, (e, _) in worst.items()}
     pool = {}
     for shape in POOL_SHAPES:
         pool[shape] = r = check_and_time_pool(torch, fn, shape, gen, timing_reps(shape))
@@ -1993,7 +2383,8 @@ def main() -> int:
               f"{r['bound_ms']:.4f}/{r['eager_ms']:.4f}/{r['eager_plain_ms']:.4f}"
               f" max_abs_err {r['max_abs_err']:.3e}", flush=True)
     errs["bn_act_pool_apply"] = max(r["max_abs_err"] for r in pool.values())
-    print(f"[kernels] max_abs_err over all shapes {errs}")
+    print(f"[kernels] max_abs_err over all shapes {errs}, each at (shape, slope) "
+          f"{ {k: case for k, (_, case) in worst.items()} }")
     functions = check_functions(torch, fn, gen)
     PHASE_SECONDS["kernels"] = time.perf_counter() - t_kernels
     print(f"[functions] max_abs_err vs plain composition {json.dumps(functions)}",
@@ -2009,6 +2400,19 @@ def main() -> int:
             resnet_serve = serve_phase(torch, fn, RESNET12, RESNET_SERVE_LAUNCHES,
                                        chaotic=True)
         print(f"[resnet_serve] {json.dumps(resnet_serve)}", flush=True)
+        # The serving runtime's front door: HTTP, the command line, and the
+        # in-process API at north-star width.
+        with phase_timer("serve_http"):
+            serve_http = serve_http_phase(torch, fn)
+        print_serve("serve_http", serve_http)
+        with phase_timer("serve_cli"):
+            serve_cli = serve_cli_phase(torch)
+        print(f"[serve_cli] ready after {serve_cli['ready_s']:.1f} s, first episode "
+              f"{serve_cli['first_episode_ms']:.1f} ms, exit {serve_cli['exit_code']} on "
+              f"SIGTERM | {json.dumps(serve_cli)}", flush=True)
+        with phase_timer("serve_api_north_star"):
+            serve_north = serve_api_north_star_phase(torch, fn)
+        print_serve("serve_api_north_star", serve_north)
 
         # 4. train
         with phase_timer("train"):
@@ -2100,6 +2504,7 @@ def main() -> int:
             "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_norm.cu",
             "replaces": REPLACES[name],
             "launches": serve["launches"][name] + resnet_serve["launches"][name]
+            + serve_http["launches"][name] + serve_north["launches"][name]
             + train["launches"][name]
             + sum(r["launches"][name] for r in cli.values()),
             "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],

@@ -22,7 +22,8 @@ replays the train step captured as a CUDA graph (``models/step_graph.py``),
 ``run_train_iter`` being the dispatch of one; on the CPU the eager step runs
 K times.
 
-Serving (``serve_adapt``/``serve_classify``) and eval
+Serving (``serve_adapt``, its masked twin for geometry-padded support
+sets, ``serve_classify``) and eval
 (``run_validation_iter``) adapt at first order with the fast weights
 detached every step.
 """
@@ -37,7 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..inner_loop import init_lslr, lslr_update
-from ..ops.losses import nll
+from ..ops.losses import masked_cross_entropy, nll
 from ..utils.platform import resolve_device, set_f32_numerics
 from ..utils.trees import (
     merge,
@@ -621,6 +622,17 @@ class MAMLFewShotLearner(CheckpointableLearner):
         dtype), ``y_support`` ``(T, N)``. Returns the fast-weight tree (the
         adapted leaves with a leading ``T`` axis, ``None`` where frozen),
         detached. Runs with autograd on even under ``torch.no_grad()``."""
+        return self._serve_adapt(istate, x_support, y_support, None)
+
+    def serve_adapt_masked(self, istate: MAMLInferenceState, x_support,
+                           y_support, support_mask):
+        """``serve_adapt`` of geometry-padded support sets
+        (``serve/geometry.py``, JAX ``maml.py:1175-1186``): rows where
+        ``support_mask`` ``(T, N)`` is 0 add exactly zero to each task's
+        inner loss and its gradient (``ops/losses.masked_cross_entropy``)."""
+        return self._serve_adapt(istate, x_support, y_support, support_mask)
+
+    def _serve_adapt(self, istate, x_support, y_support, support_mask):
         tasks = x_support.shape[0]
         adapt0, frozen = partition(istate.theta, self.adapt_mask(istate.theta))
         adapt0 = cast_floats(adapt0, self.cfg.dtype)
@@ -637,7 +649,13 @@ class MAMLFewShotLearner(CheckpointableLearner):
                 logits, _ = self.backbone.apply(
                     merge(fast, frozen), None, x, step, fused=self._fused()
                 )
-                loss = nll(logits, y).mean(dim=-1).sum()
+                if support_mask is None:
+                    loss = nll(logits, y).mean(dim=-1).sum()
+                else:
+                    loss = torch.stack([
+                        masked_cross_entropy(*task)
+                        for task in zip(logits, y, support_mask)
+                    ]).sum()
                 grads = torch.autograd.grad(loss, leaves)
                 fast = lslr_update(
                     fast, tree_unflatten(adapt0, grads), istate.lslr, step

@@ -109,3 +109,20 @@ def test_chip_smoke_fails_without_a_card():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_serving_slice_modules_are_in_the_import_check():
+    """The modules of the serving runtime's front door are among those the
+    import check walks, and its public names exist."""
+    from howtotrainyourmamlpytorch_tpu_torch import serve
+
+    modules = _port_modules()
+    for name in ("serve.api", "serve.batcher", "serve.cache", "serve.engine",
+                 "serve.errors", "serve.geometry", "serve.metrics",
+                 "serve.resilience.admission", "serve.resilience.swap",
+                 "telemetry.events", "telemetry.registry", "data.synth_geometry",
+                 "serve_maml"):
+        assert f"{port.__name__}.{name}" in modules
+    assert {"ServingAPI", "make_http_server", "MicroBatcher", "ServeMetrics",
+            "ServeConfig", "EpisodeRequest", "ServingEngine", "SwapRejectedError",
+            "DeadlineExceededError", "OverloadedError"} <= set(serve.__all__)

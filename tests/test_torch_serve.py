@@ -146,12 +146,13 @@ def test_engine_dispatch_matches_jax_with_padding_and_cache_hit(learners, rng):
         np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
     again = engine.dispatch(eps[:1])  # adapted weights from the cache
     np.testing.assert_array_equal(again[0], got[0])
-    stats = engine.stats
-    assert (stats.cache_misses, stats.cache_hits) == (3, 1)
-    assert (stats.padded_tasks, stats.episodes_served) == (4, 4)
-    assert len(stats.adapt_ms) == 1 and len(stats.classify_ms) == 2
+    m = engine.metrics
+    assert (m.cache_misses.value, m.cache_hits.value) == (3, 1)
+    assert (m.padded_tasks.value, m.episodes_served.value) == (4, 4)
+    assert m.adapt_latency.snapshot()["count"] == 1
+    assert m.classify_latency.snapshot()["count"] == 2
     assert len(engine.cache) == 3
-    assert stats.nonfinite_episodes == 0 and len(stats.margins) == 4
+    assert m.nonfinite_logits_total.value == 0
     # Padding is invisible: each episode alone gives the same logits.
     alone = ServingEngine(learner, state, ServeConfig(meta_batch_size=1),
                           device="cpu")
