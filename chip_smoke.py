@@ -200,10 +200,48 @@ Phases, in order; any failure exits non-zero before the result lines:
              ``--iters_per_dispatch 5`` past an MSL horizon of 2; launches
              per train and eval iteration held to CLI_RESNET12_*
              (tests/test_torch_resnet.py counts them on the CPU).
-10. result - a [replay] line with each captured graph's kernel nodes, each
-             phase's seconds, one JSON line listing the kernels, the
-             nvidia-smi line, and the last line ``{"ok": true, "device":
-             {...}}``.
+   kernels_bf16 - (after the functions phase) all four kernels on
+             bfloat16 x and cotangent at the bf16 flagship's shapes (5, 512,
+             28|14|7|3), K5 at the pooled two, against their bfloat16 plain
+             versions on the same inputs and statistics: mean and var within
+             1e-5 of the plain ones' largest value, y, dx and the pooled y
+             per element within one bfloat16 ulp (+ 1e-5 near 0) with a
+             median gap of 0, dgamma and dbeta at the float32 bar; graph
+             replay times against bounds at 2-byte I/O.
+10. compute options - the MAML learner's options, on the Omniglot tree of
+             phase 8:
+             graph bf16: the graph phase on the bf16 flagship JSON
+             (``experiment_config_local/omniglot_maml++-omniglot-bf16_1_8_0.1_64_5_1.json``)
+             with ``compute_dtype`` bfloat16: replays bitwise equal to eager
+             steps on both branches, kernel nodes held to the flagship's
+             counts. cli bf16: ``train_maml_system.main`` on that JSON with
+             the three fused flags, first at ``--compute_dtype float32`` (2
+             epochs of 25 iterations), then at ``bfloat16``: 2 epochs of 25
+             with 80 validation tasks and the ensemble, ``latest`` to a 3rd
+             epoch at K=1 and a 4th at K=5; launches per iteration the
+             flagship's, the first 50 losses finite and within JAX's bf16
+             bar (rtol 0.1, atol 0.05) of the float32 run's. device augment:
+             the flagship CLI with ``--device_augment True`` against host
+             rotation, 3 replayed iterations and the checkpoint bitwise
+             equal. task chunk: the flagship at ``task_chunk`` 2 and 4, the
+             north star at 1, each against its full batch from one state:
+             the first loss within 1e-5 relative, the meta-gradient at the
+             GRAD bar, a K=5 dispatch's losses within 1e-5, launches per
+             replay the full batch's per chunk, peak memory of each. lane
+             pad: the north star at ``lane_pad_channels`` (48 -> 64)
+             against unpadded from the same weights: served episodes and
+             eval logits within twice the unpadded engine's one-ulp spread
+             (chaotic from random weights), the first step under the train
+             phase's tolerances with a zero gradient on the padding, replay
+             ms and launches, a padded checkpoint into an unpadded learner
+             and back bit for bit. Every (shape, slope, dtype) a kernel ran
+             at is in ``[coverage]``, and each kernel must have run in
+             bfloat16 on a main path.
+11. result - a [replay] line with each captured graph's kernel nodes, each
+             phase's seconds, one JSON line listing the kernels (with their
+             bfloat16 ms, bound, largest error and ulps, and launches in
+             the bf16 CLI), the nvidia-smi line, and the last line
+             ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX; exits non-zero without a CUDA device.
 """
@@ -295,10 +333,22 @@ NORTH_STAR_SERVE_SHAPES = [(n, 192, hw, hw) for n in (25, 15) for hw in (84, 42,
 # The VGG without max pooling (stride-2 convs, the flagship's width): 8
 # tasks x 64 filters at 14, 7, 4 and 2 pixels, none pooled.
 STRIDE2_SHAPES = [(5, 512, hw, hw) for hw in (14, 7, 4, 2)]
+# The task_chunk phase's chunks: the flagship's 8 tasks 2 and 4 at a time
+# (2|4 tasks x 64 filters folded; 256 channels are the serve shapes'), the
+# north star's 2 tasks one at a time (48 channels).
+CHUNK_SHAPES = ([(5, 128, hw, hw) for hw in (28, 14, 7, 3)]
+                + [(n, 48, hw, hw) for n in (25, 75) for hw in (84, 42, 21, 10)])
+# The north star lane-padded, 48 -> 64 filters: 2 tasks fold 128 channels
+# in training and eval, 4 fold 256 served at meta-batch 4 (the lane_pad
+# phase serves through the pooled op, so the unpadded 192 channels run K5
+# too).
+PADDED_SHAPES = [(n, 128, hw, hw) for n in (25, 75) for hw in (84, 42, 21, 10)]
+PADDED_SERVE_SHAPES = [(n, 256, hw, hw) for n in (25, 15) for hw in (84, 42, 21, 10)]
 KERNEL_SHAPES = (FLAGSHIP_SHAPES + TRAIN_SHAPES + [NORTH_STAR_SHAPE, NORTH_STAR_TARGET]
                  + NORTH_STAR_STAGES + ZOO_SHAPES
                  + [s for s in STRIDE2_SHAPES if s not in TRAIN_SHAPES]
-                 + NORTH_STAR_SERVE_SHAPES)
+                 + NORTH_STAR_SERVE_SHAPES + CHUNK_SHAPES + PADDED_SHAPES
+                 + PADDED_SERVE_SHAPES)
 # The VGG's LeakyReLU slope and ResNet-12's.
 SLOPE, RESNET_SLOPE = 0.01, 0.1
 RESNET12 = os.path.join(
@@ -317,7 +367,10 @@ RESNET_SERVE_SHAPES = [(n, 4 * w, hw, hw) for n in (5, 15) for w, hw in RESNET_S
 KERNEL_CASES = ([(s, SLOPE) for s in KERNEL_SHAPES]
                 + [(s, RESNET_SLOPE) for s in RESNET_TRAIN_SHAPES + RESNET_SERVE_SHAPES])
 POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE, NORTH_STAR_TARGET,
-               *(s for s in NORTH_STAR_STAGES if s[2] % 2 == 0), *ZOO_SHAPES[:2]]
+               *(s for s in NORTH_STAR_STAGES if s[2] % 2 == 0), *ZOO_SHAPES[:2],
+               *(s for s in FLAGSHIP_SHAPES[:2] + CHUNK_SHAPES + PADDED_SHAPES
+                 + NORTH_STAR_SERVE_SHAPES + PADDED_SERVE_SHAPES
+                 if s[2] % 2 == 0 and s[2] > 3)]
 # Launches of each kernel per serve dispatch of 4 episodes (4 stages x (5
 # adapt steps + 1 classify) forwards, 5 x 4 backwards) and per flagship
 # MSL train iteration (5 steps x support and target x 4 stages; stages 0-1
@@ -457,6 +510,30 @@ FLOPS_PER_ELEMENT = {
 TENSORS = {"bn_stats": 1, "bn_stats_act": 2, "bn_act_bwd": 3, "bn_act_pool_apply": 1.25}
 VECTORS = {"bn_stats": 2, "bn_stats_act": 4, "bn_act_bwd": 6, "bn_act_pool_apply": 4}
 PALLAS = "howtotrainyourmamlpytorch_tpu/ops/pallas_fused_norm.py"
+
+# The MAML learner's compute options. The bf16 flagship: the flagship's
+# hyperparameters, train seed 1, run with --compute_dtype bfloat16.
+BF16_CONFIG = os.path.join(
+    REPO, "experiment_config_local", "omniglot_maml++-omniglot-bf16_1_8_0.1_64_5_1.json"
+)
+BF16_ARGV = ["--compute_dtype", "bfloat16"]
+# Its kernel shapes are the f32 flagship's train stages, in bfloat16, for
+# training, its validation and its ensemble test alike: all four kernels
+# at slope 0.01, K5 at the two pooled stages.
+BF16_SHAPES = TRAIN_SHAPES
+BF16_POOL_SHAPES = TRAIN_SHAPES[:2]
+# A bf16 kernel against its bf16 plain version on the same input (both
+# compute in float32 and round once): the float32 statistics within
+# BF16_STAT_RTOL of the plain ones' largest value; y and dx per element
+# within one bfloat16 unit in the last place of the plain element (two
+# float32 values within one ulp round at most one apart), plus ATOL where
+# the two float32 results cancel to near 0, with a median gap of 0;
+# dgamma and dbeta at the float32 bar.
+BF16_STAT_RTOL = 1e-5
+# A bf16 run's loss against the float32 run's: JAX's own bf16 bar
+# (tests/test_bf16.py:88-143).
+BF16_LOSS_RTOL, BF16_LOSS_ATOL = 0.1, 0.05
+
 REPLACES = {
     "bn_stats": f"{PALLAS}:147,248",
     "bn_stats_act": f"{PALLAS}:93,183,194",
@@ -539,12 +616,15 @@ def one_ulp(torch, tree, seed: int):
     return tree_map(move, tree)
 
 
-def bound_ms(name: str, shape) -> tuple[float, str]:
+def bound_ms(name: str, shape, elem_bytes: int = 4) -> tuple[float, str]:
     """Least time for the work: bytes each input read once and each output
-    written once, against float32 operations at the non-tensor peak."""
+    written once (full-size tensors at ``elem_bytes`` an element, 2 for
+    bfloat16; per-channel vectors float32), against float32 operations at
+    the non-tensor peak (the kernels compute in float32 either way)."""
     n, c, h, w = shape
     elems = n * c * h * w
-    t_bytes = 4 * (TENSORS[name] * elems + VECTORS[name] * c) / PEAK_BYTES_PER_S * 1e3
+    t_bytes = (elem_bytes * TENSORS[name] * elems + 4 * VECTORS[name] * c) \
+        / PEAK_BYTES_PER_S * 1e3
     t_ops = FLOPS_PER_ELEMENT[name] * elems / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1447,7 +1527,7 @@ def eager_steps(learner, state, batches, epoch):
 def graph_phase(torch, fn, cases=None) -> dict:
     """The captured train step against the eager one at both widths (or
     ``cases``: (tag, config, batch maker, MSL and final-only launches per
-    iteration)), remat on: bit for bit across both branches and an epoch
+    iteration[, JSON keys])), remat on: bit for bit across both branches and an epoch
     change, a held state unchanged, every captured launch on the capture's
     stream; then capture, replay and eager times."""
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
@@ -1467,7 +1547,7 @@ def graph_phase(torch, fn, cases=None) -> dict:
     out = {}
     fn._stream = recording_stream
     try:
-        for tag, config, make, msl, final in cases or (
+        for tag, config, make, msl, final, *overrides in cases or (
             ("flagship", FLAGSHIP, train_batch, CLI_FLAGSHIP_TRAIN,
              CLI_FLAGSHIP_TRAIN_FINAL),
             ("north_star", NORTH_STAR, north_star_batch, CLI_NORTH_TRAIN,
@@ -1475,7 +1555,7 @@ def graph_phase(torch, fn, cases=None) -> dict:
         ):
             captured_streams.clear()
             torch.cuda.reset_peak_memory_stats()
-            base, _ = fused_and_plain(config)
+            base, _ = fused_and_plain(config, **(overrides[0] if overrides else {}))
             # An MSL horizon of 2 puts epoch 2 on the final-only branch. The
             # north star's schedule starts at its floor (constant 1e-3): a
             # floor a hundredth of the start makes the learning rate move.
@@ -1811,6 +1891,8 @@ class CliProbe:
             rec = {"t0": t0, "t1": t1, "synchronized": self.sync,
                    "launches": {k: self.fn.launch_counts[k] - before[k]
                                 for k in before}}
+            if train:  # each meta-update's loss, read after the phase
+                rec["loss"] = out[1]["loss"]
             if train and not hasattr(learner, "_step_graphs"):
                 rec.update(iterations=1, k=self.k, final_only=False, per_replay=None,
                            captured={}, replayed=None, iteration=self.next_iteration)
@@ -1919,7 +2001,8 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
     ``calls`` (extra JSON keys, extra argv, whether the probe synchronizes
     after each learner call, K, ``--device_prefetch``); after each, holds
     each graph it captured to its kernel nodes (``check_replay``). Returns the
-    phase's measurements. The directory is removed at the end."""
+    phase's measurements, each meta-update's train loss and the last
+    checkpoint's arrays. The directory is removed at the end."""
     import tempfile
 
     from howtotrainyourmamlpytorch_tpu_torch.data.fast_synth import native_available
@@ -1997,6 +2080,10 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
             fail(f"{name}: wrapper launches {wrappers}, expected {counted}")
         with open(os.path.join(logs, "summary_statistics.json")) as f:
             stats = json.load(f)
+        with np.load(os.path.join(tmp, "experiment", "saved_models",
+                                  "train_model_latest")) as z:
+            archive = {k: z[k] for k in z.files if not k.startswith("__")}
+        train_losses = torch.cat([r["loss"].reshape(-1).float() for r in probe.train])
         with open(os.path.join(logs, "summary_statistics.csv")) as f:
             csv_rows = len(f.read().splitlines()) - 1
         losses = [v for k, vs in stats.items() if "loss" in k and "importance" not in k
@@ -2030,6 +2117,8 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
             "wrapper_launches": wrappers,
             "launches_per_train_iter": {"msl": want_train, "final_only": want_train_final},
             "launches_per_eval_iter": want_eval,
+            "train_losses": train_losses.cpu().tolist(),
+            "archive": archive,
         }
 
 
@@ -2205,6 +2294,368 @@ def backbone_options_phase(torch, fn) -> dict:
     return out
 
 
+def bf16_gap(torch, got, want) -> tuple[float, float, float]:
+    """``(largest gap over its bar, median gap, largest gap in bfloat16
+    ulps)`` of bfloat16 ``got`` against ``want``: the bar of each element is
+    one bfloat16 ulp of ``want`` plus ATOL."""
+    gap = (got.float() - want.float()).abs()
+    _, exponent = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(gap), exponent - 8)
+    return (float((gap / (ulp + ATOL)).max()), float(gap.median()),
+            float((gap / ulp).max()))
+
+
+def check_bf16_kernels(torch, fn, shape, gen, pool: bool, slope=SLOPE) -> dict:
+    """All four kernels on bfloat16 ``x`` and cotangent at ``shape`` (K5
+    where ``pool``), against their bfloat16 plain versions on the same
+    inputs and statistics (``BF16_*`` bars), two calls bitwise equal, both
+    forward entries' statistics bitwise equal; then graph-replay times at
+    2-byte I/O bounds."""
+    x32, gamma, beta = _inputs(torch, shape, gen)
+    x = x32.to(torch.bfloat16)
+    g = torch.randn(shape, device=x.device, generator=gen).to(torch.bfloat16)
+    eps = fn.EPS
+    y, mean, var = fn.bn_stats_act(x, gamma, beta, eps, slope)
+    stats = fn.bn_stats(x)
+    bwd = fn.bn_act_bwd(x, g, mean, var, gamma, beta, eps, slope)
+    again = fn.bn_act_bwd(x, g, mean, var, gamma, beta, eps, slope)
+    pooled = fn.bn_act_pool_apply(x, mean, var, gamma, beta, eps, slope) if pool else None
+    torch.cuda.synchronize()
+    if y.dtype != torch.bfloat16 or bwd[0].dtype != torch.bfloat16:
+        fail(f"bf16 kernels at {shape} returned {y.dtype} and {bwd[0].dtype}")
+    if not all(torch.equal(a, b) for a, b in zip((mean, var, *bwd), (*stats, *again))):
+        fail(f"bf16 kernels at {shape}: two calls or the two forward entries differ")
+    p_mean, p_var = fn.plain_stats(x)
+    p_dx, p_dgamma, p_dbeta = fn.plain_bwd(x, g, mean, var, gamma, beta, eps, slope)
+    errs = {}
+    for name, got, want in (("mean", mean, p_mean), ("var", var, p_var)):
+        err = float((got - want).abs().max())
+        if err > BF16_STAT_RTOL * float(want.abs().max()):
+            fail(f"bn_stats in bf16 at {shape}: {name} off by {err}")
+        errs[name] = err
+    full = [("y", y, fn.plain_apply(x, mean, var, gamma, beta, eps, slope)),
+            ("dx", bwd[0], p_dx)]
+    if pool:
+        full.append(("pooled", pooled, fn.plain_pool_apply(x, mean, var, gamma, beta,
+                                                            eps, slope)))
+    for name, got, want in full:
+        over, median, ulps = bf16_gap(torch, got, want)
+        if over > 1.0 or median != 0.0:
+            fail(f"bf16 kernels at {shape} slope {slope}: {name} past one bfloat16 "
+                 f"ulp (+{ATOL}) by {over}x, median gap {median}")
+        errs[name] = float((got.float() - want.float()).abs().max())
+        errs[f"{name}_ulps"] = ulps
+    for name, got, want in (("dgamma", bwd[1], p_dgamma), ("dbeta", bwd[2], p_dbeta)):
+        err, ok = err_ok(got, want)
+        if not ok:
+            fail(f"bn_act_bwd in bf16 at {shape}: {name} off by {err}")
+        errs[name] = err
+    runs = {
+        "bn_stats": (lambda: fn.bn_stats(x), lambda: fn.plain_stats(x),
+                     ("mean", "var")),
+        "bn_stats_act": (lambda: fn.bn_stats_act(x, gamma, beta, eps, slope),
+                         lambda: fn.plain_apply(x, *fn.plain_stats(x), gamma, beta,
+                                                eps, slope), ("y", "mean", "var")),
+        "bn_act_bwd": (lambda: fn.bn_act_bwd(x, g, mean, var, gamma, beta, eps, slope),
+                       lambda: fn.plain_bwd(x, g, mean, var, gamma, beta, eps, slope),
+                       ("dx", "dgamma", "dbeta")),
+    }
+    if pool:
+        runs["bn_act_pool_apply"] = (
+            lambda: fn.bn_act_pool_apply(x, mean, var, gamma, beta, eps, slope),
+            lambda: fn.plain_pool_apply(x, mean, var, gamma, beta, eps, slope),
+            ("pooled",))
+    calls = max(2, timing_reps(shape) // 5)
+    out = {}
+    for name, (kernel, plain, keys) in runs.items():
+        b, by = bound_ms(name, shape, elem_bytes=2)
+        out[name] = {
+            "max_abs_err": max(errs[k] for k in keys),
+            "max_ulps": max((errs.get(f"{k}_ulps", 0.0) for k in keys)),
+            "ms": graph_ms(torch, kernel, calls), "plain_ms": graph_ms(torch, plain, calls),
+            "bound_ms": b, "bound_by": by,
+        }
+    return out
+
+
+def cli_bf16_phase(torch, fn, dataset_dir) -> dict:
+    """``train_maml_system.main`` on the bf16 flagship JSON with the three
+    fused flags over the Omniglot tree in ``dataset_dir``, MSL horizon 2:
+    first at ``--compute_dtype float32`` (2 epochs of 25 iterations, the
+    reference), then at ``--compute_dtype bfloat16``: 2 epochs of 25
+    iterations with 80 validation tasks and the ensemble, ``latest`` to a
+    3rd epoch at K=1 and to a 4th at K=5 (both final-only). Launches per
+    iteration held to the flagship's counts (the dtype routes nothing
+    elsewhere); every loss finite; within JAX's bf16 bar of the float32
+    run: the first iteration's loss (one state, one batch: the dtype alone)
+    and both epochs' mean train and validation losses. Past the first
+    update the two runs' losses part iteration by iteration: Adam moves
+    every parameter by about its learning rate whatever the gradient's
+    size, so a rounding-level difference in a near-zero gradient becomes a
+    full step (the task_chunk phase's float32 reassociation moves the
+    second loss by 2%); the per-iteration gaps over the first 50 are
+    printed."""
+    per_epoch = 25
+    latest = ["--continue_from_epoch", "latest"]
+    base = {"dataset_name": "omniglot_synth", "total_epochs": 2,
+            "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 80,
+            "multi_step_loss_num_epochs": 2}
+    want = (CLI_FLAGSHIP_TRAIN, CLI_FLAGSHIP_TRAIN_FINAL, CLI_FLAGSHIP_EVAL)
+    f32 = cli_phase(torch, fn, "cli_bf16_f32", BF16_CONFIG, write_omniglot_tree, base,
+                    [({}, ["--compute_dtype", "float32"], True, 1, -1)], *want,
+                    dataset_dir=dataset_dir)
+    out = cli_phase(
+        torch, fn, "cli_bf16", BF16_CONFIG, write_omniglot_tree, base,
+        [({}, BF16_ARGV, True, 1, -1),
+         ({"total_epochs": 3}, latest + BF16_ARGV, False, 1, -1),
+         ({"total_epochs": 4}, latest + BF16_ARGV, False, GRAPH_ITERS, -1)],
+        *want, dataset_dir=dataset_dir,
+    )
+    if out["epochs"] != 4 or [c["first_iteration"] for c in out["calls"]] != [
+            0, 2 * per_epoch, 3 * per_epoch]:
+        fail(f"cli_bf16: {out['epochs']} CSV rows, calls at {out['calls']}")
+    losses = np.asarray(out["train_losses"])
+    ref = np.asarray(f32["train_losses"])
+    n = 2 * per_epoch
+    if len(losses) != 4 * per_epoch or len(ref) != n or not np.isfinite(losses).all():
+        fail(f"cli_bf16: {len(losses)} bf16 and {len(ref)} float32 losses")
+    gap = np.abs(losses[:n] - ref)
+    means = [(out[key][:2], f32[key]) for key in ("train_loss", "val_loss")]
+    held = [(losses[:1], ref[:1])] + means
+    if any((np.abs(np.asarray(a) - np.asarray(b))
+            > BF16_LOSS_ATOL + BF16_LOSS_RTOL * np.abs(np.asarray(b))).any()
+           for a, b in held):
+        fail(f"cli_bf16: losses past JAX's bf16 bar of the float32 run: first "
+             f"iteration {losses[0]} against {ref[0]}, epoch means {means}")
+    out["float32_reference"] = {k: f32[k] for k in (
+        "per_step", "window", "peak_mem_gb", "val_accuracy", "train_loss", "launches")}
+    out["loss_gap_vs_float32"] = {
+        "max": float(gap.max()), "mean": float(gap.mean()),
+        "first": float(gap[0]),
+        "past_bar": int((gap > BF16_LOSS_ATOL + BF16_LOSS_RTOL * np.abs(ref)).sum()),
+        "epoch_means": {k: [list(map(float, a)), list(map(float, b))]
+                        for k, (a, b) in zip(("train", "val"), means)},
+    }
+    cli_f32 = {k: v for k, v in f32.items() if k != "archive"}
+    return out, cli_f32
+
+
+def device_augment_phase(torch, fn, dataset_dir) -> dict:
+    """The flagship CLI (three fused flags) with ``--device_augment True``
+    (raw episodes and their quarter turns staged to the card, rotated in
+    the replayed step) against the same CLI rotating on the host: one
+    epoch of 3 replayed iterations from one seed, 8 validation tasks and
+    the ensemble. Each iteration's loss and the last checkpoint bitwise
+    equal (JAX's contract, tests/test_wire_codec.py:222-285)."""
+    base = {"dataset_name": "omniglot_synth", "total_epochs": 1,
+            "total_iter_per_epoch": 3, "num_evaluation_tasks": 8}
+    runs = {}
+    for tag, argv in (("device_augment", ["--device_augment", "True"]),
+                      ("device_augment_host", [])):
+        runs[tag] = cli_phase(
+            torch, fn, tag, FLAGSHIP, write_omniglot_tree, base,
+            [({}, argv, True, 1, -1)], CLI_FLAGSHIP_TRAIN, CLI_FLAGSHIP_TRAIN_FINAL,
+            CLI_FLAGSHIP_EVAL, dataset_dir=dataset_dir,
+        )
+    dev, host = runs["device_augment"], runs["device_augment_host"]
+    if dev["train_losses"] != host["train_losses"] or len(dev["train_losses"]) != 3:
+        fail(f"device_augment: losses {dev['train_losses']} against the host's "
+             f"{host['train_losses']}")
+    if dev["archive"].keys() != host["archive"].keys() or not all(
+            np.array_equal(dev["archive"][k], host["archive"][k]) for k in dev["archive"]):
+        fail("device_augment: the checkpoint differs from the host-rotated run's")
+    return {tag: {k: v for k, v in r.items() if k != "archive"}
+            for tag, r in runs.items()}
+
+
+def _phase_launches(fn, learners, records) -> dict:
+    """The kernel launches since the last ``reset_launch_counts``: the
+    wrappers' and, for each learner's captured steps, the replays since
+    ``records`` (per learner, ``graph_records`` when the phase began)."""
+    out = dict(fn.launch_counts)
+    for learner, before in zip(learners, records):
+        for k, v in replayed_launches(before, graph_records(learner)).items():
+            out[k] += v
+    return out
+
+
+def task_chunk_phase(torch, fn) -> dict:
+    """``task_chunk`` against the full batch from one state (seed 104), the
+    three fused flags and remat on: the flagship's 8 tasks in chunks of 2
+    and of 4, the north star's 2 in chunks of 1. The first second-order
+    step's loss within 1e-5 relative (tests/test_task_chunk.py:107) and
+    each meta-gradient leaf at the GRAD bar, or within ROUTING_RTOL where a
+    tie routes otherwise (cuDNN's algorithm for a group count of its own
+    moves the inputs by an ulp; the north star's step is ill-conditioned
+    at its ties, §C of ROADMAP.md); then one K=5 dispatch of each
+    (the chunked step captured and replayed), the chunked one bitwise equal
+    to five eager chunked steps and a replay's launches the full batch's
+    times the chunks; the peak device memory of each step and dispatch, and
+    the dispatch's losses against the full batch's (reported: Adam carries
+    a first step's rounding into every parameter, so the later losses
+    part)."""
+    out, learners, records = {}, [], []
+    fn.reset_launch_counts()
+    for tag, config, make, chunk, msl in (
+        ("flagship_chunk2", FLAGSHIP, train_batch, 2, CLI_FLAGSHIP_TRAIN),
+        ("flagship_chunk4", FLAGSHIP, train_batch, 4, CLI_FLAGSHIP_TRAIN),
+        ("north_star_chunk1", NORTH_STAR, north_star_batch, 1, CLI_NORTH_TRAIN),
+    ):
+        full, _ = fused_and_plain(config)
+        chunked = type(full)(dataclasses.replace(full.cfg, task_chunk=chunk))
+        state0 = full.init_state(torch.Generator().manual_seed(104))
+        batch = make(np.random.RandomState(2))
+        res = {}
+        steps = {}
+        for name, learner in (("full", full), ("chunked", chunked)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            steps[name] = first_step(learner, state0, batch)
+            torch.cuda.synchronize()
+            res[f"{name}_step_peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        (loss, _), (ref_loss, _) = steps["chunked"], steps["full"]
+        loss_gap = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        if loss_gap > 1e-5:
+            fail(f"task_chunk {tag}: first loss gap {loss_gap}")
+        res.update(compare_with_plain(steps["chunked"], steps["full"], f"task_chunk {tag}"))
+        batches = [make(np.random.RandomState(30 + i)) for i in range(GRAPH_ITERS)]
+        dispatched = {}
+        for name, learner in (("full", full), ("chunked", chunked)):
+            learners.append(learner)
+            records.append(graph_records(learner))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            _, m = learner.run_train_iters(state0, batches, 0)
+            torch.cuda.synchronize()
+            res[f"{name}_dispatch_peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+            t0 = time.perf_counter()
+            learner.run_train_iters(state0, batches, 0)
+            torch.cuda.synchronize()
+            res[f"{name}_replay_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / GRAPH_ITERS
+            dispatched[name] = m["loss"]
+        chunks = batch[0].shape[0] // chunk
+        (graph,) = chunked._step_graphs.graphs.values()
+        if graph.launches != {k: chunks * v for k, v in msl.items()}:
+            fail(f"task_chunk {tag}: a replay launches {graph.launches}, expected "
+                 f"{chunks} x {msl}")
+        check_replay(graph, f"task_chunk {tag}")
+        _, eager = eager_steps(chunked, state0, batches, 0)
+        if not torch.equal(eager["loss"], dispatched["chunked"]):
+            fail(f"task_chunk {tag}: replayed losses {dispatched['chunked'].tolist()} "
+                 f"against the eager chunked steps' {eager['loss'].tolist()}")
+        gap = ((dispatched["chunked"] - dispatched["full"]).abs()
+               / dispatched["full"].abs())
+        res.update(first_loss_rel_gap=loss_gap, replay_bitwise_equal_to_eager=True,
+                   replayed_loss_rel_gap_vs_full=gap.tolist(), chunks=chunks,
+                   launches_per_replay=graph.launches)
+        out[tag] = res
+        del full, chunked, state0
+        torch.cuda.empty_cache()
+    out["launches"] = _phase_launches(fn, learners, records)
+    return out
+
+
+def lane_pad_phase(torch, fn) -> dict:
+    """The north-star JSON with the three fused flags and
+    ``lane_pad_channels`` (48 -> 64 filters) against the unpadded learner
+    from the same weights (seed 104): 8 served episodes (5x5x15, meta-batch
+    4) and an eval iteration's logits at the serve bars or, the north star
+    being chaotic from random weights, within twice the unpadded engine's
+    own gap when its weights move by one ulp (cuDNN may take another
+    algorithm for 64 channels than for 48); the first second-order step's
+    loss and meta-gradient under the train phase's tolerances, the
+    padding's gradient exactly 0; a K=5 dispatch of each (capture, replay
+    ms, launches per replay the unpadded counts); a padded checkpoint into
+    an unpadded learner and back, bit for bit (but the padding lanes of the
+    BN running variance, which decay from 1 towards the all-zero channel's
+    0 as in JAX, never reach an output and are not archived)."""
+    import tempfile
+
+    from howtotrainyourmamlpytorch_tpu_torch.ops.layout import strip_tree
+    from howtotrainyourmamlpytorch_tpu_torch.serve import ServeConfig, ServingEngine
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    fn.reset_launch_counts()
+    unpadded, _ = fused_and_plain(NORTH_STAR)
+    padded = type(unpadded)(dataclasses.replace(unpadded.cfg, backbone=dataclasses.replace(
+        unpadded.cfg.backbone, lane_pad_channels=True)))
+    su = unpadded.init_state(torch.Generator().manual_seed(104))
+    sp = padded.init_state(torch.Generator().manual_seed(104))
+    if padded.cfg.backbone.conv_channels != 64 or not same(strip_tree(sp, su), su):
+        fail("lane_pad: the padded state's real slice is not the unpadded state")
+    out = {}
+    raw = north_star_episodes(np.random.RandomState(1), 8)
+    served = {}
+    for name, learner, state in (("padded", padded, sp), ("unpadded", unpadded, su)):
+        engine = ServingEngine(learner, learner.inference_state(state),
+                               ServeConfig(meta_batch_size=4))
+        served[name] = np.stack(engine.dispatch([engine.prepare_episode(*e) for e in raw]))
+    median_bar, max_bar, sensitivity = episode_bars(
+        torch, unpadded, unpadded.inference_state(su), raw, served["unpadded"], True)
+    per_episode = np.abs(served["padded"] - served["unpadded"]).reshape(len(raw), -1).max(1)
+    if np.median(per_episode) > median_bar or per_episode.max() > max_bar:
+        fail(f"lane_pad: served episodes past median {median_bar}, max {max_bar}: "
+             f"{per_episode.tolist()}")
+    batch = north_star_batch(np.random.RandomState(3))
+    logits = [learner.run_validation_iter(state, batch)[2]
+              for learner, state in ((padded, sp), (unpadded, su))]
+    eval_gap = float((logits[0] - logits[1]).abs().max())
+    if eval_gap > max_bar:
+        fail(f"lane_pad: eval logits off by {eval_gap} (bar {max_bar})")
+    out.update(episode_max_abs_err=float(per_episode.max()),
+               episode_median_abs_err=float(np.median(per_episode)),
+               episode_bars={"median": median_bar, "max": max_bar},
+               unpadded_one_ulp_episode_gap=[
+                   {"median": float(np.median(g)), "max": float(g.max())}
+                   for g in sensitivity],
+               eval_logit_max_abs_err=eval_gap,
+               bitwise_served=bool(np.array_equal(served["padded"], served["unpadded"])))
+    p_loss, p_grads = first_step(padded, sp, batch)
+    u_step = first_step(unpadded, su, batch)
+    stripped = strip_tree(p_grads, u_step[1])
+    for a, b in zip(tree_leaves(p_grads), tree_leaves(stripped)):
+        padding = a.clone()
+        padding[tuple(slice(0, d) for d in b.shape)] = 0
+        if bool(padding.any()):
+            fail("lane_pad: the padding's meta-gradient is not 0")
+    out.update(compare_with_plain((p_loss, stripped), u_step, "lane_pad"))
+    batches = [north_star_batch(np.random.RandomState(40 + i)) for i in range(GRAPH_ITERS)]
+    records = [graph_records(padded), graph_records(unpadded)]
+    states = {}
+    for name, learner, state in (("padded", padded, sp), ("unpadded", unpadded, su)):
+        states[name], _ = learner.run_train_iters(state, batches, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learner.run_train_iters(state, batches, 0)
+        torch.cuda.synchronize()
+        out[f"{name}_replay_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / GRAPH_ITERS
+        (graph,) = learner._step_graphs.graphs.values()
+        if graph.launches != CLI_NORTH_TRAIN:
+            fail(f"lane_pad {name}: a replay launches {graph.launches}")
+        check_replay(graph, f"lane_pad {name}")
+        out[f"{name}_capture_ms"] = graph.capture_s * 1e3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lane_pad_") as tmp:
+        exp = {"current_iter": GRAPH_ITERS}
+        padded.save_model(os.path.join(tmp, "train_model_1"), states["padded"], exp)
+        into_unpadded, _ = unpadded.load_model(tmp, "train_model", 1)
+        if not same(into_unpadded, strip_tree(states["padded"], su)):
+            fail("lane_pad: the padded checkpoint loaded into the unpadded learner differs")
+        unpadded.save_model(os.path.join(tmp, "train_model_2"), into_unpadded, exp)
+        back, _ = padded.load_model(tmp, "train_model", 2)
+        if not (same(strip_tree(back, su), strip_tree(states["padded"], su))
+                and same(back[:2], states["padded"][:2])
+                and same(back.opt_state, states["padded"].opt_state)):
+            fail("lane_pad: the round trip back into the padded learner differs")
+    out["checkpoints_bitwise"] = True
+    out["launches"] = _phase_launches(fn, [padded, unpadded], records)
+    return out
+
+
 def timing_reps(shape) -> int:
     """Fewer timed calls for the large north-star shapes."""
     return 20 if np.prod(shape) >= 4_000_000 else 100
@@ -2213,7 +2664,7 @@ def timing_reps(shape) -> int:
 class ShapeLog:
     """Records the input shape and LeakyReLU slope (``None`` for
     ``bn_stats``, which takes none) of every kernel wrapper call while
-    active. The wrappers in ``fn`` are swapped for recording ones; the
+    active, and ``"bfloat16"`` after them for a bfloat16 input. The wrappers in ``fn`` are swapped for recording ones; the
     Functions look them up in the module when called, so the swap sees
     every launch."""
 
@@ -2224,6 +2675,9 @@ class ShapeLog:
     def __enter__(self):
         import inspect
 
+        import torch
+
+        _bf16 = torch.bfloat16
         self.saved = {name: getattr(self.fn, name) for name in self.fn.KERNELS}
         for name, orig in self.saved.items():
             signature = inspect.signature(orig)
@@ -2231,7 +2685,10 @@ class ShapeLog:
             def record(x, *args, _name=name, _orig=orig, _sig=signature, **kwargs):
                 bound = _sig.bind(x, *args, **kwargs)
                 bound.apply_defaults()
-                self.shapes[_name].add((tuple(x.shape), bound.arguments.get("slope")))
+                key = (tuple(x.shape), bound.arguments.get("slope"))
+                if x.dtype == _bf16:
+                    key += ("bfloat16",)
+                self.shapes[_name].add(key)
                 return _orig(x, *args, **kwargs)
             setattr(self.fn, name, record)
         return self
@@ -2324,7 +2781,7 @@ def print_cli(name, r) -> None:
           f"{r['mem_at_start_gb']:.3f}) | launches per train iteration "
           f"{json.dumps(r['launches_per_train_iter'])}, per eval iteration "
           f"{json.dumps(r['launches_per_eval_iter'])} | {PHASE_SECONDS[name]:.1f} s "
-          f"| {json.dumps(r)}", flush=True)
+          f"| {json.dumps({k: v for k, v in r.items() if k != 'archive'})}", flush=True)
 
 
 def main() -> int:
@@ -2389,6 +2846,19 @@ def main() -> int:
     PHASE_SECONDS["kernels"] = time.perf_counter() - t_kernels
     print(f"[functions] max_abs_err vs plain composition {json.dumps(functions)}",
           flush=True)
+
+    # The four kernels on bfloat16 at the bf16 flagship's shapes.
+    with phase_timer("kernels_bf16"):
+        bf16 = {shape: check_bf16_kernels(torch, fn, shape, gen, shape in BF16_POOL_SHAPES)
+                for shape in BF16_SHAPES}
+    for shape, res in bf16.items():
+        print(f"[kernels_bf16] {shape} slope {SLOPE} ms graph/plain graph/bound(2-byte "
+              f"I/O), max_abs_err, max ulps: " + " ".join(
+                  f"{k}={v['ms']:.4f}/{v['plain_ms']:.4f}/{v['bound_ms']:.4f} "
+                  f"{v['max_abs_err']:.3e} {v['max_ulps']:.0f}" for k, v in res.items()),
+              flush=True)
+    errs_bf16 = {k: max(r[k]["max_abs_err"] for r in bf16.values() if k in r)
+                 for k in fn.KERNELS}
 
     # 3-8. the main paths, every kernel call's input shape recorded.
     with ShapeLog(fn) as shapes:
@@ -2466,6 +2936,56 @@ def main() -> int:
                 cli["cli_resnet12"] = cli_resnet12_phase(torch, fn, tree)
             print_cli("cli_resnet12", cli["cli_resnet12"])
 
+            # 10. The MAML learner's compute options: bfloat16 (the step
+            # graph and the CLI), on-device augmentation, task chunks and
+            # lane padding.
+            with phase_timer("graph_bf16"):
+                graph_bf16 = graph_phase(torch, fn, [(
+                    "flagship_bf16", BF16_CONFIG, train_batch, CLI_FLAGSHIP_TRAIN,
+                    CLI_FLAGSHIP_TRAIN_FINAL, {"compute_dtype": "bfloat16"},
+                )])
+            print_graph("graph_bf16", "flagship_bf16", graph_bf16["flagship_bf16"])
+            with phase_timer("cli_bf16"):
+                cli["cli_bf16"], cli_bf16_f32 = cli_bf16_phase(torch, fn, tree)
+            print(f"[cli_bf16] losses against the float32 run, first 50 iterations: "
+                  f"max gap {cli['cli_bf16']['loss_gap_vs_float32']['max']:.4f}, "
+                  f"mean {cli['cli_bf16']['loss_gap_vs_float32']['mean']:.4f} (bar "
+                  f"{BF16_LOSS_ATOL} + {BF16_LOSS_RTOL} x |float32|); float32 per "
+                  f"step meta_iters_per_s {cli_bf16_f32['per_step']['meta_iters_per_s']:.3f}"
+                  f" step_p50_ms {cli_bf16_f32['per_step']['step_p50_ms']:.2f} peak_mem_gb "
+                  f"{cli_bf16_f32['peak_mem_gb']:.3f}", flush=True)
+            print_cli("cli_bf16", cli["cli_bf16"])
+            with phase_timer("device_augment"):
+                augmented = device_augment_phase(torch, fn, tree)
+            print(f"[device_augment] 3 replayed iterations and the checkpoint bitwise "
+                  f"equal to the host-rotated run's: losses "
+                  f"{augmented['device_augment']['train_losses']} | per step ms p50 "
+                  f"{augmented['device_augment']['per_step']['step_p50_ms']:.2f} "
+                  f"(host-rotated {augmented['device_augment_host']['per_step']['step_p50_ms']:.2f})"
+                  f" | {PHASE_SECONDS['device_augment']:.1f} s | {json.dumps(augmented)}",
+                  flush=True)
+        with phase_timer("task_chunk"):
+            chunked = task_chunk_phase(torch, fn)
+        print("[task_chunk] " + " | ".join(
+            f"{tag}: step peak GB chunked {r['chunked_step_peak_gb']:.3f} full "
+            f"{r['full_step_peak_gb']:.3f}, dispatch peak GB chunked "
+            f"{r['chunked_dispatch_peak_gb']:.3f} full {r['full_dispatch_peak_gb']:.3f}, "
+            f"replay ms/iter chunked {r['chunked_replay_ms_per_iter']:.2f} full "
+            f"{r['full_replay_ms_per_iter']:.2f}, first loss gap {r['first_loss_rel_gap']:.2e}"
+            for tag, r in chunked.items() if tag != "launches")
+            + f" | {PHASE_SECONDS['task_chunk']:.1f} s | {json.dumps(chunked)}", flush=True)
+        with phase_timer("lane_pad"):
+            lane_pad = lane_pad_phase(torch, fn)
+        print(f"[lane_pad] north star 48 -> 64 filters against unpadded: served "
+              f"episodes max {lane_pad['episode_max_abs_err']:.3e} median "
+              f"{lane_pad['episode_median_abs_err']:.3e} (bars {lane_pad['episode_bars']}), "
+              f"eval logits {lane_pad['eval_logit_max_abs_err']:.3e}, first loss gap "
+              f"{lane_pad['first_loss_rel_gap_vs_plain']:.2e}; replay ms/iter padded "
+              f"{lane_pad['padded_replay_ms_per_iter']:.2f} unpadded "
+              f"{lane_pad['unpadded_replay_ms_per_iter']:.2f}; checkpoints both ways "
+              f"bitwise | {PHASE_SECONDS['lane_pad']:.1f} s | {json.dumps(lane_pad)}",
+              flush=True)
+
     print("[replay] fused-norm kernel nodes of each captured graph, each equal "
           f"to the launches its capture counted: {json.dumps(REPLAY_NODES)}",
           flush=True)
@@ -2475,11 +2995,17 @@ def main() -> int:
     checked = {name: set(per_shape) for name in ("bn_stats_act", "bn_act_bwd")}
     checked["bn_stats"] = {(shape, None) for shape, _ in per_shape}
     checked["bn_act_pool_apply"] = {(shape, SLOPE) for shape in pool}
+    for shape, res in bf16.items():
+        for name in res:
+            checked[name].add((shape, None if name == "bn_stats" else SLOPE, "bfloat16"))
     unchecked = {k: sorted(v - checked[k]) for k, v in shapes.shapes.items()
                  if v - checked[k]}
     if unchecked:
         fail(f"kernel (shape, slope) pairs of the main paths that no check "
              f"compared with the plain version: {unchecked}")
+    no_bf16 = [k for k, v in shapes.shapes.items() if not any(len(c) == 3 for c in v)]
+    if no_bf16:
+        fail(f"kernels that no bfloat16 path launched: {no_bf16}")
     print("[coverage] (shape, slope) each kernel ran at on the main paths, each "
           f"checked above: {json.dumps({k: sorted(v) for k, v in shapes.shapes.items()})}",
           flush=True)
@@ -2491,6 +3017,11 @@ def main() -> int:
     # Launches are those the serve, train and CLI runs executed together, a
     # replay counting the launches its graph captured (which its kernel
     # nodes confirmed).
+    # The bf16 columns: each kernel at (5, 512, 28, 28) in bfloat16 (the
+    # bytes of the float32 rows' (5, 256, 28, 28)), its largest error over
+    # the bf16 shapes, and the bf16 CLI's launches.
+    paths = [serve, resnet_serve, serve_http, serve_north, train, *cli.values(),
+             cli_bf16_f32, *augmented.values(), chunked, lane_pad]
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":
@@ -2499,17 +3030,20 @@ def main() -> int:
             r = per_shape[TRAIN_SHAPES[0], SLOPE][name]
         else:
             r = per_shape[FLAGSHIP_SHAPES[0], SLOPE][name]
+        b = bf16[TRAIN_SHAPES[0]][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "howtotrainyourmamlpytorch_tpu_torch/csrc/fused_norm.cu",
             "replaces": REPLACES[name],
-            "launches": serve["launches"][name] + resnet_serve["launches"][name]
-            + serve_http["launches"][name] + serve_north["launches"][name]
-            + train["launches"][name]
-            + sum(r["launches"][name] for r in cli.values()),
+            "launches": sum(p["launches"][name] for p in paths),
             "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "bf16_ms": b["ms"], "bf16_plain_ms": b["plain_ms"],
+            "bf16_bound_ms": b["bound_ms"], "bf16_bound_by": b["bound_by"],
+            "bf16_max_abs_err": errs_bf16[name], "bf16_max_ulps": max(
+                res[name]["max_ulps"] for res in bf16.values() if name in res),
+            "bf16_launches": cli["cli_bf16"]["launches"][name],
         })
     print(f"[seconds] each phase: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(json.dumps({"kernels": kernels}))

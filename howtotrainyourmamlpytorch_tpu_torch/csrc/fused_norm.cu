@@ -33,9 +33,20 @@
 // below the card's ratio of flops to bytes, so memory bounds each: in
 // float32, bn_stats reads 4*R*C bytes, bn_stats_act moves 8*R*C (x in, y
 // out), bn_act_bwd 12*R*C (x and the cotangent in, dx out),
-// bn_act_pool_apply 5*R*C (x in, the pooled quarter out). There is no
-// product anywhere, so tensor cores play no part. At the flagship shapes
-// (a few MB per tensor) the launch itself costs more than the traffic.
+// bn_act_pool_apply 5*R*C (x in, the pooled quarter out); in bfloat16 half
+// of each. There is no product anywhere, so tensor cores play no part. At
+// the flagship shapes (a few MB per tensor) the launch itself costs more
+// than the traffic.
+//
+// Element types. Every kernel is a template on the type T of x, y, g and
+// dx: float, or __nv_bfloat16 under --compute_dtype bfloat16 (the Pallas
+// bodies load any dtype and store y and dx in the input's, :96, :108,
+// :118-119). The statistics, gamma, beta, dgamma and dbeta are float in
+// both, every reduction and every elementwise step runs in float, and y and
+// dx are rounded once, on the store. A staged slice is float in both: a
+// bfloat16 element is widened as it is staged (through registers, as no
+// cp.async converts), so the plan's staged bytes a row are the same for
+// both types. A four-element move is a float4 or 8 bytes of bfloat16.
 //
 // The design, forward and backward alike. On the TPU, _fwd_kernel and
 // _bwd_kernel keep the channel resident in VMEM and reduce and apply in one
@@ -100,6 +111,7 @@
 // returns the launch's cudaError_t (0 on success).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -185,17 +197,20 @@ __device__ __forceinline__ void for_own(const Slice& s, int C, int HW, bool vec,
   }
 }
 
+// Element I/O. x, y, g and dx are float or __nv_bfloat16 (the learner's
+// compute dtype); everything on chip is float: a bfloat16 element is widened
+// on load and rounded once, to nearest even, on store. "vec" moves four
+// elements at once (a float4, or four bfloat16 as 8 bytes), else one.
 __device__ __forceinline__ float4 load4(const float* p, bool vec) {
   return vec ? *reinterpret_cast<const float4*>(p) : make_float4(*p, 0.f, 0.f, 0.f);
 }
 
-// One float4 (vec) or float at src into dst with cp.async.
-__device__ __forceinline__ void stage(float* dst, const float* src, bool vec) {
-  if (vec) {
-    cp_async16(dst, src);
-  } else {
-    cp_async4(dst, src);
-  }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, bool vec) {
+  if (!vec) return make_float4(__bfloat162float(*p), 0.f, 0.f, 0.f);
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 __device__ __forceinline__ void store4(float* p, float4 v, bool vec) {
@@ -204,6 +219,42 @@ __device__ __forceinline__ void store4(float* p, float4 v, bool vec) {
   } else {
     *p = v.x;
   }
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v, bool vec) {
+  if (!vec) {
+    *p = __float2bfloat16_rn(v.x);
+    return;
+  }
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// One float4 (vec) or float at src into the float slice at dst: cp.async
+// for float; bfloat16 is widened through registers (there is no converting
+// cp.async), so the staged slice is float whatever the input's type and the
+// plan's bytes a row hold for both. Either way each thread later reads
+// back only what it wrote itself.
+__device__ __forceinline__ void stage(float* dst, const float* src, bool vec) {
+  if (vec) {
+    cp_async16(dst, src);
+  } else {
+    cp_async4(dst, src);
+  }
+}
+
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src, bool vec) {
+  store4(dst, load4(src, vec), vec);
+}
+
+// Whether p is aligned for a four-element move of T.
+template <typename T>
+__device__ __forceinline__ bool aligned_vec(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & (4 * sizeof(T) - 1)) == 0;
 }
 
 __device__ __forceinline__ float sum4(float4 v, float m, bool vec) {
@@ -257,19 +308,16 @@ __device__ __forceinline__ void push_to_cluster(cg::cluster_group& cluster,
   cluster.sync();
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // ---------------------------------------------------------------------------
 // The forward: bn_stats and bn_stats_act
 // ---------------------------------------------------------------------------
 
+template <typename T>
 struct FwdArgs {
-  const float* x;
+  const T* x;
   const float* gamma;
   const float* beta;
-  float* y;
+  T* y;
   float* mean;
   float* var;
   int N, C, HW;
@@ -280,15 +328,16 @@ struct FwdArgs {
 
 // Dynamic shared memory: cpb slices of `per` floats when staged, none when
 // streamed.
-template <bool kApply>
-__global__ void __launch_bounds__(kThreads) bn_fwd_kernel(FwdArgs a) {
+template <bool kApply, typename T>
+__global__ void __launch_bounds__(kThreads) bn_fwd_kernel(FwdArgs<T> a) {
   extern __shared__ float4 smem4[];
   __shared__ float red[2][kWarps];
   __shared__ float2 peers[16];  // each rank's partial pair, in rank order
   cg::cluster_group cluster = cg::this_cluster();
   const Slice s = slice_of(cluster, a.cpb, a.N, a.C, a.HW);
   const int k = s.k, rows = s.rows, per = s.per, lanes = s.lanes;
-  const bool vec = (a.HW & 3) == 0 && aligned16(a.x) && (!kApply || aligned16(a.y));
+  const bool vec =
+      (a.HW & 3) == 0 && aligned_vec<T>(a.x) && (!kApply || aligned_vec<T>(a.y));
   float* buf = reinterpret_cast<float*>(smem4) + s.group * per;
 
   float mean, var;
@@ -332,7 +381,7 @@ __global__ void __launch_bounds__(kThreads) bn_fwd_kernel(FwdArgs a) {
     }
   } else {
     // Streamed: shifted single pass over the slice in device memory.
-    const float shift = s.active ? a.x[(long long)s.c * a.HW] : 0.0f;
+    const float shift = s.active ? load4(a.x + (long long)s.c * a.HW, false).x : 0.0f;
     float s1 = 0.0f, s2 = 0.0f;
     for_own(s, a.C, a.HW, vec, [&](int, long long e) {
       const float4 v = load4(a.x + e, vec);
@@ -365,7 +414,7 @@ __global__ void __launch_bounds__(kThreads) bn_fwd_kernel(FwdArgs a) {
       return pre >= 0.0f ? pre : slope * pre;
     };
     for_own(s, a.C, a.HW, vec, [&](int o, long long e) {
-      const float4 v = load4(a.staged ? buf + o : a.x + e, vec);
+      const float4 v = a.staged ? load4(buf + o, vec) : load4(a.x + e, vec);
       store4(a.y + e, make_float4(act(v.x), act(v.y), act(v.z), act(v.w)), vec);
     });
   }
@@ -375,14 +424,15 @@ __global__ void __launch_bounds__(kThreads) bn_fwd_kernel(FwdArgs a) {
 // The backward: bn_act_bwd
 // ---------------------------------------------------------------------------
 
+template <typename T>
 struct BwdArgs {
-  const float* x;
-  const float* g;  // the cotangent of y
+  const T* x;
+  const T* g;  // the cotangent of y
   const float* mean;
   const float* var;
   const float* gamma;
   const float* beta;
-  float* dx;
+  T* dx;
   float* dgamma;
   float* dbeta;
   int N, C, HW;
@@ -392,13 +442,15 @@ struct BwdArgs {
 
 // Dynamic shared memory: for each of the cpb channels, its slice of x then
 // its slice of g, `per` floats each, when staged; none when streamed.
-__global__ void __launch_bounds__(kThreads) bn_bwd_kernel(BwdArgs a) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bn_bwd_kernel(BwdArgs<T> a) {
   extern __shared__ float4 smem4[];
   __shared__ float red[2][kWarps];
   __shared__ float2 peers[16];  // each rank's (sum dpre, sum dpre * xhat)
   cg::cluster_group cluster = cg::this_cluster();
   const Slice s = slice_of(cluster, a.cpb, a.N, a.C, a.HW);
-  const bool vec = (a.HW & 3) == 0 && aligned16(a.x) && aligned16(a.g) && aligned16(a.dx);
+  const bool vec = (a.HW & 3) == 0 && aligned_vec<T>(a.x) && aligned_vec<T>(a.g) &&
+                   aligned_vec<T>(a.dx);
   float* xs = reinterpret_cast<float*>(smem4) + 2 * s.group * s.per;
   float* gs = xs + s.per;
   const int c = s.active ? s.c : 0;
@@ -414,8 +466,12 @@ __global__ void __launch_bounds__(kThreads) bn_bwd_kernel(BwdArgs a) {
     const float pre = __fadd_rn(__fmul_rn(xh, gamma), beta);
     return pre >= 0.0f ? g : __fmul_rn(slope, g);
   };
-  auto x_at = [&](int o, long long e) { return load4(a.staged ? xs + o : a.x + e, vec); };
-  auto g_at = [&](int o, long long e) { return load4(a.staged ? gs + o : a.g + e, vec); };
+  auto x_at = [&](int o, long long e) {
+    return a.staged ? load4(xs + o, vec) : load4(a.x + e, vec);
+  };
+  auto g_at = [&](int o, long long e) {
+    return a.staged ? load4(gs + o, vec) : load4(a.g + e, vec);
+  };
 
   if (a.staged) {
     for_own(s, a.C, a.HW, vec, [&](int o, long long e) {
@@ -495,27 +551,43 @@ int launch_planned(void (*kernel)(Args), const Args& a, int cluster, int threads
   return (int)cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-// The planned kernels, in the order of `kernel` in bn_fwd_active_clusters.
-const void* const kPlanned[3] = {(const void*)bn_fwd_kernel<false>,
-                                 (const void*)bn_fwd_kernel<true>,
-                                 (const void*)bn_bwd_kernel};
+// The planned kernels, in the order of `kernel` in bn_fwd_active_clusters:
+// bn_stats, bn_stats_act, bn_act_bwd on float, then on bfloat16.
+const void* const kPlanned[6] = {
+    (const void*)bn_fwd_kernel<false, float>, (const void*)bn_fwd_kernel<true, float>,
+    (const void*)bn_bwd_kernel<float>,        (const void*)bn_fwd_kernel<false, __nv_bfloat16>,
+    (const void*)bn_fwd_kernel<true, __nv_bfloat16>, (const void*)bn_bwd_kernel<__nv_bfloat16>};
 
 // ---------------------------------------------------------------------------
 // Pooled apply
 // ---------------------------------------------------------------------------
 
 // Elementwise over the pooled (N, C, H/2, W/2) output (grid-stride): each
-// thread reads its 2x2 window straight from the NCHW input as two float2
-// rows, normalizes, applies the affine and LeakyReLU per element with
-// plain_apply's arithmetic, and writes the window's max. The full-size activation is
-// never written. H and W are even, so every window's first element sits at
-// an even offset and both float2 loads are 8-byte aligned.
-__global__ void bn_act_pool_apply_kernel(const float* __restrict__ x,
+// thread reads its 2x2 window straight from the NCHW input as two pairs
+// (float2, or two bfloat16 as 4 bytes), normalizes, applies the affine and
+// LeakyReLU per element with plain_apply's arithmetic in float, and writes
+// the window's max, rounded once to T. The full-size activation is never
+// written. H and W are even, so every window's first element sits at an
+// even offset and both pair loads are aligned.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T>
+__global__ void bn_act_pool_apply_kernel(const T* __restrict__ x,
                                          const float* __restrict__ mean,
                                          const float* __restrict__ var,
                                          const float* __restrict__ gamma,
                                          const float* __restrict__ beta,
-                                         float* __restrict__ y, long long total,
+                                         T* __restrict__ y, long long total,
                                          int C, int H, int W, float eps,
                                          float slope) {
   const int OH = H >> 1;
@@ -529,8 +601,8 @@ __global__ void bn_act_pool_apply_kernel(const float* __restrict__ x,
     const long long nc = t / OH;
     const int c = (int)(nc % C);
     const long long base = nc * H * W + (long long)(2 * oh) * W + 2 * ow;
-    const float2 top = *reinterpret_cast<const float2*>(x + base);
-    const float2 bot = *reinterpret_cast<const float2*>(x + base + W);
+    const float2 top = load2(x + base);
+    const float2 bot = load2(x + base + W);
     const float m = mean[c];
     const float inv = rsqrtf(var[c] + eps);
     const float ga = gamma[c];
@@ -543,8 +615,46 @@ __global__ void bn_act_pool_apply_kernel(const float* __restrict__ x,
       const float act = pre >= 0.0f ? pre : slope * pre;
       best = k == 0 ? act : fmaxf(best, act);
     }
-    y[e] = best;
+    store1(y + e, best);
   }
+}
+
+// The C entries' bodies, one instance per element type.
+template <typename T>
+int stats_entry(const T* x, float* mean, float* var, int N, int C, int HW, int cluster,
+                int cpb, int staged, int threads, int blocks, int smem, void* stream) {
+  const FwdArgs<T> a{x, nullptr, nullptr, nullptr, mean, var, N, C, HW, cpb, staged,
+                     0.0f, 0.0f};
+  return launch_planned(bn_fwd_kernel<false, T>, a, cluster, threads, blocks, smem, stream);
+}
+
+template <typename T>
+int stats_act_entry(const T* x, const float* gamma, const float* beta, T* y, float* mean,
+                    float* var, int N, int C, int HW, float eps, float slope, int cluster,
+                    int cpb, int staged, int threads, int blocks, int smem, void* stream) {
+  const FwdArgs<T> a{x, gamma, beta, y, mean, var, N, C, HW, cpb, staged, eps, slope};
+  return launch_planned(bn_fwd_kernel<true, T>, a, cluster, threads, blocks, smem, stream);
+}
+
+template <typename T>
+int bwd_entry(const T* x, const T* g, const float* mean, const float* var,
+              const float* gamma, const float* beta, T* dx, float* dgamma, float* dbeta,
+              int N, int C, int HW, float eps, float slope, int cluster, int cpb,
+              int staged, int threads, int blocks, int smem, void* stream) {
+  const BwdArgs<T> a{x, g, mean, var, gamma, beta, dx, dgamma, dbeta,
+                     N, C, HW, cpb, staged, eps, slope};
+  return launch_planned(bn_bwd_kernel<T>, a, cluster, threads, blocks, smem, stream);
+}
+
+template <typename T>
+int pool_entry(const T* x, const float* mean, const float* var, const float* gamma,
+               const float* beta, T* y, int N, int C, int H, int W, float eps, float slope,
+               int blocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long total = (long long)N * C * (H / 2) * (W / 2);
+  bn_act_pool_apply_kernel<T><<<blocks, kThreads, 0, st>>>(
+      x, mean, var, gamma, beta, y, total, C, H, W, eps, slope);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -553,8 +663,8 @@ extern "C" {
 
 // Once, after loading: the SM count and the largest dynamic shared memory a
 // planned block may take (the opt-in limit less the kernels' static shared
-// memory), which the three planned kernels (both forward instances and the
-// backward) are set to accept, with non-portable cluster sizes (16)
+// memory), which the six planned kernels (both forward instances and the
+// backward, on float and on bfloat16) are set to accept, with non-portable cluster sizes (16)
 // allowed. The plans are made from these.
 int bn_fwd_setup(int* sm_count, int* max_dynamic_smem) {
   int dev = 0;
@@ -579,57 +689,62 @@ int bn_fwd_setup(int* sm_count, int* max_dynamic_smem) {
 }
 
 // How many clusters of a plan the card can hold at once (0: it cannot run).
-// kernel: 0 bn_stats, 1 bn_stats_act, 2 bn_act_bwd.
+// kernel: 0 bn_stats, 1 bn_stats_act, 2 bn_act_bwd on float; 3-5 the same on
+// bfloat16.
 int bn_fwd_active_clusters(int kernel, int cluster, int threads, int smem,
                            int* active) {
-  if (kernel < 0 || kernel > 2) return (int)cudaErrorInvalidValue;
+  if (kernel < 0 || kernel > 5) return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = plan_config(cluster, threads, cluster, smem, nullptr, &attr);
   cfg.numAttrs = 1;  // the query needs the cluster size, 1 included
   return (int)cudaOccupancyMaxActiveClusters(active, kPlanned[kernel], &cfg);
 }
 
-// mean, var: (C,). The plan (cluster, cpb, staged, threads, blocks, smem)
+// The kernels' entries: x, y, g and dx float (no suffix) or bfloat16
+// (`_bf16`, passed as its 16-bit storage); mean, var, gamma, beta, dgamma and
+// dbeta always float. The plan (cluster, cpb, staged, threads, blocks, smem)
 // comes from _plan in ops/fused_norm.py.
-int bn_stats(const float* x, float* mean, float* var, int N, int C, int HW,
-             int cluster, int cpb, int staged, int threads, int blocks,
-             int smem, void* stream) {
-  const FwdArgs a{x, nullptr, nullptr, nullptr, mean, var, N, C, HW, cpb, staged,
-                  0.0f, 0.0f};
-  return launch_planned(bn_fwd_kernel<false>, a, cluster, threads, blocks, smem, stream);
-}
+#define BN_ENTRIES(SUFFIX, T)                                                        \
+  /* mean, var: (C,). */                                                            \
+  int bn_stats##SUFFIX(const T* x, float* mean, float* var, int N, int C, int HW,   \
+                       int cluster, int cpb, int staged, int threads, int blocks,   \
+                       int smem, void* stream) {                                    \
+    return stats_entry(x, mean, var, N, C, HW, cluster, cpb, staged, threads,       \
+                       blocks, smem, stream);                                       \
+  }                                                                                 \
+  /* y: like x; mean, var: (C,). The same plan and statistics as bn_stats. */       \
+  int bn_stats_act##SUFFIX(const T* x, const float* gamma, const float* beta, T* y, \
+                           float* mean, float* var, int N, int C, int HW,           \
+                           float eps, float slope, int cluster, int cpb,            \
+                           int staged, int threads, int blocks, int smem,           \
+                           void* stream) {                                          \
+    return stats_act_entry(x, gamma, beta, y, mean, var, N, C, HW, eps, slope,      \
+                           cluster, cpb, staged, threads, blocks, smem, stream);    \
+  }                                                                                 \
+  /* dx: like x; dgamma, dbeta: (C,). g is the cotangent of y, mean and var the     \
+     forward's statistics. The plan is the backward's (8 staged bytes a row). */    \
+  int bn_act_bwd##SUFFIX(const T* x, const T* g, const float* mean,                 \
+                         const float* var, const float* gamma, const float* beta,   \
+                         T* dx, float* dgamma, float* dbeta, int N, int C, int HW,  \
+                         float eps, float slope, int cluster, int cpb, int staged,  \
+                         int threads, int blocks, int smem, void* stream) {         \
+    return bwd_entry(x, g, mean, var, gamma, beta, dx, dgamma, dbeta, N, C, HW,     \
+                     eps, slope, cluster, cpb, staged, threads, blocks, smem,       \
+                     stream);                                                       \
+  }                                                                                 \
+  /* y: (N, C, H/2, W/2); H and W even, x aligned for a pair (checked by the        \
+     caller). */                                                                    \
+  int bn_act_pool_apply##SUFFIX(const T* x, const float* mean, const float* var,    \
+                                const float* gamma, const float* beta, T* y, int N, \
+                                int C, int H, int W, float eps, float slope,        \
+                                int blocks, void* stream) {                         \
+    return pool_entry(x, mean, var, gamma, beta, y, N, C, H, W, eps, slope, blocks, \
+                      stream);                                                      \
+  }
 
-// y: like x; mean, var: (C,). The same plan and statistics as bn_stats.
-int bn_stats_act(const float* x, const float* gamma, const float* beta,
-                 float* y, float* mean, float* var, int N, int C, int HW,
-                 float eps, float slope, int cluster, int cpb, int staged,
-                 int threads, int blocks, int smem, void* stream) {
-  const FwdArgs a{x, gamma, beta, y, mean, var, N, C, HW, cpb, staged, eps, slope};
-  return launch_planned(bn_fwd_kernel<true>, a, cluster, threads, blocks, smem, stream);
-}
+BN_ENTRIES(, float)
+BN_ENTRIES(_bf16, __nv_bfloat16)
 
-// dx: like x; dgamma, dbeta: (C,). g is the cotangent of y, mean and var the
-// forward's statistics. The plan is the backward's (8 staged bytes a row).
-int bn_act_bwd(const float* x, const float* g, const float* mean,
-               const float* var, const float* gamma, const float* beta,
-               float* dx, float* dgamma, float* dbeta, int N, int C, int HW,
-               float eps, float slope, int cluster, int cpb, int staged,
-               int threads, int blocks, int smem, void* stream) {
-  const BwdArgs a{x, g, mean, var, gamma, beta, dx, dgamma, dbeta,
-                  N, C, HW, cpb, staged, eps, slope};
-  return launch_planned(bn_bwd_kernel, a, cluster, threads, blocks, smem, stream);
-}
-
-// y: (N, C, H/2, W/2); H and W even, x 8-byte aligned (checked by the caller).
-int bn_act_pool_apply(const float* x, const float* mean, const float* var,
-                      const float* gamma, const float* beta, float* y, int N,
-                      int C, int H, int W, float eps, float slope, int blocks,
-                      void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)N * C * (H / 2) * (W / 2);
-  bn_act_pool_apply_kernel<<<blocks, kThreads, 0, st>>>(
-      x, mean, var, gamma, beta, y, total, C, H, W, eps, slope);
-  return (int)cudaGetLastError();
-}
+#undef BN_ENTRIES
 
 }  // extern "C"

@@ -46,18 +46,22 @@ def _random_crop(image: np.ndarray, size: int, padding: int, rng) -> np.ndarray:
 
 
 def get_transforms_for_dataset(
-    dataset_name: str, args, k: int, defer_normalization: bool = False
+    dataset_name: str, args, k: int, defer_normalization: bool = False,
+    defer_augment: bool = False,
 ):
     """Returns ``(train_transforms, eval_transforms)`` — lists of callables
     ``(hwc_image, rng) -> hwc_image`` (``data.py:80-108``).
 
     ``defer_normalization`` drops the mean/std step: the uint8 wire codec
     (``--transfer_dtype uint8``) applies it on the device instead, so host
-    pixels must stay at k/255 (models/common.WireCodec)."""
+    pixels must stay at k/255 (models/common.WireCodec). ``defer_augment``
+    drops the stochastic train transforms (Omniglot's rotation, cifar's
+    crop and flip): ``--device_augment`` runs them in the train step
+    (models/common.DeviceAugment)."""
     if "cifar10" in dataset_name or "cifar100" in dataset_name:
         mean = np.asarray(args.classification_mean, np.float32)
         std = np.asarray(args.classification_std, np.float32)
-        train = [
+        train = [] if defer_augment else [
             lambda im, rng: _random_crop(im, 32, 4, rng),
             lambda im, rng: im[:, ::-1] if rng.rand() < 0.5 else im,
         ]
@@ -66,7 +70,7 @@ def get_transforms_for_dataset(
             train.append(lambda im, rng: _normalize(im, mean, std))
             evaluate.append(lambda im, rng: _normalize(im, mean, std))
     elif "omniglot" in dataset_name:
-        train = [lambda im, rng, k=k: rotate_image(im, k)]
+        train = [] if defer_augment else [lambda im, rng, k=k: rotate_image(im, k)]
         evaluate = []
     elif "imagenet" in dataset_name:
         if defer_normalization:
@@ -90,6 +94,7 @@ def augment_image(
     dataset_name: str,
     rng: np.random.RandomState,
     defer_normalization: bool = False,
+    defer_augment: bool = False,
 ) -> np.ndarray:
     """Applies the dataset's train/eval transform chain to one HWC image and
     returns CHW float32 (the reference's trailing ``ToTensor``,
@@ -97,7 +102,7 @@ def augment_image(
     and must come from the episode's deterministic RandomState."""
     del channels
     train, evaluate = get_transforms_for_dataset(
-        dataset_name, args, k, defer_normalization
+        dataset_name, args, k, defer_normalization, defer_augment
     )
     for fn in train if augment_bool else evaluate:
         image = fn(image, rng)

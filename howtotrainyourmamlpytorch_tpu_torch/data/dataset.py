@@ -66,6 +66,9 @@ class FewShotLearningDataset:
     # __new__-safe default for fixture-driven construction; __init__ derives
     # the real value from the wire codec (--transfer_dtype uint8).
     defer_normalization = False
+    # __new__-safe default; __init__ derives the real value from
+    # --device_augment (the train step rotates or crops, see get_set).
+    defer_augment = False
     """Episode synthesizer with deterministic per-index task sampling."""
 
     def __init__(self, args):
@@ -93,6 +96,15 @@ class FewShotLearningDataset:
         # host pipeline must keep pixels at k/255 and skip it here.
         codec = wire_codec_for(vars(args))
         self.defer_normalization = codec is not None and codec.mean is not None
+        # --device_augment: Omniglot's rotation and cifar's crop and flip
+        # move into the train step (models/common.DeviceAugment). Train
+        # episodes then carry raw pixels and a trailing operand; the
+        # episode RNG still draws the rotations at the same point, so the
+        # class and sample selection is the same either way.
+        name = self.dataset_name.lower()
+        self.defer_augment = bool(getattr(args, "device_augment", False)) and (
+            "omniglot" in name or "cifar10" in name or "cifar100" in name
+        )
 
         # Derived split seeds (data.py:131-142); test seed == val seed.
         val_seed = np.random.RandomState(seed=args.val_seed).randint(1, 999999)
@@ -284,12 +296,13 @@ class FewShotLearningDataset:
     def _fast_assembly_ok(self, augment_images: bool) -> bool:
         """The batched gather/rotate path applies when images are preloaded
         and the phase's transform chain draws no RNG: everything except
-        cifar's train-time random crop/flip (``data.py:80-89``)."""
+        cifar's train-time random crop/flip (``data.py:80-89``), unless the
+        train step does those (``defer_augment``)."""
         if not self.data_loaded_in_memory:
             return False
         name = self.dataset_name
         if "cifar10" in name or "cifar100" in name:
-            return not augment_images
+            return not augment_images or self.defer_augment
         return True
 
     def _fast_normalization(self):
@@ -312,7 +325,10 @@ class FewShotLearningDataset:
         (``data.py:478-524``; RNG call order preserved exactly).
 
         Returns ``(support_images (N,K,C,H,W), target_images (N,T,C,H,W),
-        support_labels (N,K), target_labels (N,T), seed)``.
+        support_labels (N,K), target_labels (N,T), seed)``, and with
+        ``defer_augment`` in a train episode the on-device augmentation's
+        operand after it: the ``(N,)`` int32 quarter turns (Omniglot) or
+        the uint32 episode seed (cifar).
         """
         # Thread-local RandomState reuse: re-seeding an existing instance
         # runs the same MT19937 legacy seeding as construction (identical
@@ -369,7 +385,11 @@ class FewShotLearningDataset:
             # loop below. Preferred: the whole episode in ONE native call
             # (N class stores addressed by pointer — ctypes marshalling per
             # class was ~2/3 of the per-class path's cost).
-            rotate = augment_images and "omniglot" in self.dataset_name
+            rotate = (
+                augment_images
+                and "omniglot" in self.dataset_name
+                and not self.defer_augment
+            )
             store = self.datasets[dataset_name]
             sample_idx = np.ascontiguousarray(sample_lists, np.int64)
             ks = (
@@ -437,6 +457,7 @@ class FewShotLearningDataset:
                         dataset_name=self.dataset_name,
                         rng=aug_rng,
                         defer_normalization=self.defer_normalization,
+                        defer_augment=self.defer_augment,
                     )
                     class_image_samples.append(x)
                     class_labels.append(class_to_episode_label[class_entry])
@@ -446,13 +467,19 @@ class FewShotLearningDataset:
             x_images = np.stack(x_images)  # (N, K+T, C, H, W)
             y_labels = np.array(y_labels, dtype=np.int32)
         k = self.num_samples_per_class
-        return (
+        episode = (
             x_images[:, :k],
             x_images[:, k:],
             y_labels[:, :k],
             y_labels[:, k:],
             seed,
         )
+        if self.defer_augment and augment_images:
+            if "omniglot" in self.dataset_name:
+                episode += (np.ascontiguousarray(k_list, np.int32),)
+            else:
+                episode += (np.uint32(seed % (1 << 32)),)
+        return episode
 
     # ------------------------------------------------------------------
     # Iteration contract (data.py:526-552)

@@ -152,7 +152,9 @@ class DevicePrefetcher:
     def _stage(self, samples, first_iter: int) -> _Staged:
         """``prepare`` each sample, stack the group, copy it to the device
         on the copy stream."""
-        prepared = [self._prepare(tuple(s[:4])) for s in samples]
+        # A loader sample is (xs, xt, ys, yt, seed[, aug]): the seed stays
+        # on the host, the augmentation operand is staged with the images.
+        prepared = [self._prepare(tuple(s[:4]) + tuple(s[5:])) for s in samples]
         if self._copy_stream is None:
             arrays, ready = to_device(prepared, self._device), None
         else:

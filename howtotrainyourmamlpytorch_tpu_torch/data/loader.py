@@ -37,7 +37,9 @@ class _ProducerError:
 
 
 def _collate_episodes(episodes):
-    """Stacks ``(xs, xt, ys, yt, seed)`` episode tuples into batch arrays."""
+    """Stacks ``(xs, xt, ys, yt, seed[, aug])`` episode tuples into batch
+    arrays; the on-device augmentation operand, where there is one, to
+    ``(B, N)`` or ``(B,)``."""
     return tuple(np.stack(c) for c in zip(*episodes))
 
 

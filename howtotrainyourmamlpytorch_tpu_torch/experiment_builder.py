@@ -211,6 +211,12 @@ class ExperimentBuilder:
         self._epoch_data_wait_s = 0.0
         self._epoch_stage_wait_s = 0.0
         self._epoch_train_t0 = time.perf_counter()
+        # The compute options the train step runs with (the JAX builder
+        # reports them with its memory levers).
+        print("compute options: " + ", ".join(
+            f"{k}={getattr(args, k, None)!r}" for k in
+            ("compute_dtype", "task_chunk", "device_augment", "lane_pad_channels")
+        ))
         print("not ported, no effect on this run: " + ", ".join(
             f"{k}={getattr(args, k, None)!r} ({item})" for k, item in NOT_PORTED.items()
         ) + "; signal handlers, OOM forensics and fault injection (A12)")
@@ -377,10 +383,12 @@ class ExperimentBuilder:
         ``run_train_iter`` of the group's one batch. The metrics are
         appended whole, one sample per meta-update."""
         if isinstance(samples, StagedBatch):
-            batches, shapes = samples, [a.shape for a in samples.arrays]
+            batches, shapes = samples, [a.shape for a in samples.arrays[:4]]
         else:
-            batches = [tuple(s[:4]) for s in samples]
-            shapes = [a.shape for a in batches[0]]
+            # A loader sample is (xs, xt, ys, yt, seed[, aug]): the seed
+            # stays on the host, the augmentation operand rides along.
+            batches = [tuple(s[:4]) + tuple(s[5:]) for s in samples]
+            shapes = [a.shape for a in batches[0][:4]]
         if current_iter == 0:
             print("shape of data", *shapes)
         if self._multi:

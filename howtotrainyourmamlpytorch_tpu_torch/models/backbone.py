@@ -4,10 +4,12 @@ ResNet-12 backbone (``models/resnet.py``) shares with it.
 
 Each stage is 3x3 conv -> per-step batch norm on batch statistics ->
 LeakyReLU(0.01) -> 2x2 max pool; a linear head follows. The options of
-the JAX backbone are all taken but lane padding: ``layer_norm`` over each
-task's ``(C, H, W)``, ``norm_conv`` (norm of the stage input, then conv
-and LeakyReLU, never fused) and, without max pooling, stride-2 convs and a
-global average pool. The parameter tree is the JAX package's::
+the JAX backbone are all taken: ``layer_norm`` over each task's ``(C, H,
+W)``, ``norm_conv`` (norm of the stage input, then conv and LeakyReLU,
+never fused), without max pooling, stride-2 convs and a global average
+pool, and lane padding (``ops/layout.py``: conv channel dims padded with
+structurally zero filters, the head slicing the real features back). The
+parameter tree is the JAX package's::
 
     params = {
       "conv0": {"conv": {"weight": (F, C, k, k), "bias": (F,)},
@@ -43,6 +45,7 @@ from ..ops.fused_norm import (
     fused_bn_leaky_relu_pool,
 )
 from ..ops.initializers import xavier_uniform
+from ..ops.layout import lane_padded_width, zero_pad_to
 from ..ops.linear import linear
 from ..ops.norm import (
     BatchNormState,
@@ -62,8 +65,7 @@ SLOPE = 0.01
 
 @dataclasses.dataclass(frozen=True)
 class BackboneConfig:
-    """Architecture hyperparameters, field for field the JAX package's.
-    Lane padding raises ``NotImplementedError`` naming its ROADMAP item."""
+    """Architecture hyperparameters, field for field the JAX package's."""
 
     architecture: str = "vgg"
     num_stages: int = 4
@@ -88,7 +90,18 @@ class BackboneConfig:
     use_pallas_fused_norm: bool = False
     fused_norm_train: bool = False
     fused_norm_pool: bool = False
+    # Conv channel dims zero-padded to the lane-friendly width (48 -> 64;
+    # ops/layout.py); logits and gradients are the unpadded program's and
+    # checkpoints hold no padding. Batch norm after the conv only.
     lane_pad_channels: bool = False
+
+    @property
+    def conv_channels(self) -> int:
+        """The compute layout's conv width: ``num_filters``, lane-padded
+        with ``lane_pad_channels`` (the head keeps the real width)."""
+        if self.lane_pad_channels:
+            return lane_padded_width(self.num_filters)
+        return self.num_filters
 
     @property
     def conv_stride(self) -> int:
@@ -131,20 +144,6 @@ class BackboneConfig:
         )
 
 
-_UNPORTED = (
-    ("lane_pad_channels", False, "lane padding is ROADMAP item A8"),
-)
-
-
-def refuse_unported_options(cfg: BackboneConfig) -> None:
-    """Raises ``NotImplementedError`` for a backbone option not ported."""
-    for field, supported, why in _UNPORTED:
-        if getattr(cfg, field) != supported:
-            raise NotImplementedError(
-                f"{field}={getattr(cfg, field)!r} is not ported yet: {why}"
-            )
-
-
 def leaky_relu(x: torch.Tensor, slope: float = SLOPE) -> torch.Tensor:
     """Positive branch at ``x >= 0``, gradient included (``jax.nn.leaky_relu``;
     ``F.leaky_relu``'s backward takes the slope branch at 0)."""
@@ -169,11 +168,21 @@ class VGGBackbone:
     """``init`` makes the trees, ``apply`` runs them."""
 
     def __init__(self, cfg: BackboneConfig):
-        refuse_unported_options(cfg)
         if cfg.block_order not in ("conv_norm", "norm_conv"):
             raise ValueError(f"unknown block_order {cfg.block_order!r}")
         if cfg.norm_layer not in ("batch_norm", "layer_norm"):
             raise ValueError(f"unknown norm_layer {cfg.norm_layer!r}")
+        if cfg.lane_pad_channels and (
+            cfg.block_order != "conv_norm" or cfg.norm_layer != "batch_norm"
+        ):
+            # The zero-channel argument holds for per-channel batch norm
+            # after the conv; a layer norm mixes channels, and norm_conv
+            # normalizes the stage input (JAX backbone.py:189-197).
+            raise ValueError(
+                "lane_pad_channels requires norm_layer='batch_norm' and "
+                "block_order='conv_norm' (the zero-channel equivalence "
+                f"argument; got {cfg.norm_layer!r}/{cfg.block_order!r})"
+            )
         self.cfg = cfg
 
     def _norm_spatial_shape(self, stage: int) -> tuple[int, int]:
@@ -194,15 +203,18 @@ class VGGBackbone:
         """``(params, bn_state)``: Xavier-uniform weights, zero biases,
         gamma (or the layer norm's weight) ones, beta (bias) zeros, drawn
         from ``generator`` in stage order. ``norm_conv`` normalizes the
-        stage input, so its norm follows the input channels."""
+        stage input, so its norm follows the input channels. With lane
+        padding the real widths drive the draws and the padded widths the
+        shapes, so a padded and an unpadded backbone agree on the real
+        slice."""
         cfg = self.cfg
         params: Params = {}
         bn_state: Params = {}
-        in_ch = cfg.image_channels
+        in_ch = in_pad = cfg.image_channels
         k = cfg.kernel_size
-        f = cfg.num_filters
+        f, f_pad = cfg.num_filters, cfg.conv_channels
         for i in range(cfg.num_stages):
-            norm_ch = in_ch if cfg.block_order == "norm_conv" else f
+            norm_ch = in_ch if cfg.block_order == "norm_conv" else f_pad
             if cfg.norm_layer == "layer_norm":
                 shape = (norm_ch, *self._norm_spatial_shape(i))
                 norm = {
@@ -221,14 +233,15 @@ class VGGBackbone:
                 )
             params[f"conv{i}"] = {
                 "conv": {
-                    "weight": xavier_uniform(
-                        generator, (f, in_ch, k, k), dtype, device
+                    "weight": zero_pad_to(
+                        xavier_uniform(generator, (f, in_ch, k, k), dtype, device),
+                        (f_pad, in_pad, k, k),
                     ),
-                    "bias": torch.zeros(f, dtype=dtype, device=device),
+                    "bias": torch.zeros(f_pad, dtype=dtype, device=device),
                 },
                 "norm": norm,
             }
-            in_ch = f
+            in_ch, in_pad = f, f_pad
         params["linear"] = {
             "weight": xavier_uniform(
                 generator, (cfg.num_classes, cfg.feature_dim), dtype, device
@@ -315,7 +328,7 @@ class VGGBackbone:
                 out = max_pool2d(out, 2, 2)
         if not cfg.max_pooling:
             out = avg_pool2d(out, out.shape[2])
-        features = out.reshape(n, tasks, -1).transpose(0, 1)
+        features = real_features(out, tasks, cfg.num_filters)
         logits = linear(
             features, params["linear"]["weight"], params["linear"]["bias"]
         )
@@ -325,6 +338,18 @@ class VGGBackbone:
         """True on the leaves the inner loop adapts: everything but the
         norm parameters, unless ``enable_inner_loop_optimizable_bn_params``."""
         return norm_excluded_mask(self.cfg, params)
+
+
+def real_features(out: torch.Tensor, tasks: int, channels: int) -> torch.Tensor:
+    """``(T, N, features)`` of the folded ``(N, T·C', ...)`` activation, the
+    lane padding (channels past ``channels`` of each task) sliced off: the
+    padded channels are structurally zero, so the features and their
+    gradients are the unpadded program's."""
+    n = out.shape[0]
+    out = out.reshape(n, tasks, -1, *out.shape[2:])
+    if out.shape[2] != channels:
+        out = out[:, :, :channels]
+    return out.reshape(n, tasks, -1).transpose(0, 1)
 
 
 def norm_excluded_mask(cfg: BackboneConfig, params: Params) -> Params:

@@ -1,23 +1,27 @@
 """Trainer plumbing shared by the learners
-(``howtotrainyourmamlpytorch_tpu/models/common.py:39-308``): dtype casts,
+(``howtotrainyourmamlpytorch_tpu/models/common.py:39-441``): dtype casts,
 the divergence sentinel, the epoch-wise cosine LR, the outer Adam with an
-injected learning rate, the uint8 image wire format, batch preparation, the
-staged dispatch group and its host-to-device copy, the learners'
-checkpoint methods and inference state (``:444-690``), and the trainer
-contract of the learners that share one parameter tree over every task
-(gradient descent, matching nets, prototypical networks).
+injected learning rate, the uint8 image wire format, the on-device train
+augmentation, batch preparation, the staged dispatch group and its
+host-to-device copy, the learners' checkpoint methods with the lane-padding
+templates and inference state (``:444-690``), and the trainer contract of
+the learners that share one parameter tree over every task (gradient
+descent, matching nets, prototypical networks).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..utils import checkpoint
+from ..ops.layout import pad_tree, strip_tree, trees_same_shapes
+from ..utils import checkpoint, threefry
 from ..utils.platform import resolve_device, set_f32_numerics
 from ..utils.trees import Tree, tree_leaves, tree_map, tree_unflatten
 from .backbone import build_backbone
@@ -26,8 +30,11 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def cast_floats(tree, dtype):
-    """Every floating leaf of ``tree`` cast to ``dtype``; the identity (no
-    copy) for float32."""
+    """Every floating leaf of ``tree`` cast to ``dtype``: the one boundary
+    cast of the float32 master parameters to the compute dtype. The
+    identity (the same tree, no copy) for float32. Gradients flow back
+    through the cast to the float32 masters, and Adam updates them in
+    float32."""
     if dtype == torch.float32:
         return tree
     return tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, tree)
@@ -174,35 +181,140 @@ def encode_images(x: np.ndarray, codec: WireCodec) -> np.ndarray:
     return scratch.astype(np.uint8)
 
 
+def _descale(x: torch.Tensor, codec: WireCodec) -> torch.Tensor:
+    x = x.float()
+    return x / codec.scale if codec.scale != 1.0 else x
+
+
+def _normalize(x: torch.Tensor, codec: WireCodec) -> torch.Tensor:
+    if codec.mean is None:
+        return x
+    # Filled on the device, not copied from the host: a copy would
+    # synchronize, which a captured train step (models/step_graph.py) may
+    # not do.
+    shape = (-1, 1, 1)
+    mean = torch.stack([x.new_full((), m) for m in codec.mean])
+    std = torch.stack([x.new_full((), s) for s in codec.std])
+    return (x - mean.reshape(shape)) / std.reshape(shape)
+
+
 def decode_images(x: torch.Tensor, codec: WireCodec | None, dtype) -> torch.Tensor:
     """uint8 wire (or float images when ``codec`` is None) -> compute-dtype
     images: descale, then normalize, as the host pipeline orders it."""
     if codec is None:
         return x.to(dtype)
-    x = x.float()
-    if codec.scale != 1.0:
-        x = x / codec.scale
-    if codec.mean is not None:
-        # Filled on the device, not copied from the host: a copy would
-        # synchronize, which a captured train step (models/step_graph.py)
-        # may not do.
-        shape = (-1, 1, 1)
-        mean = torch.stack([x.new_full((), m) for m in codec.mean])
-        std = torch.stack([x.new_full((), s) for s in codec.std])
-        x = (x - mean.reshape(shape)) / std.reshape(shape)
-    return x.to(dtype)
+    return _normalize(_descale(x, codec), codec).to(dtype)
+
+
+class DeviceAugment(NamedTuple):
+    """The on-device (in-step) train augmentation (``--device_augment``).
+
+    ``kind``: ``"rot90"``, Omniglot's class-level quarter turns as a
+    gather over the four rotations (``rot90_by_gather``), bit for bit the
+    host rotation; or ``"crop_flip"``, cifar's ``pad``-pixel random crop
+    and horizontal flip drawn from the episode seed (``crop_flip_by_key``),
+    the JAX package's draws, which follow the host transform's laws but
+    not its stream. The host then ships the raw pixels and the operand:
+    ``(B, N)`` int32 quarter turns, or ``(B,)`` uint32 episode seeds."""
+
+    kind: str
+    pad: int = 4
+
+
+def rot90_by_gather(x: torch.Tensor, ks: torch.Tensor) -> torch.Tensor:
+    """Class-level ``k``-quarter-turn rotation (``jnp.rot90`` over the
+    last two axes) of a task's images ``x`` ``(..., M, C, H, W)``,
+    class-major with ``M = N * S``, by ``ks`` ``(..., N)``: the four
+    rotations are made and a gather picks one for each image. Pure data
+    movement, exact in any dtype. Needs ``H == W``."""
+    n, m = ks.shape[-1], x.shape[-4]
+    variants = torch.stack(
+        [x if k == 0 else torch.rot90(x, k, dims=(-2, -1)) for k in range(4)]
+    )
+    per_image = ks.long().repeat_interleave(m // n, dim=-1)
+    index = per_image[(None, ..., None, None, None)].expand(1, *x.shape)
+    return variants.gather(0, index)[0]
+
+
+def crop_flip_by_key(x: torch.Tensor, seed, pad: int, stream: int) -> torch.Tensor:
+    """A random crop after ``pad`` pixels of zero padding, then a random
+    horizontal flip, of one task's images ``x`` ``(M, C, H, W)``, drawn
+    from ``jax.random`` keyed by the episode ``seed`` folded with
+    ``stream`` (0 the support, 1 the target), bit for bit the JAX
+    package's (``utils/threefry``). Runs on raw pixels, before the
+    normalization, as the host pads before it normalizes."""
+    m, c, h, w = x.shape
+    key = threefry.fold_in(threefry.prng_key(seed, x.device), stream)
+    k_off, k_flip = threefry.split(key)
+    offs = threefry.randint(k_off, (m, 2), 0, 2 * pad + 1).long()
+    flips = threefry.bernoulli(k_flip, 0.5, (m,))
+    padded = F.pad(x, (pad, pad, pad, pad))
+    rows = offs[:, 0, None] + torch.arange(h, device=x.device)
+    cols = offs[:, 1, None] + torch.arange(w, device=x.device)
+    cropped = padded[
+        torch.arange(m, device=x.device)[:, None, None, None],
+        torch.arange(c, device=x.device)[None, :, None, None],
+        rows[:, None, :, None],
+        cols[:, None, None, :],
+    ]
+    return torch.where(flips[:, None, None, None], cropped.flip(-1), cropped)
+
+
+def decode_augment_images(x, codec: WireCodec | None, dtype,
+                          augment: DeviceAugment | None = None, aug=None,
+                          stream: int = 0) -> torch.Tensor:
+    """Wire decode and on-device train augmentation of one task's images
+    (``(M, C, H, W)``; ``aug`` its operand). Without ``augment`` or
+    ``aug``, ``decode_images``. The rotation commutes with the elementwise
+    decode and follows it; the crop and flip come between the descale and
+    the normalization, as the host orders crop, flip, normalize."""
+    if augment is None or aug is None:
+        return decode_images(x, codec, dtype)
+    if augment.kind == "rot90":
+        return rot90_by_gather(decode_images(x, codec, dtype), aug)
+    if augment.kind != "crop_flip":
+        raise ValueError(f"unknown device augmentation kind {augment.kind!r}")
+    if codec is None or codec.mean is None:
+        raise ValueError(
+            "crop_flip device augmentation requires the deferred-"
+            "normalization uint8 wire codec (--transfer_dtype uint8): the "
+            "host otherwise ships normalized pixels, and zero-padding them "
+            "diverges from the reference's pad-before-normalize order"
+        )
+    x = crop_flip_by_key(_descale(x, codec), aug, augment.pad, stream)
+    return _normalize(x, codec).to(dtype)
+
+
+def decode_train_batch(batch, codec: WireCodec | None, dtype,
+                       augment: DeviceAugment | None = None) -> tuple:
+    """``(xs, xt, ys, yt)`` of a device batch ``(xs (B, S, C, H, W), xt (B,
+    Q, C, H, W), ys, yt[, aug])``: images decoded to ``dtype``, each task
+    augmented on the device (support stream 0, target stream 1) when both
+    ``augment`` and the operand are there; labels as int64."""
+    xs, xt, ys, yt, *aug = batch
+    if augment is None or not aug:
+        xs, xt = decode_images(xs, codec, dtype), decode_images(xt, codec, dtype)
+    elif augment.kind == "rot90":
+        xs = rot90_by_gather(decode_images(xs, codec, dtype), aug[0])
+        xt = rot90_by_gather(decode_images(xt, codec, dtype), aug[0])
+    else:
+        xs, xt = (
+            torch.stack([
+                decode_augment_images(x, codec, dtype, augment, a, stream)
+                for x, a in zip(images, aug[0])
+            ])
+            for stream, images in enumerate((xs, xt))
+        )
+    return xs, xt, ys.long(), yt.long()
 
 
 def prepare_batch(data_batch, codec: WireCodec | None = None):
     """``(B, N, K, C, H, W)`` numpy episode batch -> ``(x_support,
-    x_target, y_support, y_target)`` numpy arrays with the shots flattened:
-    ``(B, N*K, C, H, W)`` images (uint8 wire with ``codec``) and
-    ``(B, N*K)`` int32 labels."""
-    if len(data_batch) != 4:
-        raise NotImplementedError(
-            "an on-device augmentation operand is ROADMAP item A7"
-        )
-    xs, xt, ys, yt = data_batch
+    x_target, y_support, y_target[, aug])`` numpy arrays with the shots
+    flattened: ``(B, N*K, C, H, W)`` images (uint8 wire with ``codec``) and
+    ``(B, N*K)`` int32 labels. A fifth element, the on-device augmentation
+    operand of a defer-augment loader, rides through unchanged."""
+    xs, xt, ys, yt, *aug = data_batch
     if codec is not None:
         xs, xt = encode_images(xs, codec), encode_images(xt, codec)
     else:
@@ -211,16 +323,20 @@ def prepare_batch(data_batch, codec: WireCodec | None = None):
     b = xs.shape[0]
     xs = xs.reshape(b, -1, *xs.shape[-3:])
     xt = xt.reshape(b, -1, *xt.shape[-3:])
-    return xs, xt, ys.reshape(b, -1), yt.reshape(b, -1)
+    out = (xs, xt, ys.reshape(b, -1), yt.reshape(b, -1))
+    if aug:
+        out += (np.asarray(aug[0]),)
+    return out
 
 
 class StagedBatch(NamedTuple):
     """A dispatch group already on the learner's device
     (``data/device_prefetch.DevicePrefetcher``).
 
-    ``arrays`` holds the ``prepare_batch`` fields stacked on a leading K
-    axis, K = 1 included: the pre-stacked form ``run_train_iters`` replays
-    over, with no ``prepare_batch`` or copy of its own."""
+    ``arrays`` holds the ``prepare_batch`` fields (four, or five with an
+    augmentation operand) stacked on a leading K axis, K = 1 included: the
+    pre-stacked form ``run_train_iters`` replays over, with no
+    ``prepare_batch`` or copy of its own."""
 
     arrays: tuple
     n_iters: int
@@ -230,19 +346,27 @@ class StagedBatch(NamedTuple):
 def dispatch_multiplier(data_batches) -> int:
     """The number K of meta-updates one train dispatch of ``data_batches``
     performs, for each form ``run_train_iters`` takes: a
-    :class:`StagedBatch` (its ``n_iters``), the pre-stacked 4-tuple (its
-    leading axis), a sequence of K episode batches (its length); a single
-    episode batch is 1."""
+    :class:`StagedBatch` (its ``n_iters``), the pre-stacked 4- or 5-tuple
+    (its leading axis), a sequence of K episode batches (its length); a
+    single episode batch is 1."""
     if isinstance(data_batches, StagedBatch):
         return max(int(data_batches.n_iters), 1)
     try:
         n = len(data_batches)
     except TypeError:
         return 1
-    if n == 4 and all(hasattr(b, "ndim") for b in data_batches):
+    if is_stacked(data_batches):
         first = data_batches[0]
         return max(int(np.shape(first)[0]), 1) if first.ndim > 0 else 1
     return max(n, 1)
+
+
+def is_stacked(data_batches) -> bool:
+    """Whether ``data_batches`` is the pre-stacked form: a 4- or 5-tuple of
+    arrays, not a sequence of episode batches (tuples)."""
+    return len(data_batches) in (4, 5) and all(
+        hasattr(b, "ndim") for b in data_batches
+    )
 
 
 def to_device(prepared: list, device) -> tuple:
@@ -267,18 +391,6 @@ def to_device(prepared: list, device) -> tuple:
     return tuple(out)
 
 
-def refuse_unported(cfg) -> None:
-    """Raises for the config values no learner of the port takes yet."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "bfloat16 compute is ROADMAP item A8; the port runs float32"
-        )
-    if cfg.task_chunk != 0:
-        raise NotImplementedError("task_chunk is ROADMAP item A8")
-    if cfg.device_augment is not None:
-        raise NotImplementedError("on-device augmentation is ROADMAP item A7")
-
-
 class InferenceState(NamedTuple):
     """Parameters and BN running statistics of a shared-weights learner:
     what its serving half reads. The prefix of ``GDState``,
@@ -295,25 +407,56 @@ class CheckpointableLearner:
     (``howtotrainyourmamlpytorch_tpu/models/common.py:459``): a train state
     and the experiment state in one archive of the JAX package's format,
     rebuilt on load from a fresh state of this learner's config. One
-    device and no lane padding, so nothing is gathered or stripped. The
-    archive's layout follows the state (``utils/checkpoint``); a learner
-    with serve-time state beyond the checkpoint's prefix overrides
-    ``load_inference_state``."""
+    device, so nothing is gathered. The archive's layout follows the state
+    (``utils/checkpoint``); a learner with serve-time state beyond the
+    checkpoint's prefix overrides ``load_inference_state``.
+
+    Archives never hold lane padding (``ops/layout.py``): a learner whose
+    backbone pads strips its state to the unpadded layout before a save
+    and pads a restored state into its own fresh state after a load, so
+    padded and unpadded learners read each other's checkpoints."""
 
     def _path_leaves(self, state) -> list:
         return checkpoint.train_state_paths(
             state, clip=self.cfg.clip_grad_value is not None
         )
 
+    def _unpadded_template(self, init_fn_name: str):
+        """A CPU state from ``init_fn_name`` of this learner's unpadded
+        twin, where lane padding changes the state's shapes; else ``None``.
+        Made once per learner and name."""
+        cache = self.__dict__.setdefault("_unpadded_templates", {})
+        if init_fn_name not in cache:
+            result = None
+            bb = self.cfg.backbone
+            if bb.lane_pad_channels:
+                twin = type(self)(dataclasses.replace(
+                    self.cfg, backbone=dataclasses.replace(bb, lane_pad_channels=False)
+                ))
+                gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+                unpadded = getattr(twin, init_fn_name)(gen(), "cpu")
+                padded = getattr(self, init_fn_name)(gen(), "cpu")
+                if not trees_same_shapes(unpadded, padded):
+                    result = unpadded
+            cache[init_fn_name] = result
+        return cache[init_fn_name]
+
+    def _archived(self, state):
+        """``state`` as archives hold it: lane padding stripped."""
+        template = self._unpadded_template("init_state")
+        return state if template is None else strip_tree(state, template)
+
     def save_model(self, model_save_dir: str, state, experiment_state: dict) -> None:
         checkpoint.save_checkpoint(
-            model_save_dir, self._path_leaves(state), experiment_state
+            model_save_dir, self._path_leaves(self._archived(state)), experiment_state
         )
 
     def snapshot_model(self, state, experiment_state: dict):
-        """The critical-path half of ``save_model`` (the state copied to the
-        host), for ``AsyncCheckpointWriter``."""
-        return checkpoint.snapshot_for_save(self._path_leaves(state), experiment_state)
+        """The critical-path half of ``save_model`` (the state, stripped of
+        lane padding, copied to the host), for ``AsyncCheckpointWriter``."""
+        return checkpoint.snapshot_for_save(
+            self._path_leaves(self._archived(state)), experiment_state
+        )
 
     def _restore(self, template, leaves):
         device = tree_leaves(template.theta)[0].device
@@ -322,26 +465,32 @@ class CheckpointableLearner:
             template, leaves, clip=self.cfg.clip_grad_value is not None
         )
 
+    def _load(self, load, filepath: str, init_fn_name: str, device):
+        """The state of ``init_fn_name``'s structure that ``load`` reads
+        from ``filepath``, on ``device``; a lane-padded learner reads the
+        unpadded layout and pads it into its fresh state."""
+        template = getattr(self, init_fn_name)(torch.Generator().manual_seed(0), device)
+        unpadded = self._unpadded_template(init_fn_name)
+        archived = template if unpadded is None else unpadded
+        leaves, experiment_state = load(filepath, self._path_leaves(archived))
+        state = self._restore(archived, leaves)
+        if unpadded is not None:
+            state = pad_tree(state, template)
+        return state, experiment_state
+
     def load_model(self, model_save_dir: str, model_name: str, model_idx,
                    device=None):
         """``(state, experiment_state)`` of ``<dir>/<name>_<idx>``, on
         ``device`` (the card by default)."""
         filepath = os.path.join(model_save_dir, f"{model_name}_{model_idx}")
-        template = self.init_state(torch.Generator().manual_seed(0), device)
-        leaves, experiment_state = checkpoint.load_checkpoint(
-            filepath, self._path_leaves(template)
-        )
-        return self._restore(template, leaves), experiment_state
+        return self._load(checkpoint.load_checkpoint, filepath, "init_state", device)
 
     def load_inference_state(self, filepath: str, device=None):
         """``(inference_state, experiment_state)``: the parameters, LSLR
         rates and BN statistics of a full training checkpoint, with no
         optimizer state built."""
-        template = self.init_inference_state(torch.Generator().manual_seed(0), device)
-        leaves, experiment_state = checkpoint.load_for_inference(
-            filepath, self._path_leaves(template)
-        )
-        return self._restore(template, leaves), experiment_state
+        return self._load(checkpoint.load_for_inference, filepath,
+                          "init_inference_state", device)
 
 
 def shared(tree: Tree, tasks: int) -> Tree:
@@ -367,7 +516,6 @@ class SharedWeightsLearner(CheckpointableLearner):
     eval_keys = ("loss", "accuracy")
 
     def __init__(self, cfg):
-        refuse_unported(cfg)
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone)
         self.tx = make_injected_adam(cfg.meta_learning_rate, cfg.clip_grad_value)
@@ -411,18 +559,21 @@ class SharedWeightsLearner(CheckpointableLearner):
         device = tree_leaves(state.theta)[0].device
         return tuple(a[0] for a in to_device([prepared], device))
 
-    def _decode(self, batch) -> tuple:
-        xs, xt, ys, yt = batch
-        codec, dtype = self.cfg.wire_codec, self.cfg.dtype
-        return (decode_images(xs, codec, dtype), decode_images(xt, codec, dtype),
-                ys.long(), yt.long())
+    def _decode(self, batch, training: bool = True) -> tuple:
+        """``decode_train_batch``, the augmentation operand read in
+        training only (as JAX, eval batches carry none)."""
+        cfg = self.cfg
+        return decode_train_batch(batch, cfg.wire_codec, cfg.dtype,
+                                  cfg.device_augment if training else None)
 
     def _embed(self, theta, bn_state, *images):
         """The backbone over each of ``images`` (``(T, N, C, H, W)``) in
-        turn, ``theta`` and ``bn_state`` shared by the ``T`` tasks and the
-        running statistics threaded from one set to the next. Returns
-        ``(outputs (T, N, classes) per set, bn_state per task or None)``."""
+        turn, ``theta`` (cast to the compute dtype) and ``bn_state`` shared
+        by the ``T`` tasks and the running statistics threaded from one set
+        to the next. Returns ``(outputs (T, N, classes) per set, bn_state
+        per task or None)``."""
         tasks = images[0].shape[0]
+        theta = cast_floats(theta, self.cfg.dtype)
         params, bn = shared(theta, tasks), shared(bn_state, tasks)
         outputs = []
         for x in images:

@@ -85,7 +85,7 @@ class GradientDescentLearner(SharedWeightsLearner):
         cfg = self.cfg
         num_steps = (cfg.number_of_training_steps_per_iter if training
                      else cfg.number_of_evaluation_steps_per_iter)
-        xs_b, xt_b, ys_b, yt_b = self._decode(batch)
+        xs_b, xt_b, ys_b, yt_b = self._decode(batch, training)
         theta, bn, opt = state.theta, state.bn_state, state.opt_state
         t_losses, accs, logits, grad_norms = [], [], [], []
         for t in range(xs_b.shape[0]):

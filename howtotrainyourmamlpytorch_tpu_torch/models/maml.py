@@ -26,6 +26,18 @@ Serving (``serve_adapt``, its masked twin for geometry-padded support
 sets, ``serve_classify``) and eval
 (``run_validation_iter``) adapt at first order with the fast weights
 detached every step.
+
+Compute dtype. Under ``compute_dtype="bfloat16"`` the adapted and frozen
+leaves are cast once, at the step's boundary (``cast_floats``, the identity
+in float32), so the inner loop, its gradients and the activations run in
+bfloat16; the LSLR table, the BN statistics, the outer gradients and Adam
+stay float32 (``maml.py:683-706``).
+
+Task chunks (``task_chunk``, ``maml.py:802-872``). JAX scans chunks of the
+task axis through one vmapped program; here each chunk's forward and outer
+backward run before the next chunk's forward, its loss scaled by chunk/B
+and the gradients summed, so live activations are bounded by the chunk.
+The per-task metrics are put back on the full ``(B, ...)`` task axis.
 """
 
 from __future__ import annotations
@@ -57,12 +69,13 @@ from .common import (
     cast_floats,
     cosine_epoch_lr,
     decode_images,
+    decode_train_batch,
     global_norm,
     guard_nonfinite_update,
+    is_stacked,
     make_injected_adam,
     nonfinite_flag,
     prepare_batch,
-    refuse_unported,
     set_injected_lr,
     to_device,
 )
@@ -105,12 +118,13 @@ class MAMLConfig:
     # recomputed in the outer backward instead of kept.
     remat_inner_steps: bool = True
     compute_dtype: str = "float32"
-    # 0 only (ROADMAP item A8).
+    # Tasks a chunk of the meta-batch (0: all at once); must divide it.
     task_chunk: int = 0
     # Multi-device reduction form; no effect on one device, as in JAX.
     collective_fusion: str = "bucketed"
     wire_codec: WireCodec | None = None
-    # None only (ROADMAP item A7).
+    # models/common.DeviceAugment, or None: the train augmentation runs on
+    # the host.
     device_augment: Any = None
 
     @property
@@ -155,6 +169,12 @@ class MAMLConfig:
                 "compute_dtype must be float32 | bfloat16, got"
                 f" {self.compute_dtype!r}"
             )
+
+
+def _task_cat(parts):
+    """Per-task tensors of the task chunks, joined on the task axis (the one
+    chunk's own tensor when there is one)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def per_step_loss_importance(
@@ -207,7 +227,6 @@ class MAMLFewShotLearner(CheckpointableLearner):
     trainer contract, and the serving half."""
 
     def __init__(self, cfg: MAMLConfig):
-        refuse_unported(cfg)
         self.cfg = cfg
         self.backbone = build_backbone(cfg.backbone)
         self.tx = make_injected_adam(cfg.meta_learning_rate, cfg.clip_grad_value)
@@ -303,23 +322,25 @@ class MAMLFewShotLearner(CheckpointableLearner):
 
         ``outer``: ``{"theta", "lslr"}``. ``batch``: ``(x_support (T, S, C,
         H, W), x_target (T, Q, C, H, W), y_support (T, S), y_target (T,
-        Q))`` on the device. Returns ``(task mean of the weighted target
-        losses, aux)``, aux holding the prediction step's target ``logits``
+        Q)[, aug])`` on the device, ``aug`` the train augmentation's
+        operand. Returns ``(task mean of the weighted target losses,
+        aux)``, aux holding the prediction step's target ``logits``
         (float32), per-task ``accuracy`` and the evolved ``bn_state``
         (leading ``T`` axis). Without ``outer_grad`` (eval) no graph
         outlives a step."""
         cfg = self.cfg
         theta, lslr = outer["theta"], outer["lslr"]
-        xs, xt, ys, yt = batch
-        tasks = xs.shape[0]
+        # The one boundary cast of the float32 masters (the identity in
+        # float32); the LSLR table and the BN statistics stay float32.
         adapt0, frozen = partition(theta, self.adapt_mask(theta))
         adapt0 = cast_floats(adapt0, cfg.dtype)
+        xs, xt, ys, yt = decode_train_batch(
+            batch, cfg.wire_codec, cfg.dtype, cfg.device_augment
+        )
+        tasks = xs.shape[0]
         frozen = tree_map(
             lambda a: a.expand(tasks, *a.shape), cast_floats(frozen, cfg.dtype)
         )
-        xs = decode_images(xs, cfg.wire_codec, cfg.dtype)
-        xt = decode_images(xt, cfg.wire_codec, cfg.dtype)
-        ys, yt = ys.long(), yt.long()
         # The any-order op on train paths (even first order differentiates
         # through the fast weights), the one-level pair on eval (JAX
         # maml.py:710-724).
@@ -390,33 +411,57 @@ class MAMLFewShotLearner(CheckpointableLearner):
     # Meta step
     # ------------------------------------------------------------------
 
+    def _task_chunks(self, batch) -> list:
+        """``batch`` cut on its task axis into chunks of ``task_chunk``
+        tasks; the whole batch, alone, when ``task_chunk`` is 0 or at least
+        the task count (``maml.py:826-835``)."""
+        tasks, chunk = batch[0].shape[0], self.cfg.task_chunk
+        if not 0 < chunk < tasks:
+            return [batch]
+        if tasks % chunk:
+            raise ValueError(
+                f"task_chunk ({chunk}) must divide the meta-batch's task "
+                f"count ({tasks})"
+            )
+        return [tuple(a[i:i + chunk] for a in batch) for i in range(0, tasks, chunk)]
+
     def _meta_grads(self, state: TrainState, batch, importance, *,
                     second_order, final_only):
         """``(loss, accuracy_mean, bn_state_mean, grads)`` of one meta-step
         (``maml.py:881-918``, off-mesh); ``grads`` over ``{"theta",
-        "lslr"}``, the BN state averaged over tasks."""
+        "lslr"}``, the BN state averaged over tasks. With task chunks, each
+        chunk's loss (its task mean times chunk/B) is differentiated before
+        the next chunk runs and the gradients are summed."""
         outer = {"theta": state.theta, "lslr": state.lslr}
         leaves = [a.detach().requires_grad_() for a in tree_leaves(outer)]
-        # Every backward runs on this thread. On a card, autograd otherwise
-        # runs it on a device thread, where the inner gradients' graph
-        # (create_graph) is recorded with that thread's node numbering; the
-        # outer backward orders nodes of the two numberings by comparing
-        # them, so the order in which a leaf's gradients are summed, and
-        # their bits, would depend on how many nodes each thread had made
-        # before in the process.
-        with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
-            loss, aux = self._meta_loss(
-                tree_unflatten(outer, leaves), state.bn_state, batch,
-                importance, self.cfg.number_of_training_steps_per_iter,
-                second_order, None, final_only,
-            )
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [
-            torch.zeros_like(a) if g is None else g for a, g in zip(leaves, grads)
-        ]
-        bn_mean = tree_map(lambda s: s.mean(dim=0), aux["bn_state"])
+        tasks = batch[0].shape[0]
+        losses, grads, accuracy, bn_states = [], None, [], []
+        for chunk in self._task_chunks(batch):
+            share = chunk[0].shape[0] / tasks
+            # Every backward runs on this thread. On a card, autograd
+            # otherwise runs it on a device thread, where the inner
+            # gradients' graph (create_graph) is recorded with that thread's
+            # node numbering; the outer backward orders nodes of the two
+            # numberings by comparing them, so the order in which a leaf's
+            # gradients are summed, and their bits, would depend on how many
+            # nodes each thread had made before in the process.
+            with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
+                loss, aux = self._meta_loss(
+                    tree_unflatten(outer, leaves), state.bn_state, chunk,
+                    importance, self.cfg.number_of_training_steps_per_iter,
+                    second_order, None, final_only,
+                )
+                if share != 1.0:
+                    loss = loss * share
+                part = torch.autograd.grad(loss, leaves, allow_unused=True)
+            part = [torch.zeros_like(a) if g is None else g for a, g in zip(leaves, part)]
+            grads = part if grads is None else [g + p for g, p in zip(grads, part)]
+            losses.append(loss.detach())
+            accuracy.append(aux["accuracy"])
+            bn_states.append(aux["bn_state"])
+        bn_mean = tree_map(lambda *s: _task_cat(s).mean(dim=0), *bn_states)
         return (
-            loss.detach(), aux["accuracy"].mean(), bn_mean,
+            sum(losses[1:], losses[0]), _task_cat(accuracy).mean(), bn_mean,
             tree_unflatten(outer, grads),
         )
 
@@ -447,17 +492,25 @@ class MAMLFewShotLearner(CheckpointableLearner):
         return new_state, dict(loss=loss, accuracy=accuracy, nonfinite=nonfinite)
 
     def _evaluation_step(self, state, batch, importance, *, final_only=False):
-        """Adaptation and target evaluation at first order; the BN state
-        is discarded (``maml.py:998-1019``)."""
+        """Adaptation and target evaluation at first order, chunk by chunk
+        of tasks; the BN state is discarded (``maml.py:998-1019``)."""
         cfg = self.cfg
-        loss, aux = self._meta_loss(
-            {"theta": state.theta, "lslr": state.lslr}, state.bn_state, batch,
-            importance, cfg.number_of_evaluation_steps_per_iter, False,
-            None if final_only else self.serve_adapt_steps - 1, final_only,
-            outer_grad=False,
-        )
-        metrics = dict(loss=loss.detach(), accuracy=aux["accuracy"].mean())
-        return metrics, aux["logits"]
+        tasks = batch[0].shape[0]
+        losses, accuracy, logits = [], [], []
+        for chunk in self._task_chunks(batch):
+            share = chunk[0].shape[0] / tasks
+            loss, aux = self._meta_loss(
+                {"theta": state.theta, "lslr": state.lslr}, state.bn_state,
+                chunk, importance, cfg.number_of_evaluation_steps_per_iter,
+                False, None if final_only else self.serve_adapt_steps - 1,
+                final_only, outer_grad=False,
+            )
+            losses.append(loss.detach() if share == 1.0 else loss.detach() * share)
+            accuracy.append(aux["accuracy"])
+            logits.append(aux["logits"])
+        metrics = dict(loss=sum(losses[1:], losses[0]),
+                       accuracy=_task_cat(accuracy).mean())
+        return metrics, _task_cat(logits)
 
     # ------------------------------------------------------------------
     # Reference trainer contract
@@ -499,7 +552,7 @@ class MAMLFewShotLearner(CheckpointableLearner):
         device = self._device(state)
         if isinstance(data_batches, StagedBatch):
             return tuple(data_batches.arrays)
-        if len(data_batches) == 4 and all(hasattr(b, "ndim") for b in data_batches):
+        if is_stacked(data_batches):
             if all(isinstance(b, torch.Tensor) for b in data_batches):
                 return tuple(b.to(device) for b in data_batches)
             return to_device(list(zip(*data_batches)), device)
@@ -581,8 +634,8 @@ class MAMLFewShotLearner(CheckpointableLearner):
         """K meta-updates in one dispatch (``maml.py:418-479``).
 
         ``data_batches``: a sequence of K episode batches, the pre-stacked
-        form (a 4-tuple of ``prepare_batch``-layout arrays, each with a
-        leading K axis) or a ``StagedBatch``. Returns ``(new_state,
+        form (a 4- or 5-tuple of ``prepare_batch``-layout arrays, each with
+        a leading K axis) or a ``StagedBatch``. Returns ``(new_state,
         losses)`` with the keys of ``run_train_iter``; ``loss``,
         ``accuracy`` and ``nonfinite`` are ``(K,)`` device tensors, one
         sample per meta-update. The state passed in is not changed."""

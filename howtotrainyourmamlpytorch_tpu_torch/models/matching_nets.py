@@ -109,7 +109,7 @@ class MatchingNetsLearner(SharedWeightsLearner):
         update (``matching_nets.py:234-284``). Eval: every task at once on
         the given state. Returns ``(new_state, metrics, predictions (B, Q,
         classes))``."""
-        xs_b, xt_b, ys_b, yt_b = self._decode(batch)
+        xs_b, xt_b, ys_b, yt_b = self._decode(batch, training)
         if training:
             theta, bn, opt = state.theta, state.bn_state, state.opt_state
             losses, accs, preds, grad_norms = [], [], [], []

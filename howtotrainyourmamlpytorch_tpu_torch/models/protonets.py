@@ -84,7 +84,7 @@ class ProtoNetsLearner(SharedWeightsLearner):
         """One Adam update on the task-mean loss in training; the same
         forward on the given state in eval (``protonets.py:206-254``).
         Returns ``(new_state, metrics, logits (B, Q, classes))``."""
-        xs, xt, ys, yt = self._decode(batch)
+        xs, xt, ys, yt = self._decode(batch, training)
         if training:
             loss, (losses, accs, logits, bns), grads = self._grads(
                 lambda p: self._batch_loss(p, state.bn_state, xs, ys, xt, yt),

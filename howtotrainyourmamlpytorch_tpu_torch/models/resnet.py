@@ -36,6 +36,7 @@ import torch
 
 from ..ops.conv import conv2d
 from ..ops.initializers import xavier_uniform
+from ..ops.layout import lane_padded_width, zero_pad_to
 from ..ops.linear import linear
 from ..ops.norm import init_batch_norm_state
 from ..ops.pool import max_pool2d
@@ -45,7 +46,7 @@ from .backbone import (
     leaky_relu,
     norm_act,
     norm_excluded_mask,
-    refuse_unported_options,
+    real_features,
     resolve_fused_variant,
 )
 
@@ -70,15 +71,23 @@ class ResNet12Backbone:
                 f"resnet_widths needs exactly {self.NUM_STAGES} stage widths "
                 f"(got {cfg.resnet_widths!r})"
             )
-        refuse_unported_options(cfg)
         self.cfg = cfg
 
     @property
-    def widths(self) -> tuple[int, int, int, int]:
+    def real_widths(self) -> tuple[int, int, int, int]:
         if self.cfg.resnet_widths is not None:
             return tuple(self.cfg.resnet_widths)
         f = self.cfg.num_filters
         return (f, 2 * f, 4 * f, 8 * f)
+
+    @property
+    def widths(self) -> tuple[int, int, int, int]:
+        """The compute layout's stage widths: ``real_widths``, lane-padded
+        with ``lane_pad_channels`` (160 and 320 pad to 256 and 384; the
+        head slices back to ``real_widths[-1]``)."""
+        if self.cfg.lane_pad_channels:
+            return tuple(lane_padded_width(w) for w in self.real_widths)
+        return self.real_widths
 
     def init(
         self, generator: torch.Generator, dtype=torch.float32, device=None
@@ -86,43 +95,47 @@ class ResNet12Backbone:
         """``(params, bn_state)``: Xavier-uniform convs, zero biases, gamma
         ones and beta zeros (per step with MAML++), unit running stats at
         every norm site; drawn from ``generator`` stage by stage (conv0,
-        conv1, conv2, shortcut), then the head."""
+        conv1, conv2, shortcut), then the head. With lane padding the real
+        widths drive the draws and the padded widths the shapes."""
         cfg = self.cfg
         steps = cfg.num_steps if cfg.per_step_bn_statistics else None
 
         def affine(f):
             return (cfg.num_steps, f) if cfg.per_step_affine else (f,)
 
-        def unit(in_c, out_c, ksize):
+        def unit(in_c, out_c, ksize, in_pad, out_pad):
             return {
                 "conv": {
-                    "weight": xavier_uniform(
-                        generator, (out_c, in_c, ksize, ksize), dtype, device
+                    "weight": zero_pad_to(
+                        xavier_uniform(
+                            generator, (out_c, in_c, ksize, ksize), dtype, device
+                        ),
+                        (out_pad, in_pad, ksize, ksize),
                     ),
-                    "bias": torch.zeros(out_c, dtype=dtype, device=device),
+                    "bias": torch.zeros(out_pad, dtype=dtype, device=device),
                 },
                 "norm": {
-                    "gamma": torch.ones(affine(out_c), dtype=dtype, device=device),
-                    "beta": torch.zeros(affine(out_c), dtype=dtype, device=device),
+                    "gamma": torch.ones(affine(out_pad), dtype=dtype, device=device),
+                    "beta": torch.zeros(affine(out_pad), dtype=dtype, device=device),
                 },
             }
 
         params: Params = {}
         bn_state: Params = {}
-        in_ch = cfg.image_channels
-        for i, width in enumerate(self.widths):
+        in_ch = in_pad = cfg.image_channels
+        for i, (width, width_pad) in enumerate(zip(self.real_widths, self.widths)):
             stage: Params = {}
-            c = in_ch
+            c, c_pad = in_ch, in_pad
             for j in range(self.CONVS_PER_STAGE):
-                stage[f"conv{j}"] = unit(c, width, 3)
-                c = width
-            stage["shortcut"] = unit(in_ch, width, 1)
+                stage[f"conv{j}"] = unit(c, width, 3, c_pad, width_pad)
+                c, c_pad = width, width_pad
+            stage["shortcut"] = unit(in_ch, width, 1, in_pad, width_pad)
             params[f"res{i}"] = stage
             bn_state[f"res{i}"] = {
-                name: init_batch_norm_state(width, steps, dtype, device)
+                name: init_batch_norm_state(width_pad, steps, dtype, device)
                 for name in stage
             }
-            in_ch = width
+            in_ch, in_pad = width, width_pad
         params["linear"] = {
             "weight": xavier_uniform(
                 generator, (cfg.num_classes, cfg.feature_dim), dtype, device
@@ -181,7 +194,7 @@ class ResNet12Backbone:
             if new_bn_state is not None:
                 new_bn_state[f"res{i}"] = new_state
         features = out.float().mean(dim=(2, 3)).to(out.dtype)
-        features = features.reshape(n, tasks, -1).transpose(0, 1)
+        features = real_features(features, tasks, self.real_widths[-1])
         logits = linear(
             features, params["linear"]["weight"], params["linear"]["bias"]
         )

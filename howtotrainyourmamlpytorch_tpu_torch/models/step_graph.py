@@ -4,8 +4,8 @@ over it in ``run_train_iters``
 (``howtotrainyourmamlpytorch_tpu/models/maml.py:373-402``).
 
 ``MAMLFewShotLearner._train_step`` is captured once per program variant
-(second order, MSL final-only) and batch shape into static input and
-output buffers. A replay is one ``cudaGraphLaunch`` in place of the
+(second order, MSL final-only) and batch shape and dtype into static input
+and output buffers; a bfloat16 learner's step is a graph of its own. A replay is one ``cudaGraphLaunch`` in place of the
 step's thousands of launches from Python and autograd; any K, an epoch's
 shorter last chunk included, replays the same graph, and device memory
 stays one step's peak.
@@ -20,7 +20,8 @@ caller's stream and without a host synchronisation:
   cosine schedule moves at each epoch although capture saw one value;
 * the MSL importance vector: copied from a page-locked host tensor when
   it changes;
-* slot k of the dispatch group: a device-to-device copy.
+* slot k of the dispatch group: a device-to-device copy of each of its
+  fields, the on-device augmentation's operand (a fifth field) included.
 
 What a replay writes, the next one overwrites. So each replay's loss,
 accuracy and non-finite flag are copied into slot k of a fresh ``(3, K)``

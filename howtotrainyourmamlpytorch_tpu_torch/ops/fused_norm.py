@@ -21,9 +21,19 @@ kernel                 replaces (pallas_fused_norm.py)             bytes
                        ``_apply_pool_block_kernel`` (:267)
 =====================  ==========================================  =========
 
-R = N·H·W, float32. Each kernel streams its tensors once at a few flops per
-element, so memory bandwidth bounds it (3.35 TB/s on an H100 SXM); at the
-flagship shapes launch latency dominates. ``bn_stats``, ``bn_stats_act``
+R = N·H·W; the bytes are float32's, half of them in bfloat16. Each kernel
+streams its tensors once at a few flops per element, so memory bandwidth
+bounds it (3.35 TB/s on an H100 SXM); at the flagship shapes launch latency
+dominates.
+
+Element types. ``x``, ``y``, the cotangent and ``dx`` are float32 or
+bfloat16 (the learner's compute dtype, as the Pallas bodies load any dtype
+and store ``y`` and ``dx`` in the input's); the statistics, ``gamma``,
+``beta``, ``dgamma`` and ``dbeta`` are float32 in both. Every kernel and
+every plain version computes in float32 and rounds its full-size output
+once; the any-order Functions' backward computes in float32 and returns
+the cotangents in each input's dtype, as JAX's ``_stat_tangents`` and
+``_norm_act_tangent`` do (:606-658). Any other dtype raises. ``bn_stats``, ``bn_stats_act``
 and ``bn_act_bwd`` share one design: a grid over channels, each channel
 reduced by a thread-block cluster that stages it in shared memory (x, and
 for the backward the cotangent too) and adds its blocks' partial sums
@@ -109,15 +119,26 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
+def _wide(t):
+    """``t`` widened to float32 where it is bfloat16; float32 (and the
+    float64 of the gradient checks) as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def plain_stats(x):
-    """Per-channel mean and biased variance over (N, H, W), two-pass."""
+    """Per-channel mean and biased variance over (N, H, W), two-pass, in
+    float32 for a bfloat16 ``x``."""
+    x = _wide(x)
     mean = x.mean(dim=(0, 2, 3))
     var = (x - mean[None, :, None, None]).square().mean(dim=(0, 2, 3))
     return mean, var
 
 
 def _xhat_pre(x, mean, var, gamma, beta, eps):
+    """x-hat, the pre-activation and rsqrt(var + eps), in float32 for a
+    bfloat16 ``x``."""
     b = lambda a: a[None, :, None, None]  # noqa: E731
+    x = _wide(x)
     inv = torch.rsqrt(var + eps)
     xhat = (x - b(mean)) * b(inv)
     return xhat, xhat * b(gamma) + b(beta), inv
@@ -126,29 +147,34 @@ def _xhat_pre(x, mean, var, gamma, beta, eps):
 def plain_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
     """LeakyReLU((x - mean) * rsqrt(var + eps) * gamma + beta), with the
     positive branch at ``pre >= 0`` (``F.leaky_relu``'s backward takes the
-    slope branch at 0, so it is not used)."""
+    slope branch at 0, so it is not used). Computed in float32, rounded
+    once to ``x``'s dtype."""
     _, pre, _ = _xhat_pre(x, mean, var, gamma, beta, eps)
-    return torch.where(pre >= 0, pre, slope * pre)
+    return torch.where(pre >= 0, pre, slope * pre).to(x.dtype)
 
 
 def plain_bwd_reduce(x, g, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
-    """``(dgamma, dbeta)`` = per-channel (sum dpre * xhat, sum dpre)."""
+    """``(dgamma, dbeta)`` = per-channel (sum dpre * xhat, sum dpre), in
+    float32."""
     xhat, pre, _ = _xhat_pre(x, mean, var, gamma, beta, eps)
+    g = _wide(g)
     dpre = torch.where(pre >= 0, g, slope * g)
     return (dpre * xhat).sum(dim=(0, 2, 3)), dpre.sum(dim=(0, 2, 3))
 
 
 def plain_bwd_apply(x, g, mean, var, gamma, beta, dgamma, dbeta, eps=EPS,
                     slope=SLOPE):
-    """dx of the batch-statistics norm + LeakyReLU, from the reduce totals."""
+    """dx of the batch-statistics norm + LeakyReLU, from the reduce totals;
+    computed in float32, rounded once to ``x``'s dtype."""
     b = lambda a: a[None, :, None, None]  # noqa: E731
     xhat, pre, inv = _xhat_pre(x, mean, var, gamma, beta, eps)
+    g = _wide(g)
     dpre = torch.where(pre >= 0, g, slope * g)
     inv_n = 1.0 / (x.shape[0] * x.shape[2] * x.shape[3])
     ga = b(gamma)
-    return b(inv) * (
+    return (b(inv) * (
         dpre * ga - inv_n * ga * b(dbeta) - xhat * inv_n * ga * b(dgamma)
-    )
+    )).to(x.dtype)
 
 
 def plain_bwd(x, g, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
@@ -170,7 +196,8 @@ def _pool_views(x):
 
 def plain_pool_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
     """``plain_apply`` followed by the 2x2/2 max pool, as the max over the
-    four views: ``(N, C, H/2, W/2)``."""
+    four views: ``(N, C, H/2, W/2)``. Rounding is monotone, so the max of
+    the rounded views is the rounded max."""
     views = _pool_views(plain_apply(x, mean, var, gamma, beta, eps, slope))
     return functools.reduce(torch.maximum, views)
 
@@ -178,9 +205,12 @@ def plain_pool_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
 def fused_bn_leaky_relu_reference(x, gamma, beta, eps=EPS, slope=SLOPE):
     """The plain version of the whole op, differentiated by autograd:
     ``(y, mean, var)`` with ``mean``/``var`` detached, as the kernels'
-    Function marks them non-differentiable."""
-    mean, var = plain_stats(x)
-    y = plain_apply(x, mean, var, gamma, beta, eps, slope)
+    Function marks them non-differentiable. ``x`` is widened to float32
+    once, so that its gradient is summed in float32 and rounded once, as
+    the backward kernel's."""
+    xf = _wide(x)
+    mean, var = plain_stats(xf)
+    y = plain_apply(xf, mean, var, gamma, beta, eps, slope).to(x.dtype)
     return y, mean.detach(), var.detach()
 
 
@@ -242,11 +272,16 @@ def _load():
         signatures = {
             "bn_fwd_setup": [p, p],
             "bn_fwd_active_clusters": [i, i, i, i, p],
-            "bn_stats": [p, p, p, i, i, i, *plan, p],
-            "bn_stats_act": [p, p, p, p, p, p, i, i, i, f, f, *plan, p],
-            "bn_act_bwd": [p, p, p, p, p, p, p, p, p, i, i, i, f, f, *plan, p],
-            "bn_act_pool_apply": [p, p, p, p, p, p, i, i, i, i, f, f, i, p],
         }
+        for suffix in _SUFFIX.values():
+            signatures.update({
+                f"bn_stats{suffix}": [p, p, p, i, i, i, *plan, p],
+                f"bn_stats_act{suffix}": [p, p, p, p, p, p, i, i, i, f, f, *plan, p],
+                f"bn_act_bwd{suffix}": [p, p, p, p, p, p, p, p, p, i, i, i, f, f,
+                                        *plan, p],
+                f"bn_act_pool_apply{suffix}": [p, p, p, p, p, p, i, i, i, i, f, f,
+                                               i, p],
+            })
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -260,13 +295,17 @@ def _load():
 # ---------------------------------------------------------------------------
 
 
+#: The element types of x, y, the cotangent and dx, and each one's suffix
+#: of the C entries.
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
 def _check(x, *vecs):
     if x.device.type != "cuda":
         raise ValueError(f"fused-norm kernels take CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32:
+    if x.dtype not in _SUFFIX:
         raise TypeError(
-            f"fused-norm kernels take float32, got {x.dtype} "
-            "(bfloat16 is ROADMAP item A8)"
+            f"fused-norm kernels take float32 or bfloat16, got {x.dtype}"
         )
     if x.dim() != 4 or not x.is_contiguous() or x.numel() == 0:
         raise ValueError(
@@ -287,17 +326,19 @@ def _check(x, *vecs):
 
 def _check_like(g, x):
     _check(g)
-    if g.shape != x.shape or g.device != x.device:
+    if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
         raise ValueError(
-            f"cotangent {tuple(g.shape)} on {g.device} does not match the "
-            f"input {tuple(x.shape)} on {x.device}"
+            f"cotangent {g.dtype} {tuple(g.shape)} on {g.device} does not "
+            f"match the input {x.dtype} {tuple(x.shape)} on {x.device}"
         )
 
 
-def _launch(name, *args):
-    rc = getattr(_load(), name)(*args)
+def _launch(name, x, *args):
+    """One launch of kernel ``name`` on ``x``'s element type."""
+    symbol = name + _SUFFIX[x.dtype]
+    rc = getattr(_load(), symbol)(*args)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
     launch_counts[name] += 1
 
 
@@ -331,9 +372,11 @@ WARP_ROWS = 2048
 BLOCK_SLICE_BYTES = 96 * 1024
 FWD_THREADS = 256
 #: Shared-memory bytes a staged row takes: x for the forward, x and the
-#: cotangent for the backward.
+#: cotangent for the backward, staged as float32 whatever the element type
+#: (a bfloat16 element is widened as it is staged).
 FWD_ROW_BYTES, BWD_ROW_BYTES = 4, 8
-#: The planned kernels, numbered as ``bn_fwd_active_clusters`` takes them.
+#: The planned kernels, numbered as ``bn_fwd_active_clusters`` takes them
+#: on float32; their bfloat16 instances follow, ``len(_PLANNED)`` on.
 _PLANNED = {"bn_stats": 0, "bn_stats_act": 1, "bn_act_bwd": 2}
 
 
@@ -423,16 +466,18 @@ def _limits(device) -> tuple[int, int]:
     return _device_limits[index]
 
 
-def _active_clusters(device, plan: Plan, name: str) -> int:
-    """Clusters of ``plan`` the card holds at once for kernel ``name``,
-    asked once per plan."""
-    key = (device.index, plan, name)
+def _active_clusters(device, plan: Plan, name: str,
+                     dtype=torch.float32) -> int:
+    """Clusters of ``plan`` the card holds at once for kernel ``name`` on
+    ``dtype``, asked once per plan."""
+    key = (device.index, plan, name, dtype)
     if key not in _checked_plans:
         _limits(device)  # the kernels' attributes are set before the query
         active = ctypes.c_int()
+        kernel = _PLANNED[name] + (len(_PLANNED) if dtype == torch.bfloat16 else 0)
         with torch.cuda.device(device):
             rc = _load().bn_fwd_active_clusters(
-                _PLANNED[name], plan.cluster, plan.threads, plan.smem_bytes,
+                kernel, plan.cluster, plan.threads, plan.smem_bytes,
                 ctypes.byref(active),
             )
         if rc != 0:
@@ -446,14 +491,15 @@ def _active_clusters(device, plan: Plan, name: str) -> int:
 def _card_plan(x, streamed: bool, names: tuple[str, ...], row_bytes: int) -> Plan:
     """``_plan`` on this card's limits for CUDA tensor ``x``, with a
     16-block cluster only where the card holds one of each kernel of
-    ``names`` at its shared memory, checked once per shape."""
-    key = (x.device.index, tuple(x.shape), streamed, row_bytes)
+    ``names`` on ``x``'s element type at its shared memory, checked once per
+    shape and type."""
+    key = (x.device.index, tuple(x.shape), streamed, row_bytes, x.dtype)
     plan = _plans.get(key)
     if plan is None:
         sm, smem = _limits(x.device)
         plan = _plan(x.shape, sm, smem, row_bytes, 16, streamed)
         if plan.cluster == 16 and min(
-            _active_clusters(x.device, plan, n) for n in names
+            _active_clusters(x.device, plan, n, x.dtype) for n in names
         ) == 0:
             plan = _plan(x.shape, sm, smem, row_bytes, 8, streamed)
         _plans[key] = plan
@@ -484,7 +530,7 @@ def _check_plan(name, x, plan, row_bytes):
         or (plan.staged and plan.smem_bytes < staged)
     ):
         raise ValueError(f"{name}: {plan} does not cover {tuple(x.shape)}")
-    if _active_clusters(x.device, plan, name) == 0:
+    if _active_clusters(x.device, plan, name, x.dtype) == 0:
         raise RuntimeError(f"{name}: the card holds no cluster of {plan}")
 
 
@@ -504,7 +550,7 @@ def bn_stats(x, plan: Plan | None = None):
     mean = torch.empty(c, device=x.device, dtype=torch.float32)
     var = torch.empty_like(mean)
     with torch.cuda.device(x.device):
-        _launch("bn_stats", _ptr(x), _ptr(mean), _ptr(var), n, c, hw,
+        _launch("bn_stats", x, _ptr(x), _ptr(mean), _ptr(var), n, c, hw,
                 *_plan_args(plan), _stream(x))
     return mean, var
 
@@ -520,7 +566,7 @@ def bn_stats_act(x, gamma, beta, eps=EPS, slope=SLOPE, plan: Plan | None = None)
     mean = torch.empty(c, device=x.device, dtype=torch.float32)
     var = torch.empty_like(mean)
     with torch.cuda.device(x.device):
-        _launch("bn_stats_act", _ptr(x), _ptr(gamma), _ptr(beta), _ptr(y),
+        _launch("bn_stats_act", x, _ptr(x), _ptr(gamma), _ptr(beta), _ptr(y),
                 _ptr(mean), _ptr(var), n, c, hw, eps, slope,
                 *_plan_args(plan), _stream(x))
     return y, mean, var
@@ -540,7 +586,7 @@ def bn_act_bwd(x, g, mean, var, gamma, beta, eps=EPS, slope=SLOPE,
     dgamma = torch.empty(c, device=x.device, dtype=torch.float32)
     dbeta = torch.empty_like(dgamma)
     with torch.cuda.device(x.device):
-        _launch("bn_act_bwd", _ptr(x), _ptr(g), _ptr(mean), _ptr(var),
+        _launch("bn_act_bwd", x, _ptr(x), _ptr(g), _ptr(mean), _ptr(var),
                 _ptr(gamma), _ptr(beta), _ptr(dx), _ptr(dgamma), _ptr(dbeta),
                 n, c, hw, eps, slope, *_plan_args(plan), _stream(x))
     return dx, dgamma, dbeta
@@ -559,13 +605,14 @@ def bn_act_pool_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
     """Kernel K5: ``plain_pool_apply`` on the card -> ``(N, C, H/2, W/2)``."""
     _check(x, mean, var, gamma, beta)
     _check_even(x)
-    if x.data_ptr() % 8:
-        raise ValueError("bn_act_pool_apply reads float2 pairs: x must be "
-                         "8-byte aligned")
+    pair = 2 * x.element_size()
+    if x.data_ptr() % pair:
+        raise ValueError(f"bn_act_pool_apply reads pairs: x must be "
+                         f"{pair}-byte aligned")
     n, c, h, w = x.shape
     y = torch.empty((n, c, h // 2, w // 2), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
-        _launch("bn_act_pool_apply", _ptr(x), _ptr(mean), _ptr(var),
+        _launch("bn_act_pool_apply", x, _ptr(x), _ptr(mean), _ptr(var),
                 _ptr(gamma), _ptr(beta), _ptr(y), n, c, h, w, eps, slope,
                 _elementwise_blocks(y), _stream(x))
     return y
@@ -646,9 +693,14 @@ def _norm_act_vjp(x, gamma, beta, mean, var, gy, gmean, gvar, eps, slope,
 
     ``mean``/``var`` are the Function's own outputs: differentiating this
     again sends their cotangents back through the Function, which is how
-    the second derivative sees the statistics' dependence on ``x``."""
+    the second derivative sees the statistics' dependence on ``x``.
+
+    Computed in float32 for bfloat16 ``x`` and ``gy`` (widened; other
+    dtypes as they are); ``dx`` is returned in ``x``'s dtype."""
     b = lambda a: a[None, :, None, None]  # noqa: E731
     dims = (0, 2, 3)
+    in_dtype = x.dtype
+    x, gy = _wide(x), _wide(gy)
     n = x.numel() // x.shape[1]
     xc = x - b(mean)
     inv = torch.rsqrt(var + eps)
@@ -665,7 +717,7 @@ def _norm_act_vjp(x, gamma, beta, mean, var, gy, gmean, gvar, eps, slope,
     gmean = gmean - dxhat.sum(dims) * inv
     gvar = gvar - 0.5 * inv * inv * inv * (dxhat * xc).sum(dims)
     dx = dxhat * b(inv) + b(gmean / n) + xc * b(gvar * (2.0 / n))
-    return dx, dgamma, dbeta
+    return dx.to(in_dtype), dgamma, dbeta
 
 
 class FusedBNLeakyReLUHO(torch.autograd.Function):

@@ -22,7 +22,7 @@ import json
 import os
 
 from ..models.backbone import BackboneConfig
-from ..models.common import WireCodec
+from ..models.common import DeviceAugment, WireCodec
 from ..models.maml import MAMLConfig
 from .platform import resolve_device
 
@@ -233,15 +233,26 @@ def wire_codec_for(args: dict) -> WireCodec | None:
 
 
 def device_augment_for(args: dict):
-    """``None``: on-device augmentation is not ported. The JAX parser
-    ignores the flag on ImageNet, so only omniglot and cifar raise."""
+    """The on-device train augmentation of ``--device_augment``, or None:
+    Omniglot's class-level rotation as the in-step gather (bit for bit the
+    host's), cifar's crop and flip keyed by the episode seed, which needs
+    the uint8 wire (the crop pads raw pixels before the deferred
+    normalization, as the host does). ImageNet has no stochastic train
+    transform: the flag does nothing there."""
     if not bool(args.get("device_augment", False)):
         return None
     name = args["dataset_name"].lower()
-    if "omniglot" in name or "cifar10" in name or "cifar100" in name:
-        raise NotImplementedError(
-            "on-device augmentation (device_augment) is ROADMAP item A7"
-        )
+    if "omniglot" in name:
+        return DeviceAugment("rot90")
+    if "cifar10" in name or "cifar100" in name:
+        codec = wire_codec_for(args)
+        if codec is None or codec.mean is None:
+            raise ValueError(
+                "--device_augment on cifar requires --transfer_dtype uint8 "
+                "(the on-device crop must pad raw pixels before the "
+                "deferred normalization, matching the host transform order)"
+            )
+        return DeviceAugment("crop_flip", pad=4)
     return None
 
 

@@ -195,12 +195,17 @@ def _check_folded_tasks(kw, fused, rng):
 
 
 def test_unported_options_raise():
-    """Lane padding is the one option not ported (both backbones); unknown
-    values and ResNet-12's unsupported ones raise as in JAX."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        VGGBackbone(BackboneConfig(lane_pad_channels=True))
-    with pytest.raises(NotImplementedError, match="A8"):
-        build_backbone(BackboneConfig(architecture="resnet12", lane_pad_channels=True))
+    """Lane padding builds on both backbones (48 -> 64 channels) and is
+    refused with a layer norm or ``norm_conv``, as in JAX; unknown values
+    and ResNet-12's unsupported ones raise as in JAX."""
+    vgg = VGGBackbone(BackboneConfig(num_filters=48, lane_pad_channels=True))
+    params, _ = vgg.init(torch.Generator().manual_seed(0))
+    assert params["conv0"]["conv"]["weight"].shape[0] == 64
+    resnet = build_backbone(BackboneConfig(architecture="resnet12", num_filters=48,
+                                           lane_pad_channels=True))
+    assert resnet.widths == (64, 128, 256, 384)
+    with pytest.raises(ValueError, match="lane_pad_channels"):
+        VGGBackbone(BackboneConfig(lane_pad_channels=True, norm_layer="layer_norm"))
     with pytest.raises(ValueError, match="batch_norm"):
         build_backbone(BackboneConfig(architecture="resnet12", norm_layer="layer_norm"))
     with pytest.raises(ValueError, match="stage widths"):

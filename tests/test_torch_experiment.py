@@ -279,14 +279,26 @@ def test_interval_checkpoint_resumes_mid_epoch(runs, tmp_path, monkeypatch):
     ("dataprovider_backend", "process", "A5"),
 ])
 def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
+    """The knobs still not ported raise naming their ROADMAP item;
+    ``device_augment`` (A7's, ported since) builds a run whose learner
+    rotates on the device and whose loader ships the quarter turns."""
     monkeypatch.setenv("DATASET_DIR", str(runs["tmp_path"]))
     args = _args(runs["tmp_path"], "refused", continue_from_epoch="from_scratch",
                  **{knob: value})
-    with pytest.raises(NotImplementedError, match=item):
-        ExperimentBuilder(
+
+    def build():
+        return ExperimentBuilder(
             args=args, data=MetaLearningSystemDataLoader,
             model=MAMLFewShotLearner(args_to_maml_config(args)), device="cpu",
         )
+
+    if knob == "device_augment":
+        builder = build()
+        assert builder.model.cfg.device_augment.kind == "rot90"
+        assert builder.data.dataset.defer_augment
+        return
+    with pytest.raises(NotImplementedError, match=item):
+        build()
 
 
 def test_cli_raises_without_a_card(tmp_path):

@@ -8,7 +8,12 @@ without JAX, where tests/conftest.py cannot load:
 
 Tolerance, norm-wise per output: max|kernel - plain| <= 1e-5 + 1e-4 *
 max|plain| (reductions summed in another order; rsqrtf and fused
-multiply-add rounding elementwise).
+multiply-add rounding elementwise). In bfloat16 the full-size outputs (y,
+dx) are held per element to one bfloat16 unit in the last place of the
+plain version's (both compute in float32 and round once; two float32
+values within one bfloat16 ulp round at most one apart), plus 1e-5 where
+the two float32 results cancel to near 0, with a median gap of 0; the
+float32 statistics and dgamma/dbeta to the float32 bar.
 """
 
 import dataclasses
@@ -242,8 +247,15 @@ def test_any_order_functions_match_plain(pool, shape, cuda):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
-    with pytest.raises(TypeError, match="float32"):
-        tfn.bn_stats(torch.zeros((2, 3, 4, 4), device=cuda, dtype=torch.bfloat16))
+    """bfloat16 computes; float16 raises, as does what the kernels do not
+    take."""
+    x = torch.randn((2, 3, 4, 4), device=cuda).to(torch.bfloat16)
+    mean, var = tfn.bn_stats(x)
+    torch.cuda.synchronize()
+    assert mean.dtype == var.dtype == torch.float32
+    _close(mean, tfn.plain_stats(x)[0])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfn.bn_stats(torch.zeros((2, 3, 4, 4), device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
         tfn.bn_stats(torch.zeros((2, 4, 4, 3), device=cuda).permute(0, 3, 1, 2))
     v = torch.ones(3, device=cuda)
@@ -367,3 +379,93 @@ def test_shared_weights_train_iteration_runs_bn_act_bwd(cls, per_iteration, cuda
     assert tfn.launch_counts == dict.fromkeys(tfn.KERNELS, per_iteration), tfn.launch_counts
     _, plain = getattr(models, cls)(plain_cfg).run_train_iter(state, batch, epoch=0)
     np.testing.assert_allclose(float(losses["loss"]), float(plain["loss"]), rtol=1e-4)
+
+
+def _close_bf16(got, want):
+    """Per element within one bfloat16 ulp of ``want`` (+ 1e-5), median 0."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    gap = (got.float() - want.float()).abs()
+    _, exponent = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(gap), exponent - 8)
+    assert bool((gap <= ulp + ATOL).all()), float((gap - ulp).max())
+    assert float(gap.median()) == 0.0
+
+
+@pytest.mark.parametrize(
+    "shape,streamed",
+    [
+        ((5, 512, 28, 28), False),  # the bf16 flagship's train stages
+        ((5, 512, 14, 14), False),  # H*W 196: four-element moves of bf16
+        ((5, 512, 7, 7), False),    # odd H*W: element by element
+        ((5, 512, 3, 3), False),
+        ((15, 256, 3, 3), False),
+        ((3, 5, 7, 9), False),
+        ((1, 8, 28, 28), False),
+        ((25, 96, 84, 84), False),  # a cluster of blocks
+        ((5, 256, 28, 28), True),   # forced onto the streamed path
+        ((3, 5, 7, 9), True),
+    ],
+)
+def test_bf16_kernels_match_plain(shape, streamed, cuda):
+    """bn_stats, bn_stats_act, bn_act_bwd and (at even H, W) K5 on bfloat16
+    x and cotangent against their plain versions on the same inputs; two
+    calls bitwise equal."""
+    x, gamma, beta, g = _inputs(shape, cuda)
+    x, g = (2 * x + 3).to(torch.bfloat16), g.to(torch.bfloat16)
+    fplan, bplan = tfn.fwd_plan(x, streamed=streamed), tfn.bwd_plan(x, streamed=streamed)
+    y, mean, var = tfn.bn_stats_act(x, gamma, beta, plan=fplan)
+    stats = tfn.bn_stats(x, plan=fplan)
+    dx, dgamma, dbeta = tfn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=bplan)
+    again = tfn.bn_act_bwd(x, g, mean, var, gamma, beta, plan=bplan)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == torch.bfloat16
+    assert mean.dtype == dgamma.dtype == torch.float32
+    for a, b in zip((mean, var, dx, dgamma, dbeta), (*stats, *again)):
+        assert torch.equal(a, b)
+    p_mean, p_var = tfn.plain_stats(x)
+    _close(mean, p_mean)
+    _close(var, p_var)
+    _close_bf16(y, tfn.plain_apply(x, mean, var, gamma, beta))
+    p_dx, p_dgamma, p_dbeta = tfn.plain_bwd(x, g, mean, var, gamma, beta)
+    _close_bf16(dx, p_dx)
+    _close(dgamma, p_dgamma)
+    _close(dbeta, p_dbeta)
+    if shape[2] % 2 == 0 and shape[3] % 2 == 0:
+        pooled = tfn.bn_act_pool_apply(x, mean, var, gamma, beta)
+        _close_bf16(pooled, tfn.plain_pool_apply(x, mean, var, gamma, beta))
+
+
+@pytest.mark.parametrize("pool", [False, True], ids=["ho", "pool"])
+def test_bf16_any_order_functions_match_plain(pool, cuda):
+    """The any-order Functions on bfloat16 input, ties common (values on a
+    coarse grid): forward, and the first-order gradients against the plain
+    composition, each returned in its input's dtype."""
+    op = tfn.fused_bn_leaky_relu_pool if pool else tfn.fused_bn_leaky_relu_ho
+    shape = (5, 512, 28, 28) if pool else (5, 512, 7, 7)
+    x, gamma, beta, _ = _inputs(shape, cuda)
+    x = (torch.round(x * 2) / 2).to(torch.bfloat16)
+    stats = tfn.bn_stats(x)
+    t = torch.randn_like(op(x, gamma, beta)[0].float()).to(torch.bfloat16)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (x, gamma, beta)]
+        y, mean, var = fn(*leaves)
+        first = torch.autograd.grad(
+            (y.float() * t.float()).sum() + mean.sum() + var.sum(), leaves
+        )
+        return y.detach(), [a.detach() for a in first]
+
+    def plain(x, gamma, beta):
+        # Widened once, so that every gradient reaching x is summed in
+        # float32 and rounded once, as the Function's backward does.
+        y, mean, var = _plain_op(x.float(), gamma, beta, pool, stats)
+        return y.to(x.dtype), mean, var
+
+    y, (dx, dgamma, dbeta) = grads(op)
+    want_y, (w_dx, w_dgamma, w_dbeta) = grads(plain)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.bfloat16 and dgamma.dtype == torch.float32
+    _close_bf16(y, want_y)
+    _close_bf16(dx, w_dx)
+    _close(dgamma, w_dgamma)
+    _close(dbeta, w_dbeta)

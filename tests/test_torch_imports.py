@@ -126,3 +126,17 @@ def test_serving_slice_modules_are_in_the_import_check():
     assert {"ServingAPI", "make_http_server", "MicroBatcher", "ServeMetrics",
             "ServeConfig", "EpisodeRequest", "ServingEngine", "SwapRejectedError",
             "DeadlineExceededError", "OverloadedError"} <= set(serve.__all__)
+
+
+def test_compute_options_slice_modules_are_in_the_import_check():
+    """The modules of the compute options (lane padding, the port's own
+    Threefry) are among those the import check walks, and the on-device
+    augmentation's entry points exist."""
+    from howtotrainyourmamlpytorch_tpu_torch.models import common
+
+    modules = _port_modules()
+    for name in ("ops.layout", "utils.threefry"):
+        assert f"{port.__name__}.{name}" in modules
+    assert {"DeviceAugment", "rot90_by_gather", "crop_flip_by_key",
+            "decode_augment_images", "decode_train_batch"} <= set(dir(common))
+    assert not hasattr(common, "refuse_unported")

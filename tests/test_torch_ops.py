@@ -174,7 +174,8 @@ def test_sgd_update_matches_jax(rng):
 @pytest.mark.parametrize("codec", [None, (1.0, None, None)], ids=["f32", "uint8"])
 def test_prepare_batch_matches_jax(codec, rng):
     """Shots flattened into the class axis, labels int32, images float32 or
-    on the uint8 wire: the same arrays as the JAX package's."""
+    on the uint8 wire, and an on-device augmentation operand carried as a
+    fifth array: the same arrays as the JAX package's."""
     xs = (rng.rand(2, 5, 3, 1, 4, 4) > 0.5).astype(np.float32)
     xt = (rng.rand(2, 5, 2, 1, 4, 4) > 0.5).astype(np.float32)
     ys = np.tile(np.arange(5)[None, :, None], (2, 1, 3))
@@ -187,8 +188,13 @@ def test_prepare_batch_matches_jax(codec, rng):
     for a, b in zip(ours, theirs):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="A7"):
-        t_common.prepare_batch((xs, xt, ys, yt, np.zeros((2, 5), np.int32)))
+    ks = rng.randint(0, 4, size=(2, 5)).astype(np.int32)
+    ours = t_common.prepare_batch((xs, xt, ys, yt, ks), tc)
+    theirs = j_common.prepare_batch((xs, xt, ys, yt, ks), jc)
+    assert len(ours) == len(theirs) == 5
+    for a, b in zip(ours, theirs):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
 
 
 def test_partition_merge_match_jax():
