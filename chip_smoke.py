@@ -111,7 +111,8 @@ Phases, in order; any failure exits non-zero before the result lines:
              launch captured on the capture's stream; the captures'
              launches held to the CLI's per-iteration counts and to the
              kernel nodes of each graph. Prints, per
-             width, capture ms per branch and, over 3 repeats, replay and
+             width, capture ms per branch and, over TIMING_REPEATS (2)
+             repeats, replay and
              eager ms per iteration. (The north star's learning rate is
              constant in its config; the phase lowers its floor to move it.)
    remat   - remat_inner_steps on, as the CLI trains, at flagship width
@@ -139,14 +140,14 @@ Phases, in order; any failure exits non-zero before the result lines:
              JSON with the three fused flags, over a synthetic Omniglot-shaped
              tree of 250 classes x 20 binary 28x28 PNGs (a made-up
              dataset_name, so it is not count-checked), an MSL horizon of 2
-             epochs: 2 epochs of 25 iterations with 80 validation tasks and
+             epochs: 2 epochs of 15 iterations with 40 validation tasks and
              the ensemble test, then ``--continue_from_epoch latest`` to 3
              epochs (past the horizon: the final-only graph), then to 4 with
              ``--iters_per_dispatch 5``, then to 5 at K=5 and to 6 at K=1
              with ``--device_prefetch 0`` (no stager). Each call returns;
              the CSV has 6 rows, every loss is finite, the test accuracy is
-             in [0, 1] and the resumed runs start at iterations 50, 75, 100
-             and 125. Launches of each kernel per train iteration (counted
+             in [0, 1] and the resumed runs start at iterations 30, 45, 60
+             and 75. Launches of each kernel per train iteration (counted
              at capture, times the replays; each graph's kernel nodes
              agree) and per eval iteration are held exactly
              (remat_inner_steps on, the config default). The first call
@@ -156,8 +157,9 @@ Phases, in order; any failure exits non-zero before the result lines:
 6. cli north star - the same on the mini-ImageNet north-star JSON
              (84x84x3, 48 filters, 2 tasks 5-way 5-shot, 15 targets) over a
              pre-split tree of 64/16/20 classes x 20 RGB PNGs (600 images a
-             class cut to 20), an MSL horizon of 1 epoch: 1 epoch of 10
-             iterations, 20 evaluation tasks, the ensemble over the one
+             class cut to 20), an MSL horizon of 1 epoch: 1 epoch of 8
+             iterations, 10 evaluation tasks, the ensemble
+             over the one
              model, then ``latest`` to 2 epochs, to 3 at K=5, then to 4
              at K=5 and to 5 at K=1 with ``--device_prefetch 0``.
              Both CLI phases print, per step, meta-iterations/s and step p50
@@ -181,8 +183,10 @@ Phases, in order; any failure exits non-zero before the result lines:
              the train phase's tolerances.
 8. cli zoo - each zoo learner's entry point (``train_<learner>_system.main``)
              with the three fused flags on one flagship-width Omniglot tree
-             (written once): 2 epochs of 10 iterations, synchronized after
-             each learner call, 40 evaluation tasks and the ensemble, then
+             (written once): 2 epochs of 6 iterations,
+             synchronized after
+             each learner call, 24 evaluation tasks and
+             the ensemble, then
              ``latest`` to a 3rd epoch as the CLI runs (gradient descent at
              ``--iters_per_dispatch 5``, which it does not act on; ANIL past
              an MSL horizon of 2). Launches per train and eval iteration
@@ -216,10 +220,11 @@ Phases, in order; any failure exits non-zero before the result lines:
              steps on both branches, kernel nodes held to the flagship's
              counts. cli bf16: ``train_maml_system.main`` on that JSON with
              the three fused flags, first at ``--compute_dtype float32`` (2
-             epochs of 25 iterations), then at ``bfloat16``: 2 epochs of 25
-             with 80 validation tasks and the ensemble, ``latest`` to a 3rd
-             epoch at K=1 and a 4th at K=5; launches per iteration the
-             flagship's, the first 50 losses finite and within JAX's bf16
+             epochs of 15 iterations), then at ``bfloat16``:
+             2 epochs of 15 with 40 validation tasks and the ensemble,
+             ``latest`` to a 3rd epoch at K=1 and a 4th at K=5; launches per
+             iteration the flagship's, the first 30 losses finite and within
+             JAX's bf16
              bar (rtol 0.1, atol 0.05) of the float32 run's. device augment:
              the flagship CLI with ``--device_augment True`` against host
              rotation, 3 replayed iterations and the checkpoint bitwise
@@ -237,7 +242,27 @@ Phases, in order; any failure exits non-zero before the result lines:
              and back bit for bit. Every (shape, slope, dtype) a kernel ran
              at is in ``[coverage]``, and each kernel must have run in
              bfloat16 on a main path.
-11. result - a [replay] line with each captured graph's kernel nodes, each
+11. chaos  - the training CLI's operations plane on CHAOS_CONFIG (the
+             flagship JSON) at full width with the three fused flags, on
+             the tree of phase 8 (3 epochs of 4 iterations, 8 evaluation
+             tasks, watchdog_min_s CHAOS_WATCHDOG_MIN_S): an unfaulted twin
+             (in another process, beside the rollback and OOM checks below),
+             then one supervised run of enospc,sigterm,kill,hang through
+             ``train_maml_system_dispatch`` (``chaos_train.run_chaos``):
+             phases exit 75, killed, 76, 0; the final train_model_latest
+             and summary_statistics.csv (its wall-clock columns aside)
+             equal the twin's bit for bit; train_recovery_s per class. In
+             this process: a NaN batch under ``--on_nonfinite rollback``
+             (the restored iteration, the first replay after the rollback
+             bitwise equal to an eager step from the restored state, no new
+             capture, finite losses to the end); ``oom_at_iter`` (a real
+             torch.OutOfMemoryError, exit 77, oom_report.json with the
+             card's memory); the CLI's per-step p50 with telemetry and the
+             watchdog off, then on (1 epoch of 25), and a resumed epoch with
+             them on in which every train dispatch between boundaries runs
+             under ``torch.cuda.set_sync_debug_mode`` with no
+             synchronisation.
+12. result - a [replay] line with each captured graph's kernel nodes, each
              phase's seconds, one JSON line listing the kernels (with their
              bfloat16 ms, bound, largest error and ulps, and launches in
              the bf16 CLI), the nvidia-smi line, and the last line
@@ -487,6 +512,8 @@ ZOO_LAUNCHES = {
 }
 # Meta-updates a dispatch in the graph phase and in the CLI's K>1 calls.
 GRAPH_ITERS = 5
+#: Repeats of the graph phases' replay and eager timings.
+TIMING_REPEATS = 2
 # Each wrapper's device kernel in csrc/fused_norm.cu, as it stands in the
 # mangled name the driver gives a graph's kernel node (bn_stats and
 # bn_stats_act are two instances of one template).
@@ -579,8 +606,12 @@ def graph_ms(torch, fn, calls: int, replays: int = 10) -> float:
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
+    from howtotrainyourmamlpytorch_tpu_torch.models.step_graph import (
+        collector_paused,
+    )
+
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
     graph.replay()
@@ -1603,7 +1634,7 @@ def graph_phase(torch, fn, cases=None) -> dict:
                 fail(f"graph {tag}: captured kernels on streams {captured_streams}, "
                      f"the capture's is {graphs.stream.cuda_stream}")
             replay_ms, eager_ms = [], []
-            for _ in range(3):
+            for _ in range(TIMING_REPEATS):
                 t0 = time.perf_counter()
                 learner.run_train_iters(state, batches, 0)
                 torch.cuda.synchronize()
@@ -2123,12 +2154,12 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
 
 
 def cli_flagship_phase(torch, fn):
-    per_epoch = 25
+    per_epoch = 15
     latest = ["--continue_from_epoch", "latest"]
     out = cli_phase(
         torch, fn, "cli_flagship", FLAGSHIP, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 80,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 40,
          "multi_step_loss_num_epochs": 2},
         [({}, [], True, 1, -1),
          ({"total_epochs": 3}, latest, False, 1, -1),
@@ -2147,12 +2178,12 @@ def cli_flagship_phase(torch, fn):
 
 
 def cli_north_star_phase(torch, fn):
-    per_epoch = 10
+    per_epoch = 8
     latest = ["--continue_from_epoch", "latest"]
     out = cli_phase(
         torch, fn, "cli_north_star", NORTH_STAR, write_imagenet_tree,
         {"dataset_name": "imagenet_synth", "total_epochs": 1,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 20,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 10,
          "multi_step_loss_num_epochs": 1},
         [({}, [], True, 1, -1),
          ({"total_epochs": 2}, latest, False, 1, -1),
@@ -2169,14 +2200,14 @@ def cli_north_star_phase(torch, fn):
 
 def cli_zoo_phase(torch, fn, kind, dataset_dir):
     """A zoo learner's entry point on the Omniglot tree in ``dataset_dir``
-    with the three fused flags: 2 epochs of 10 iterations (synchronized
-    after each learner call), 40 evaluation tasks and the ensemble test,
+    with the three fused flags: 2 epochs of 6 iterations (synchronized
+    after each learner call), 24 evaluation tasks and the ensemble test,
     then ``latest`` to a 3rd epoch as the CLI runs (gradient descent at
     ``--iters_per_dispatch 5``, which it does not act on; ANIL past an MSL
     horizon of 2, its final-only graph)."""
     import importlib
 
-    per_epoch = 10
+    per_epoch = 6
     _, config, _, module = next(z for z in ZOO if z[0] == kind)
     main = importlib.import_module(
         f"howtotrainyourmamlpytorch_tpu_torch.{module}"
@@ -2185,7 +2216,7 @@ def cli_zoo_phase(torch, fn, kind, dataset_dir):
     out = cli_phase(
         torch, fn, f"cli_{kind}", config, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 40,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 24,
          "multi_step_loss_num_epochs": 2},
         [({}, [], True, 1, -1),
          ({"total_epochs": 3}, ["--continue_from_epoch", "latest"], False,
@@ -2220,12 +2251,12 @@ def resnet_graph_phase(torch, fn) -> dict:
 
 def cli_resnet12_phase(torch, fn, dataset_dir):
     """``train_maml_system.main`` on the ResNet-12 JSON with the three fused
-    flags over the Omniglot tree in ``dataset_dir``: 2 epochs of 10
+    flags over the Omniglot tree in ``dataset_dir``: 2 epochs of 6
     iterations (synchronized after each learner call), 40 evaluation tasks
     and the ensemble test, then ``latest`` to a 3rd epoch at
     ``--iters_per_dispatch 5``, past an MSL horizon of 2 (the final-only
     graph). Launches per iteration held to ``CLI_RESNET12_*``."""
-    per_epoch = 10
+    per_epoch = 6
     out = cli_phase(
         torch, fn, "cli_resnet12", RESNET12, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
@@ -2381,9 +2412,9 @@ def check_bf16_kernels(torch, fn, shape, gen, pool: bool, slope=SLOPE) -> dict:
 def cli_bf16_phase(torch, fn, dataset_dir) -> dict:
     """``train_maml_system.main`` on the bf16 flagship JSON with the three
     fused flags over the Omniglot tree in ``dataset_dir``, MSL horizon 2:
-    first at ``--compute_dtype float32`` (2 epochs of 25 iterations, the
-    reference), then at ``--compute_dtype bfloat16``: 2 epochs of 25
-    iterations with 80 validation tasks and the ensemble, ``latest`` to a
+    first at ``--compute_dtype float32`` (2 epochs of 15 iterations, the
+    reference), then at ``--compute_dtype bfloat16``: 2 epochs of 15
+    iterations with 40 validation tasks and the ensemble, ``latest`` to a
     3rd epoch at K=1 and to a 4th at K=5 (both final-only). Launches per
     iteration held to the flagship's counts (the dtype routes nothing
     elsewhere); every loss finite; within JAX's bf16 bar of the float32
@@ -2393,12 +2424,12 @@ def cli_bf16_phase(torch, fn, dataset_dir) -> dict:
     every parameter by about its learning rate whatever the gradient's
     size, so a rounding-level difference in a near-zero gradient becomes a
     full step (the task_chunk phase's float32 reassociation moves the
-    second loss by 2%); the per-iteration gaps over the first 50 are
+    second loss by 2%); the per-iteration gaps over the first 30 are
     printed."""
-    per_epoch = 25
+    per_epoch = 15
     latest = ["--continue_from_epoch", "latest"]
     base = {"dataset_name": "omniglot_synth", "total_epochs": 2,
-            "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 80,
+            "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 40,
             "multi_step_loss_num_epochs": 2}
     want = (CLI_FLAGSHIP_TRAIN, CLI_FLAGSHIP_TRAIN_FINAL, CLI_FLAGSHIP_EVAL)
     f32 = cli_phase(torch, fn, "cli_bf16_f32", BF16_CONFIG, write_omniglot_tree, base,
@@ -2656,6 +2687,318 @@ def lane_pad_phase(torch, fn) -> dict:
     return out
 
 
+#: The chaos phase: the flagship JSON the operations plane is checked on,
+#: at full width, cut to 3 epochs of 4 iterations and 8 evaluation tasks.
+CHAOS_CONFIG = os.path.join(
+    REPO, "experiment_config", "omniglot_maml++-omniglot_1_8_0.1_64_5_1.json"
+)
+CHAOS_SCHEDULE = ["enospc", "sigterm", "kill", "hang"]
+CHAOS_EPOCHS, CHAOS_ITERS, CHAOS_EVAL_TASKS = 3, 4, 8
+#: Above a process's first dispatch on the card, which holds the libraries'
+#: first use and the capture (10-13 s on the H100, PERF.md section 6); small
+#: against the supervised run.
+CHAOS_WATCHDOG_MIN_S = 25.0
+#: Iterations of each per-step run of the telemetry on/off comparison.
+TELEMETRY_ITERS = 25
+
+
+def chaos_config(**overrides) -> dict:
+    """``CHAOS_CONFIG`` over the phase's tree, with its resilience knobs."""
+    with open(CHAOS_CONFIG) as f:
+        cfg = json.load(f)
+    cfg.update(dataset_name="omniglot_synth", dataset_path="omniglot_synth",
+               total_epochs=CHAOS_EPOCHS, total_iter_per_epoch=CHAOS_ITERS,
+               num_evaluation_tasks=CHAOS_EVAL_TASKS, total_epochs_before_pause=100,
+               watchdog=True, watchdog_min_s=CHAOS_WATCHDOG_MIN_S, watchdog_factor=20.0,
+               checkpoint_async=True, telemetry=True)
+    cfg.update(overrides)
+    return cfg
+
+
+def _chaos_builder(work, name, dataset_dir, **overrides):
+    """An ``ExperimentBuilder`` of the flagship learner on the card, as
+    ``train_maml_system`` builds it, for the in-process checks."""
+    from howtotrainyourmamlpytorch_tpu_torch.data import MetaLearningSystemDataLoader
+    from howtotrainyourmamlpytorch_tpu_torch.experiment_builder import ExperimentBuilder
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
+        args_to_maml_config,
+        get_args,
+    )
+
+    path = os.path.join(work, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(chaos_config(experiment_name=os.path.join(work, name), **overrides), f)
+    os.environ["DATASET_DIR"] = dataset_dir
+    args, device = get_args(["--name_of_args_json_file", path, *FUSED_ARGV])
+    return ExperimentBuilder(args=args, data=MetaLearningSystemDataLoader,
+                             model=MAMLFewShotLearner(args_to_maml_config(args)),
+                             device=device)
+
+
+def chaos_rollback(torch, work, dataset_dir) -> dict:
+    """``nan_at_iter`` at the first iteration of epoch 2 under
+    ``--on_nonfinite rollback``, in this process: the poisoned epoch trips
+    the sentinel at its boundary, the run reloads epoch 1's checkpoint and
+    replays. Holds the restored iteration, the first dispatch after the
+    rollback (a replay of the graph captured before it, fed the restored
+    state) to an eager ``_train_step`` from that state on the same batch bit
+    for bit, no new capture, and finite losses and weights to the end."""
+    from howtotrainyourmamlpytorch_tpu_torch.models.common import set_injected_lr
+    from howtotrainyourmamlpytorch_tpu_torch.utils import faultinject
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    builder = _chaos_builder(work, "rollback", dataset_dir, total_epochs=2,
+                             on_nonfinite="rollback")
+    learner = builder.model
+    seen = {}
+    perform, run_iters = builder._perform_rollback, learner.run_train_iters
+
+    def rollback(trip):
+        seen["captures_before"] = builder._captures()
+        perform(trip)
+        seen["restored_iter"] = int(builder.state["current_iter"])
+
+    def run_train_iters(state, batches, epoch):
+        out = run_iters(state, batches, epoch)
+        if "restored_iter" in seen and "replay" not in seen:
+            group = tuple(a.clone() for a in batches.arrays)
+            seen["replay"] = (state, group, epoch, out)
+        return out
+
+    builder._perform_rollback = rollback
+    learner.run_train_iters = run_train_iters
+    faultinject.activate(faultinject.FaultPlan(nan_at_iter=CHAOS_ITERS))
+    try:
+        builder.run_experiment()
+    finally:
+        faultinject.deactivate()
+    if seen.get("restored_iter") != CHAOS_ITERS:
+        fail(f"chaos rollback: restored iteration {seen.get('restored_iter')}, "
+             f"expected {CHAOS_ITERS}")
+    state, group, epoch, (new_state, losses) = seen["replay"]
+    epoch = int(epoch)
+    importance = learner._importance(state, learner._train_importance(epoch))
+    eager = state._replace(opt_state=set_injected_lr(state.opt_state,
+                                                     learner._epoch_lr(epoch)))
+    metrics = []
+    for k in range(group[0].shape[0]):
+        eager, m = learner._train_step(
+            eager, tuple(a[k] for a in group), importance,
+            second_order=learner._use_second_order(epoch),
+            final_only=learner._final_only(epoch),
+        )
+        metrics.append(m)
+    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(new_state),
+                                                      tree_leaves(eager)))
+    bitwise = bitwise and all(torch.equal(losses[key], torch.stack([m[key] for m in metrics]))
+                              for key in ("loss", "accuracy", "nonfinite"))
+    if not bitwise:
+        fail("chaos rollback: the replay after the rollback differs from an eager "
+             "step from the restored state")
+    captures = builder._captures()
+    if captures != seen["captures_before"]:
+        fail(f"chaos rollback: {captures - seen['captures_before']} new capture(s) "
+             "after the rollback")
+    with open(os.path.join(work, "rollback", "logs", "summary_statistics.json")) as f:
+        stats = json.load(f)
+    losses = [v for k, vs in stats.items() if "loss" in k and "importance" not in k
+              for v in vs]
+    final = tree_leaves(builder.train_state)
+    if not (np.isfinite(losses).all() and all(bool(torch.isfinite(a).all()) for a in final
+                                              if a.is_floating_point())):
+        fail(f"chaos rollback: non-finite losses or weights at the end: {stats}")
+    with np.load(os.path.join(work, "rollback", "saved_models",
+                              "train_model_latest")) as z:
+        exp = json.loads(bytes(z["__experiment_state__"]).decode())
+    if exp.get("nonfinite_rollbacks") != 1:
+        fail(f"chaos rollback: nonfinite_rollbacks {exp.get('nonfinite_rollbacks')}")
+    return {"restored_iter": seen["restored_iter"], "replay_bitwise_vs_eager": bitwise,
+            "captures": captures, "recaptures_after_rollback": 0,
+            "nonfinite_rollbacks": exp["nonfinite_rollbacks"],
+            "nonfinite_trips_total": exp.get("nonfinite_trips_total"),
+            "epochs": len(stats["val_accuracy_mean"])}
+
+
+def chaos_oom(torch, work, dataset_dir) -> dict:
+    """``oom_at_iter`` 1 in this process: a real ``torch.OutOfMemoryError``
+    (an allocation larger than the card's free memory) at the second
+    dispatch, ``logs/oom_report.json`` with the card's memory, exit 77."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils import faultinject
+
+    builder = _chaos_builder(work, "oom", dataset_dir)
+    faultinject.activate(faultinject.FaultPlan(oom_at_iter=1))
+    code = None
+    try:
+        builder.run_experiment()
+    except SystemExit as exc:
+        code = exc.code
+    finally:
+        faultinject.deactivate()
+    if code != 77:
+        fail(f"chaos oom: exit code {code}, expected 77")
+    with open(os.path.join(work, "oom", "logs", "oom_report.json")) as f:
+        report = json.load(f)
+    marks = report.get("memory_watermarks") or [{}]
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not (str(report.get("error_type", "")).endswith("OutOfMemoryError")
+            and "out of memory" in str(report.get("error", "")).lower()
+            and marks[0].get("bytes_limit") == total
+            and marks[0].get("bytes_in_use", 0) > 0
+            and report.get("exit_code") == 77):
+        fail(f"chaos oom: report {report}")
+    return {"exit_code": code, "error_type": report["error_type"],
+            "error": report["error"][:120], "bytes_in_use": marks[0]["bytes_in_use"],
+            "peak_bytes_in_use": marks[0]["peak_bytes_in_use"],
+            "bytes_limit": marks[0]["bytes_limit"], "current_iter": report["current_iter"],
+            "levers": report["config_levers"]}
+
+
+class SyncCounter:
+    """Counts CUDA synchronisations (``torch.cuda.set_sync_debug_mode``
+    warnings) in train dispatches that reach no log or epoch boundary and
+    capture no graph, from ``from_iter`` on."""
+
+    def __init__(self, torch, from_iter):
+        self.torch, self.from_iter = torch, from_iter
+        self.dispatches, self.syncs = 0, 0
+
+    def __enter__(self):
+        import warnings
+
+        from howtotrainyourmamlpytorch_tpu_torch import experiment_builder as eb
+
+        self.cls = eb.ExperimentBuilder
+        self.orig = orig = self.cls.train_iteration
+        counter, torch = self, self.torch
+
+        def train_iteration(builder, samples, epoch_idx, total_losses, current_iter):
+            n = eb.dispatch_multiplier(samples)
+            end = current_iter + n
+            quiet = (current_iter >= counter.from_iter and not eb._log_due(end, n)
+                     and end % builder.args.total_iter_per_epoch)
+            if not quiet:
+                return orig(builder, samples, epoch_idx, total_losses, current_iter)
+            captures = builder._captures()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = orig(builder, samples, epoch_idx, total_losses, current_iter)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            if builder._captures() == captures:
+                counter.dispatches += 1
+                counter.syncs += sum("synchroniz" in str(w.message) for w in caught)
+            return out
+
+        self.cls.train_iteration = train_iteration
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_iteration = self.orig
+
+
+def chaos_telemetry(torch, fn, dataset_dir) -> dict:
+    """The flagship CLI's per-step p50 (a synchronize after each learner
+    call) with telemetry and the watchdog off, then on, on the chaos tree
+    (1 epoch of ``TELEMETRY_ITERS``); the run with them on then resumes to a
+    2nd epoch as the CLI runs, with every train dispatch between
+    boundaries watched for synchronisations."""
+    latest = ["--continue_from_epoch", "latest"]
+    runs = {}
+    for name, on in (("off", False), ("on", True)):
+        overrides = chaos_config(total_epochs=1, total_iter_per_epoch=TELEMETRY_ITERS,
+                                 telemetry=on, watchdog=on,
+                                 watchdog_min_s=CHAOS_WATCHDOG_MIN_S)
+        calls = [({}, [], True, 1, -1)]
+        counter = SyncCounter(torch, TELEMETRY_ITERS)
+        if on:
+            calls.append(({"total_epochs": 2}, latest, False, 1, -1))
+        with counter:
+            runs[name] = cli_phase(torch, fn, f"telemetry_{name}", CHAOS_CONFIG, None,
+                                   overrides, calls, CLI_FLAGSHIP_TRAIN,
+                                   CLI_FLAGSHIP_TRAIN_FINAL, CLI_FLAGSHIP_EVAL,
+                                   dataset_dir=dataset_dir)
+        runs[name]["sync_watch"] = {"dispatches": counter.dispatches,
+                                    "syncs": counter.syncs}
+    watch = runs["on"]["sync_watch"]
+    if watch["dispatches"] < TELEMETRY_ITERS - 3 or watch["syncs"]:
+        fail(f"chaos telemetry: {watch} (dispatches between boundaries, syncs)")
+    off = runs["off"]["per_step"]["step_p50_ms"]
+    on = runs["on"]["per_step"]["step_p50_ms"]
+    return {"step_p50_ms_off": off, "step_p50_ms_on": on, "ratio_on_off": on / off,
+            "sync_watch": watch,
+            "launches": {k: runs["off"]["launches"][k] + runs["on"]["launches"][k]
+                         for k in runs["on"]["launches"]}}
+
+
+def chaos_phase(torch, fn, dataset_dir) -> dict:
+    """The operations plane on the card, at flagship width on the tree in
+    ``dataset_dir``: the unfaulted twin and one supervised run of
+    ``CHAOS_SCHEDULE`` through the port's dispatcher
+    (``chaos_train.run_chaos``), bit for bit equal at the end, with
+    ``train_recovery_s`` per class; then, in this process, a NaN under
+    ``rollback``, an out-of-memory, and telemetry on against off."""
+    import tempfile
+
+    from howtotrainyourmamlpytorch_tpu_torch import chaos_train
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as work:
+        # The twin runs beside the rollback and OOM checks (only its bits
+        # are read); the supervised run and the timed telemetry runs alone.
+        twin_cfg = os.path.join(work, "chaos_baseline.json")
+        with open(twin_cfg, "w") as f:
+            json.dump(chaos_config(experiment_name=os.path.join(work, "chaos_baseline")), f)
+        env = {**os.environ, "DATASET_DIR": dataset_dir,
+               "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        env.pop("MAML_FAULTS", None)
+        with open(os.path.join(work, "chaos_baseline.log"), "w") as log:
+            twin = subprocess.Popen(
+                [sys.executable, "-u", "-m", "howtotrainyourmamlpytorch_tpu_torch.train_maml_system",
+                 "--name_of_args_json_file", twin_cfg, *FUSED_ARGV],
+                env=env, stdout=log, stderr=subprocess.STDOUT,
+            )
+            try:
+                with phase_timer("chaos_rollback"):
+                    out["rollback"] = chaos_rollback(torch, work, dataset_dir)
+                with phase_timer("chaos_oom"):
+                    out["oom"] = chaos_oom(torch, work, dataset_dir)
+                twin_rc = twin.wait(timeout=chaos_train.RUN_TIMEOUT_S)
+            finally:
+                if twin.poll() is None:
+                    twin.kill()
+        t0 = time.perf_counter()
+        verdict = chaos_train.run_chaos(
+            work, CHAOS_SCHEDULE, config=chaos_config(), dataset_dir=dataset_dir,
+            extra_argv=FUSED_ARGV,
+        )
+        out["supervised_s"] = time.perf_counter() - t0
+        exp, base = (os.path.join(work, name) for name in ("chaos_exp", "chaos_baseline"))
+        try:
+            got, want = chaos_train.final_leaves(exp), chaos_train.final_leaves(base)
+            bitexact = (twin_rc == 0 and set(got) == set(want)
+                        and all(np.array_equal(got[k], want[k]) for k in got)
+                        and chaos_train.summary_rows(exp) == chaos_train.summary_rows(base))
+            verdict.update(bitexact_vs_baseline=bitexact, leaves=len(got),
+                           summary_rows=len(chaos_train.summary_rows(exp)))
+        except OSError:
+            verdict["bitexact_vs_baseline"] = False
+        rcs = [p["rc"] for p in verdict["phases"]]
+        if not verdict["ok"] or verdict["bitexact_vs_baseline"] is not True or rcs != [
+            75, -9, 76, 0
+        ]:
+            for log in ("chaos_exp.log", "chaos_baseline.log"):
+                with open(os.path.join(work, log)) as f:
+                    print(f"[chaos] tail of {log}:\n" + f.read()[-6000:], flush=True)
+            fail(f"chaos: supervised run {json.dumps(verdict)}")
+        out["supervised"] = verdict
+    with phase_timer("chaos_telemetry"):
+        out["telemetry"] = chaos_telemetry(torch, fn, dataset_dir)
+    return out
+
+
 def timing_reps(shape) -> int:
     """Fewer timed calls for the large north-star shapes."""
     return 20 if np.prod(shape) >= 4_000_000 else 100
@@ -2782,6 +3125,46 @@ def print_cli(name, r) -> None:
           f"{json.dumps(r['launches_per_train_iter'])}, per eval iteration "
           f"{json.dumps(r['launches_per_eval_iter'])} | {PHASE_SECONDS[name]:.1f} s "
           f"| {json.dumps({k: v for k, v in r.items() if k != 'archive'})}", flush=True)
+
+
+def print_chaos(r, smi) -> None:
+    """The chaos phase's lines, one a check, with the card's name and
+    power limit beside the times."""
+    v = r["supervised"]
+    rows = "; ".join(f"{'+'.join(p['faults']) or 'clean'} rc {p['rc']}"
+                     for p in v["phases"])
+    print(f"[chaos] supervised run of {','.join(CHAOS_SCHEDULE)} through the "
+          f"port's dispatcher (rc {v['dispatcher_rc']}): phases {rows}; requeued on "
+          f"75, hang-requeued on 76 | {r['supervised_s']:.1f} s", flush=True)
+    print(f"[chaos] bit-exact against the unfaulted twin (train_model_latest's "
+          f"{v['leaves']} leaves and summary_statistics.csv's {v['summary_rows']} rows "
+          f"without their wall-clock columns): {v['bitexact_vs_baseline']}; every "
+          f"fault recovered: "
+          f"{all(f.get('recovered') for f in v['faults'].values())}", flush=True)
+    print("[chaos] train_recovery_s (fault exit to the resumed process's checkpoint "
+          "load) " + " ".join(f"{k} {t:.3f}" for k, t in v["mttr_s"].items())
+          + f" | {smi}", flush=True)
+    rb = r["rollback"]
+    print(f"[chaos] nan under rollback: restored iteration {rb['restored_iter']}, "
+          f"rollbacks {rb['nonfinite_rollbacks']}, the replay after the rollback "
+          f"bitwise equal to an eager step from the restored state "
+          f"{rb['replay_bitwise_vs_eager']}, recaptures {rb['recaptures_after_rollback']}"
+          f", losses finite to epoch {rb['epochs']} | "
+          f"{PHASE_SECONDS['chaos_rollback']:.1f} s", flush=True)
+    o = r["oom"]
+    print(f"[chaos] oom: exit {o['exit_code']}, {o['error_type']} in oom_report.json "
+          f"({o['error']!r}), memory from the card: in use {o['bytes_in_use']} B, "
+          f"peak {o['peak_bytes_in_use']} B, limit {o['bytes_limit']} B | {smi}",
+          flush=True)
+    t = r["telemetry"]
+    print(f"[chaos] telemetry and watchdog on/off, flagship CLI per step: p50 "
+          f"{t['step_p50_ms_on']:.2f} / {t['step_p50_ms_off']:.2f} ms, ratio "
+          f"{t['ratio_on_off']:.4f}; synchronisations in "
+          f"{t['sync_watch']['dispatches']} dispatches between boundaries: "
+          f"{t['sync_watch']['syncs']} | {smi}", flush=True)
+    print(f"[chaos] {PHASE_SECONDS['chaos']:.1f} s | "
+          f"{json.dumps({k: v for k, v in r.items() if k != 'telemetry'}, default=str)}",
+          flush=True)
 
 
 def main() -> int:
@@ -2947,7 +3330,7 @@ def main() -> int:
             print_graph("graph_bf16", "flagship_bf16", graph_bf16["flagship_bf16"])
             with phase_timer("cli_bf16"):
                 cli["cli_bf16"], cli_bf16_f32 = cli_bf16_phase(torch, fn, tree)
-            print(f"[cli_bf16] losses against the float32 run, first 50 iterations: "
+            print(f"[cli_bf16] losses against the float32 run, first 30 iterations: "
                   f"max gap {cli['cli_bf16']['loss_gap_vs_float32']['max']:.4f}, "
                   f"mean {cli['cli_bf16']['loss_gap_vs_float32']['mean']:.4f} (bar "
                   f"{BF16_LOSS_ATOL} + {BF16_LOSS_RTOL} x |float32|); float32 per "
@@ -2964,6 +3347,10 @@ def main() -> int:
                   f"(host-rotated {augmented['device_augment_host']['per_step']['step_p50_ms']:.2f})"
                   f" | {PHASE_SECONDS['device_augment']:.1f} s | {json.dumps(augmented)}",
                   flush=True)
+            # 11. The operations plane on the same tree.
+            with phase_timer("chaos"):
+                chaos = chaos_phase(torch, fn, tree)
+            print_chaos(chaos, smi)
         with phase_timer("task_chunk"):
             chunked = task_chunk_phase(torch, fn)
         print("[task_chunk] " + " | ".join(
@@ -3021,7 +3408,7 @@ def main() -> int:
     # bytes of the float32 rows' (5, 256, 28, 28)), its largest error over
     # the bf16 shapes, and the bf16 CLI's launches.
     paths = [serve, resnet_serve, serve_http, serve_north, train, *cli.values(),
-             cli_bf16_f32, *augmented.values(), chunked, lane_pad]
+             cli_bf16_f32, *augmented.values(), chaos["telemetry"], chunked, lane_pad]
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":

@@ -25,6 +25,11 @@ train step has read them.
   warning, up to the budget; past it, or for a non-``Exception`` error,
   the original exception reaches the consumer chained under
   :class:`DataPipelineError`.
+* **Faults.** The injected ones of ``utils/faultinject.py`` run on the
+  stager thread as in the JAX package: ``producer_pull`` before a group is
+  pulled, ``poison_batch`` on each sample before it is prepared (on the
+  ``uint8`` wire, ``prepare_batch`` then clips the poison away). Every
+  fault emits a ``data_fault`` event.
 * **Waits.** ``pop_waits`` splits the time the stager spent blocked on the
   loader from the time the consumer spent blocked on the stager.
 * **Lifecycle.** ``close`` (idempotent) stops the thread and drops every
@@ -44,6 +49,8 @@ import numpy as np
 import torch
 
 from ..models.common import StagedBatch, to_device
+from ..telemetry import events as telemetry_events
+from ..utils import faultinject
 
 
 class DataPipelineError(RuntimeError):
@@ -128,14 +135,16 @@ class DevicePrefetcher:
     # ------------------------------------------------------------------
 
     def _pull_group(self):
-        """The next group's samples and its first iteration; shorter than
-        ``group`` at an epoch's end or the stream's, empty at its end."""
+        """The next group's samples, poisoned as the fault plan says, and
+        its first iteration; shorter than ``group`` at an epoch's end or
+        the stream's, empty at its end."""
         first = self._next_iter
+        faultinject.producer_pull(first)
         want = self._group
         if self._epoch_len:
             want = min(want, self._epoch_len - first % self._epoch_len)
         samples = []
-        for _ in range(want):
+        for j in range(want):
             t0 = time.perf_counter()
             try:
                 sample = next(self._source)
@@ -145,7 +154,7 @@ class DevicePrefetcher:
                 waited = time.perf_counter() - t0
                 with self._lock:
                     self._data_wait_s += waited
-            samples.append(sample)
+            samples.append(faultinject.poison_batch(sample, first + j))
         self._next_iter = first + len(samples)
         return samples, first
 
@@ -173,6 +182,13 @@ class DevicePrefetcher:
         )
         if not fatal:
             self.faults_quarantined += 1
+        telemetry_events.emit(
+            "data_fault", iter=int(first_iter), dispatch_id=int(first_iter),
+            error=f"{type(exc).__name__}: {exc}"[:300],
+            quarantined=self.faults_quarantined, budget=self._fault_budget,
+            fatal=fatal,
+        )
+        if not fatal:
             print(f"WARNING: data fault at iteration {first_iter} quarantined "
                   f"({self.faults_quarantined}/{self._fault_budget}): "
                   f"{type(exc).__name__}: {exc}", file=sys.stderr, flush=True)

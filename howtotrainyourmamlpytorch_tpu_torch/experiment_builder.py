@@ -1,13 +1,15 @@
 """Experiment runtime: the train/validation loop, checkpoints, statistics,
-resume and the ensemble test (``howtotrainyourmamlpytorch_tpu/
-experiment_builder.py``, its loop; the operations planes wait).
+resume, the ensemble test and the operations plane
+(``howtotrainyourmamlpytorch_tpu/experiment_builder.py``).
 
 * An epoch is ``total_iter_per_epoch`` meta-updates, then a validation
   epoch of ``num_evaluation_tasks / batch_size`` batches.
 * Each phase's per-iteration metrics become ``{phase}_{key}_mean/std``:
   a row of ``logs/summary_statistics.csv`` and the cumulative
   ``logs/summary_statistics.json``, written before the epoch's checkpoint
-  so that the checkpoint holds its own epoch's row.
+  so that the checkpoint holds its own epoch's row. The train row also
+  carries the telemetry's step-time, data-wait and stage-wait p50/p95 and
+  the topology columns, under the JAX package's names.
 * Checkpoints: ``saved_models/train_model_<epoch>`` with
   ``train_model_latest`` as its alias, written by a background writer
   (``checkpoint_async``), in the JAX package's format. With
@@ -36,17 +38,38 @@ experiment_builder.py``, its loop; the operations planes wait).
   on from a fresh one.
 * Metrics stay on the card until a log line (every ``TRAIN_LOG_EVERY``
   iterations) or an epoch boundary reads them. A non-finite meta-loss is
-  ``halt`` (raise before anything is checkpointed) or ``skip`` (the
-  learner drops the update on the card).
+  ``halt`` (raise before anything is checkpointed), ``skip`` (the learner
+  drops the update on the card) or ``rollback`` (reload the newest valid
+  checkpoint, at most ``MAX_ROLLBACKS_PER_RUN`` times a process, and
+  move the data past the poisoned batch).
 
-What is not ported raises or is reported once at start; see
-``_refuse_unported`` and ``NOT_PORTED``.
+The operations plane:
+
+* SIGTERM/SIGINT set a flag; after the in-flight dispatch (and the epoch
+  boundary, when one is due) the run writes an emergency
+  ``train_model_latest`` (refused on a state with a pending non-finite
+  loss), a row of ``logs/interruptions.csv``, and exits with
+  ``REQUEUE_EXIT_CODE`` 75. A second signal stops at once.
+* The hang watchdog (``utils/watchdog.py``) is armed around every dispatch
+  and every epoch boundary after the first; it exits with 76.
+* A ``torch.OutOfMemoryError`` writes ``logs/oom_report.json``
+  (``telemetry/device.py``) and exits with 77.
+* ``TrainTelemetry`` (``telemetry/runtime.py``): ``logs/telemetry.jsonl``,
+  ``logs/status.json``, anomalies, the program ledger, profiler captures.
+* ``--debug_nans`` runs the step eagerly under ``utils/sanitize.nan_checks``.
+* The fault points of ``utils/faultinject.py`` sit where the JAX builder's
+  do.
+
+Multi-device and multi-process training raise (ROADMAP A10).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import signal
 import sys
+import threading
 import time
 
 import numpy as np
@@ -54,6 +77,9 @@ import torch
 
 from .data.device_prefetch import AUTO_DEPTH, DevicePrefetcher
 from .models.common import StagedBatch, dispatch_multiplier, prepare_batch
+from .telemetry.device import OOM_EXIT_CODE, is_resource_exhausted, write_oom_report
+from .telemetry.runtime import TrainTelemetry
+from .utils import faultinject, sanitize
 from .utils.checkpoint import (
     AsyncCheckpointWriter,
     CheckpointCorruptError,
@@ -62,33 +88,37 @@ from .utils.checkpoint import (
 )
 from .utils.platform import resolve_device
 from .utils.storage import build_experiment_folder, save_statistics, save_to_json
+from .utils.watchdog import HANG_EXIT_CODE, DispatchWatchdog
 
 #: A log line (and the sentinel's read) every this many iterations.
 TRAIN_LOG_EVERY = 50
 
-#: Knobs of JAX-only mechanisms that change no number: accepted, and
-#: reported at start as not ported, with the ROADMAP item that holds them.
-NOT_PORTED = {
-    "telemetry": "A12",
-    "watchdog": "A12",
-    "profile_trace_path": "A12",
-    "profile_trigger_path": "A12",
-    "peak_flops": "A12",
-    "debug_nans": "A12",
-}
+#: Exit code of a preemption shutdown: an emergency checkpoint was written
+#: and the run resumes with ``--continue_from_epoch latest``.
+REQUEUE_EXIT_CODE = 75
 
+#: Rollbacks of the divergence sentinel a process may make before it halts.
+MAX_ROLLBACKS_PER_RUN = 5
 
 class NonFiniteLossError(RuntimeError):
-    """The divergence sentinel tripped under the ``halt`` policy; raised
-    before the state can reach a checkpoint."""
+    """The divergence sentinel tripped under ``halt``, or spent the
+    ``rollback`` budget; raised before the state can reach a checkpoint."""
+
+
+class _RollbackSignal(Exception):
+    """Unwinds the train loop to the rollback: the iteration at detection
+    and the trips seen."""
+
+    def __init__(self, trip_iter: int, trips: float = 1.0):
+        super().__init__(trip_iter)
+        self.trip_iter = int(trip_iter)
+        self.trips = float(trips)
 
 
 def _refuse_unported(args) -> None:
-    """Knobs that change what is computed raise away from their default."""
+    """Multi-device and multi-process training raise (A10)."""
     policy = str(getattr(args, "on_nonfinite", "halt") or "halt").lower()
-    if policy == "rollback":
-        raise NotImplementedError("on_nonfinite=rollback is ROADMAP item A12")
-    if policy not in ("halt", "skip"):
+    if policy not in ("halt", "skip", "rollback"):
         raise ValueError(f"on_nonfinite must be halt|skip|rollback, got {policy!r}")
     multi = (
         int(getattr(args, "process_count", 1) or 1) > 1
@@ -140,8 +170,13 @@ class ExperimentBuilder:
         caller asks for another."""
         _refuse_unported(args)
         self.args, self.model = args, model
+        self._data_cls = data
         self.device = resolve_device(device)
         self.on_nonfinite = str(getattr(args, "on_nonfinite", "halt") or "halt").lower()
+        # A signal sets this; the loop exits at the next dispatch boundary.
+        self._shutdown_signum: int | None = None
+        self._prev_handlers: dict[int, object] = {}
+        self._rollbacks_this_run = 0
 
         (
             self.saved_models_filepath,
@@ -153,23 +188,48 @@ class ExperimentBuilder:
         self.state = {"best_val_acc": 0.0, "best_val_iter": 0, "current_iter": 0}
         self.create_summary_csv = False
 
+        def knob(name, default):
+            # None (absent from an older config) is the default; an
+            # explicit 0 is kept.
+            value = getattr(args, name, None)
+            return default if value is None else value
+
+        self.telemetry = TrainTelemetry(
+            self.logs_filepath,
+            enabled=bool(knob("telemetry", True)),
+            profile_trace_path=str(knob("profile_trace_path", "") or ""),
+            profile_num_iters=int(knob("profile_num_iters", 20) or 20),
+            profile_trigger_path=str(knob("profile_trigger_path", "") or ""),
+            peak_flops=float(knob("peak_flops", 0.0) or 0.0) or None,
+        )
+        self.telemetry.heartbeat_extra = self._heartbeat_extra
+        self.watchdog_enabled = bool(knob("watchdog", True))
+        self.watchdog_min_s = float(knob("watchdog_min_s", 600.0))
+        self.watchdog_factor = float(knob("watchdog_factor", 20.0))
+        self.debug_nans = bool(knob("debug_nans", False))
+        self._watchdog: DispatchWatchdog | None = None
+        self._epoch_boundaries_done = 0
+
         self.train_state = model.init_state(
             torch.Generator().manual_seed(int(args.seed)), self.device
         )
-        if args.continue_from_epoch == "from_scratch":
-            self.create_summary_csv = True
-        elif args.continue_from_epoch == "latest":
-            print("attempting to find existing checkpoint")
-            if not self._resume_from_latest():
-                self.args.continue_from_epoch = "from_scratch"
+        # The resume's checkpoint_load is this run's event.
+        with self.telemetry.sink():
+            if args.continue_from_epoch == "from_scratch":
                 self.create_summary_csv = True
-        elif int(args.continue_from_epoch) >= 0:
-            self.train_state, self.state = self.model.load_model(
-                model_save_dir=self.saved_models_filepath,
-                model_name="train_model",
-                model_idx=args.continue_from_epoch,
-                device=self.device,
-            )
+            elif args.continue_from_epoch == "latest":
+                print("attempting to find existing checkpoint")
+                if not self._resume_from_latest():
+                    self.args.continue_from_epoch = "from_scratch"
+                    self.create_summary_csv = True
+            elif int(args.continue_from_epoch) >= 0:
+                self.train_state, self.state = self.model.load_model(
+                    model_save_dir=self.saved_models_filepath,
+                    model_name="train_model",
+                    model_idx=args.continue_from_epoch,
+                    device=self.device,
+                )
+                self._align_summary_csv()
 
         self.data = data(args=args, current_iter=self.state["current_iter"])
         print(
@@ -217,9 +277,6 @@ class ExperimentBuilder:
             f"{k}={getattr(args, k, None)!r}" for k in
             ("compute_dtype", "task_chunk", "device_augment", "lane_pad_channels")
         ))
-        print("not ported, no effect on this run: " + ", ".join(
-            f"{k}={getattr(args, k, None)!r} ({item})" for k, item in NOT_PORTED.items()
-        ) + "; signal handlers, OOM forensics and fault injection (A12)")
 
     # ------------------------------------------------------------------
     # Metric summaries
@@ -296,6 +353,7 @@ class ExperimentBuilder:
                     device=self.device,
                 )
                 print(f"resumed from checkpoint {path}")
+                self._align_summary_csv()
                 return True
             except CheckpointCorruptError as exc:
                 quarantined = path + ".corrupt"
@@ -307,17 +365,242 @@ class ExperimentBuilder:
                       "back to the previous checkpoint", file=sys.stderr)
         return False
 
-    def _sentinel_check(self, losses, current_iter: int) -> None:
-        """``halt``: raises on a tripped iteration, at the log cadence's
-        read. ``skip`` was resolved on the card."""
-        flag = losses.get("nonfinite")
-        if (self.on_nonfinite == "skip" or flag is None
-                or float(torch.as_tensor(flag).sum()) == 0.0):
-            return
-        raise NonFiniteLossError(
-            f"non-finite meta-loss at iteration {current_iter} "
-            "(on_nonfinite=halt); nothing was checkpointed"
+    # ------------------------------------------------------------------
+    # Preemption, hangs, OOM
+    # ------------------------------------------------------------------
+
+    def _install_signal_handlers(self) -> None:
+        if threading.current_thread() is not threading.main_thread():
+            return  # signal.signal works on the main thread only
+        for signum in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev_handlers[signum] = signal.signal(signum, self._request_shutdown)
+            except (ValueError, OSError):
+                pass
+
+    def _restore_signal_handlers(self) -> None:
+        for signum, handler in self._prev_handlers.items():
+            try:
+                signal.signal(signum, handler)
+            except (ValueError, OSError):
+                pass
+        self._prev_handlers = {}
+
+    def _request_shutdown(self, signum, frame) -> None:
+        del frame
+        if self._shutdown_signum is not None:
+            raise KeyboardInterrupt  # a second signal stops at once
+        self._shutdown_signum = signum
+        # os.write, not print: a handler that lands inside a buffered print
+        # on the same thread would die of a reentrant call.
+        os.write(2, (f"\nreceived signal {signum}: finishing the in-flight "
+                     "dispatch, then emergency checkpoint and requeue exit "
+                     f"({REQUEUE_EXIT_CODE})\n").encode())
+
+    def _write_interruption_row(self, kind=None) -> None:
+        """A row of ``logs/interruptions.csv``: the pending signal's number,
+        or ``kind`` (``"hang"``, ``"oom"``). The dispatcher appends its own
+        rows to the same file."""
+        interruptions = os.path.join(self.logs_filepath, "interruptions.csv")
+        header = ["timestamp", "signal", "current_iter", "epoch",
+                  "process_index", "process_count"]
+        if not os.path.exists(interruptions):
+            try:
+                fd = os.open(interruptions, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+                os.write(fd, (",".join(header) + "\n").encode())
+                os.close(fd)
+            except FileExistsError:
+                pass
+        row = [time.time(), int(self._shutdown_signum) if kind is None else kind,
+               int(self.state["current_iter"]), self.epoch, 0, 1]
+        try:
+            with open(interruptions) as f:
+                existing = f.readline().rstrip("\n").split(",")
+            if len(existing) < len(header):
+                row = row[:len(existing)]
+        except OSError:
+            pass
+        save_statistics(self.logs_filepath, row, filename="interruptions.csv")
+
+    def _armed(self, upto_iter: int, observe: bool = True, scale: float = 1.0):
+        """The watchdog's window around one dispatch (or, with ``observe``
+        off, around an epoch boundary); nothing without a watchdog."""
+        if self._watchdog is None:
+            return contextlib.nullcontext()
+        return self._watchdog.armed(upto_iter, observe=observe, scale=scale)
+
+    def _boundary_deadline_scale(self) -> float:
+        """An epoch boundary holds a validation epoch and a checkpoint
+        snapshot: the validation batches (plus slack) times a dispatch."""
+        num_val_batches = max(
+            int(self.args.num_evaluation_tasks / self.args.batch_size), 1
         )
+        return float(num_val_batches + 4)
+
+    def _captures(self) -> int:
+        """The learner's step-graph captures so far (0 off the card; a graph
+        is never captured twice)."""
+        graphs = getattr(self.model, "_step_graphs", None)
+        return 0 if graphs is None else len(graphs.graphs)
+
+    def _on_hang(self, diag: dict) -> None:
+        """The watchdog's unwind before its exit: the writer drained (at
+        most 30 s), the audit row, the ``requeue_exit`` event, the flush.
+        The wedged dispatch is not touched."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.drain(raise_errors=False, timeout=30.0)
+        try:
+            self._write_interruption_row(kind="hang")
+        except OSError:
+            pass
+        self.telemetry.event("requeue_exit", code=HANG_EXIT_CODE, hang=True,
+                             iter=int(diag.get("iter", -1)))
+        self.telemetry.shutdown()
+
+    def _oom_levers(self) -> dict:
+        """The knobs that relieve device-memory pressure, for the report."""
+        def read(name, default=None):
+            return getattr(self.args, name, default)
+
+        return {
+            "batch_size": read("batch_size"),
+            "task_chunk": read("task_chunk", 0),
+            "iters_per_dispatch": self.iters_per_dispatch,
+            "device_prefetch": self.device_prefetch,
+            "compute_dtype": read("compute_dtype"),
+            "lane_pad_channels": read("lane_pad_channels"),
+            "remat_inner_steps": read("remat_inner_steps", True),
+            "number_of_training_steps_per_iter": read("number_of_training_steps_per_iter"),
+            "num_target_samples": read("num_target_samples"),
+            "data_parallel_devices": read("data_parallel_devices", 0),
+        }
+
+    def _handle_oom(self, exc: BaseException) -> None:
+        """``logs/oom_report.json``, the audit row and the ``oom`` event;
+        the caller exits with ``OOM_EXIT_CODE``."""
+        report_path = os.path.join(self.logs_filepath, "oom_report.json")
+        write_oom_report(report_path, ledger=self.telemetry.ledger, error=exc,
+                         config_levers=self._oom_levers(),
+                         current_iter=int(self.state["current_iter"]))
+        try:
+            self._write_interruption_row(kind="oom")
+        except OSError:
+            pass
+        self.telemetry.event("oom", iter=int(self.state["current_iter"]),
+                             code=OOM_EXIT_CODE, error=str(exc)[:500],
+                             report=os.path.basename(report_path))
+        print(f"out of device memory at iteration {self.state['current_iter']}: "
+              f"forensics written to {report_path}; exiting with code "
+              f"{OOM_EXIT_CODE}", file=sys.stderr)
+
+    def _maybe_emergency_exit(self, write_checkpoint: bool = True) -> None:
+        """At a dispatch boundary, when a signal came: the in-flight async
+        write drained, an emergency ``train_model_latest`` (not over a state
+        with a pending non-finite loss; ``halt`` raises then), the audit
+        row, exit 75. ``write_checkpoint=False`` is the ensemble test's
+        form: its state is a reloaded epoch, and the phase reruns whole."""
+        if self._shutdown_signum is None:
+            return
+        self.telemetry.event("preemption", signal=int(self._shutdown_signum),
+                             iter=int(self.state["current_iter"]))
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.drain(raise_errors=False)
+        if not write_checkpoint:
+            self._write_interruption_row()
+            print("shutdown requested during the evaluation phase; exiting with "
+                  f"requeue code {REQUEUE_EXIT_CODE} (the phase reruns on resume)",
+                  flush=True)
+            self.telemetry.event("requeue_exit", code=REQUEUE_EXIT_CODE)
+            self.telemetry.shutdown()
+            sys.exit(REQUEUE_EXIT_CODE)
+        trips = (self._pending_nonfinite_trips() if self.on_nonfinite != "skip"
+                 else 0.0)
+        if trips and self.on_nonfinite == "halt":
+            raise NonFiniteLossError(
+                f"{int(trips)} non-finite meta-loss(es) pending at shutdown "
+                f"(iteration {self.state['current_iter']}, on_nonfinite=halt); "
+                "refusing to write an emergency checkpoint of poisoned state"
+            )
+        path = self._checkpoint_path("latest")
+        if trips:
+            print("WARNING: non-finite meta-loss pending at shutdown; not "
+                  "overwriting train_model_latest (the requeued run resumes "
+                  "from the last epoch checkpoint)", file=sys.stderr)
+        else:
+            self.model.save_model(path, self.train_state, self.state)
+        self._write_interruption_row()
+        print(("emergency checkpoint written to " + path if not trips
+               else "emergency checkpoint skipped (poisoned state)")
+              + f"; exiting with requeue code {REQUEUE_EXIT_CODE}", flush=True)
+        self.telemetry.event("requeue_exit", code=REQUEUE_EXIT_CODE,
+                             emergency_checkpoint=not bool(trips))
+        self.telemetry.shutdown()
+        sys.exit(REQUEUE_EXIT_CODE)
+
+    def _heartbeat_extra(self) -> dict:
+        """The builder's heartbeat fields (host values only)."""
+        extra = {
+            "epoch": int(self.epoch),
+            "best_val_acc": float(self.state.get("best_val_acc", 0.0) or 0.0),
+            "last_checkpoint_age_s": round(time.monotonic() - self._last_ckpt_t, 3),
+            "shutdown_pending": self._shutdown_signum is not None,
+        }
+        if self._watchdog is not None:
+            extra["watchdog"] = self._watchdog.state()
+        return extra
+
+    # ------------------------------------------------------------------
+    # The divergence sentinel
+    # ------------------------------------------------------------------
+
+    def _align_summary_csv(self) -> None:
+        """Drops the rows of ``summary_statistics.csv`` past the loaded
+        state's epochs. An epoch's row is written before its checkpoint, so
+        a process killed between the two (SIGKILL, the watchdog's exit, an
+        async write still in flight) left a row that the replay of that
+        epoch writes again; the JAX builder keeps both."""
+        path = os.path.join(self.logs_filepath, "summary_statistics.csv")
+        stats = self.state.get("per_epoch_statistics") or {}
+        epochs = len(next(iter(stats.values()), []))
+        try:
+            with open(path) as f:
+                lines = f.read().splitlines(keepends=True)
+        except OSError:
+            return
+        try:
+            float(lines[0].split(",")[0])
+            header = 0
+        except (IndexError, ValueError):
+            header = 1
+        extra = len(lines) - header - epochs
+        if extra <= 0:
+            return
+        with open(path + ".tmp", "w") as f:
+            f.writelines(lines[:header + epochs])
+        os.replace(path + ".tmp", path)
+        print(f"WARNING: dropped {extra} row(s) of {path} past the checkpoint's "
+              f"{epochs} epoch(s); their epochs are trained again", file=sys.stderr)
+
+    def _sentinel_check(self, losses, current_iter: int) -> None:
+        """At the log cadence's read: ``halt`` raises on a tripped
+        dispatch, ``rollback`` unwinds to ``_perform_rollback``; ``skip``
+        was resolved on the card."""
+        flag = losses.get("nonfinite")
+        if self.on_nonfinite == "skip" or flag is None:
+            return
+        trips = float(torch.as_tensor(flag).sum())
+        if trips == 0.0:
+            return
+        self.telemetry.event("nonfinite_trip", iter=int(current_iter), trips=trips,
+                             policy=self.on_nonfinite, scope="dispatch")
+        if self.on_nonfinite == "halt":
+            raise NonFiniteLossError(
+                f"non-finite meta-loss at iteration {current_iter} "
+                "(on_nonfinite=halt); nothing was checkpointed. Rerun with "
+                "--on_nonfinite skip/rollback to train through it, or "
+                "--debug_nans to find the operation"
+            )
+        raise _RollbackSignal(current_iter, trips)
 
     def _pending_nonfinite_trips(self) -> float:
         """Sentinel trips among the epoch's accumulated metrics so far
@@ -336,15 +619,62 @@ class ExperimentBuilder:
         )
         if trips == 0.0:
             return
+        self.telemetry.event("nonfinite_trip", iter=int(self.state["current_iter"]),
+                             trips=trips, policy=self.on_nonfinite, scope="epoch")
         if self.on_nonfinite == "halt":
             raise NonFiniteLossError(
                 f"{int(trips)} non-finite loss(es) in the epoch ending at "
                 f"iteration {self.state['current_iter']} (on_nonfinite=halt); "
                 "nothing was checkpointed"
             )
+        if self.on_nonfinite == "rollback":
+            raise _RollbackSignal(self.state["current_iter"], trips)
         self.state["nonfinite_trips_total"] = (
             float(self.state.get("nonfinite_trips_total", 0.0)) + trips
         )
+
+    def _perform_rollback(self, trip: _RollbackSignal) -> None:
+        """``rollback``: the newest valid checkpoint (or a fresh state from
+        the seed when there is none) becomes the state, and the loader
+        starts past the iteration that tripped, so the replay trains on
+        fresh episodes. On a card the restored state goes into the
+        captured graphs' static inputs at the next dispatch
+        (``models/step_graph.py``); nothing is captured again."""
+        if self._ckpt_writer is not None:
+            # The in-flight epoch write may be the newest valid state.
+            self._ckpt_writer.drain()
+        self._rollbacks_this_run += 1
+        if self._rollbacks_this_run > MAX_ROLLBACKS_PER_RUN:
+            raise NonFiniteLossError(
+                f"divergence sentinel rolled back {MAX_ROLLBACKS_PER_RUN} times "
+                "in this run without stabilizing; halting (on_nonfinite=rollback "
+                "budget exhausted)"
+            )
+        carry_trips = float(self.state.get("nonfinite_trips_total", 0.0)) + trip.trips
+        rollbacks = int(self.state.get("nonfinite_rollbacks", 0)) + 1
+        print(f"WARNING: non-finite meta-loss at iteration {trip.trip_iter}; "
+              "rolling back to the last valid checkpoint (rollback "
+              f"{self._rollbacks_this_run}/{MAX_ROLLBACKS_PER_RUN})", file=sys.stderr)
+        if not self._resume_from_latest():
+            self.train_state = self.model.init_state(
+                torch.Generator().manual_seed(int(self.args.seed)), self.device
+            )
+            self.state = {"best_val_acc": 0.0, "best_val_iter": 0, "best_epoch": 0,
+                          "current_iter": 0}
+        self.state["nonfinite_trips_total"] = carry_trips
+        self.state["nonfinite_rollbacks"] = rollbacks
+        restored_iter = int(self.state["current_iter"])
+        # The episodes of [restored_iter, trip_iter) are never served again.
+        self.data.close()
+        self.data = self._data_cls(
+            args=self.args, current_iter=max(trip.trip_iter, restored_iter)
+        )
+        self.epoch = restored_iter // int(self.args.total_iter_per_epoch)
+        self.total_losses = {}
+        self.telemetry.event("rollback", trip_iter=trip.trip_iter,
+                             restored_iter=restored_iter, trips=trip.trips,
+                             rollbacks_this_run=self._rollbacks_this_run)
+        self.telemetry.reset_window()
 
     # ------------------------------------------------------------------
     # Iterations
@@ -360,19 +690,30 @@ class ExperimentBuilder:
 
     def _after_dispatch(self, losses, total_losses, current_iter, n_iters):
         """Accounts one dispatch of ``n_iters`` meta-updates: the input
-        waits, the metrics appended unread (the host does not wait for the
-        step it queued), and the log line with the sentinel's read when
-        due. Returns the new iteration count."""
+        waits and the telemetry's step sample, the metrics appended unread
+        (the host does not wait for the step it queued), and the log line
+        with the sentinel's read when due. Returns the new iteration
+        count."""
         data_wait, stage_wait = self._pop_input_waits()
         self._epoch_data_wait_s += data_wait
         self._epoch_stage_wait_s += stage_wait
+        self.telemetry.record_dispatch(
+            current_iter + n_iters, n_iters=n_iters, data_wait_s=data_wait,
+            stage_wait_s=stage_wait, staged=self._stager is not None,
+        )
         for key, value in losses.items():
             total_losses.setdefault(key, []).append(value)
         current_iter += n_iters
         if _log_due(current_iter, n_iters):
+            # The print and the sentinel read the same scalars: one read,
+            # timed as the boundary's host-sync share.
+            t_sync = time.perf_counter()
             self._sentinel_check(losses, current_iter)
-            print(f"training iter {current_iter} epoch {self.epoch} -> "
-                  + self.build_loss_summary_string(losses), flush=True)
+            summary = self.build_loss_summary_string(losses)
+            sync_s = time.perf_counter() - t_sync
+            print(f"training iter {current_iter} epoch {self.epoch} -> " + summary,
+                  flush=True)
+            self.telemetry.boundary(current_iter, sync_s, reason="log")
         return current_iter
 
     def train_iteration(self, samples, epoch_idx, total_losses, current_iter):
@@ -381,7 +722,10 @@ class ExperimentBuilder:
         the learner has it (K = 1 included, so one path serves the JAX
         builder's ``train_iteration`` and ``train_iteration_multi``), else
         ``run_train_iter`` of the group's one batch. The metrics are
-        appended whole, one sample per meta-update."""
+        appended whole, one sample per meta-update. The watchdog's window
+        covers the dispatch and the log cadence's read; the injected hang
+        and out-of-memory fire inside it, at the group's first
+        iteration."""
         if isinstance(samples, StagedBatch):
             batches, shapes = samples, [a.shape for a in samples.arrays[:4]]
         else:
@@ -391,17 +735,22 @@ class ExperimentBuilder:
             shapes = [a.shape for a in batches[0][:4]]
         if current_iter == 0:
             print("shape of data", *shapes)
-        if self._multi:
-            self.train_state, losses = self.model.run_train_iters(
-                self.train_state, batches, epoch=epoch_idx
-            )
-        else:
-            (batch,) = [batches] if isinstance(batches, StagedBatch) else batches
-            self.train_state, losses = self.model.run_train_iter(
-                self.train_state, batch, epoch=epoch_idx
-            )
-        current_iter = self._after_dispatch(losses, total_losses, current_iter,
-                                            dispatch_multiplier(samples))
+        n_iters = dispatch_multiplier(samples)
+        with self._armed(current_iter + n_iters):
+            faultinject.hang_due(current_iter)
+            faultinject.oom_due(current_iter, self.device)
+            if self._multi:
+                self.train_state, losses = self.model.run_train_iters(
+                    self.train_state, batches, epoch=epoch_idx
+                )
+            else:
+                (batch,) = [batches] if isinstance(batches, StagedBatch) else batches
+                self.train_state, losses = self.model.run_train_iter(
+                    self.train_state, batch, epoch=epoch_idx
+                )
+            current_iter = self._after_dispatch(losses, total_losses, current_iter,
+                                                n_iters)
+        self.telemetry.ingest_train_program(samples)
         return total_losses, current_iter
 
     def evaluation_iteration(self, val_sample, total_losses, phase):
@@ -436,10 +785,16 @@ class ExperimentBuilder:
         unless ``checkpoint_async`` is off, when the loop pays it all."""
         epoch_path = self._checkpoint_path(int(epoch))
         latest = self._checkpoint_path("latest")
+        t0 = time.perf_counter()
         if self._ckpt_writer is not None:
             snapshot = model.snapshot_model(self.train_state, state)
             self._ckpt_writer.submit(
                 epoch_path, snapshot, alias_dst=latest, publish_marker=True
+            )
+            self.telemetry.event(
+                "checkpoint_submit", path=os.path.basename(epoch_path),
+                iter=int(self.state["current_iter"]),
+                stall_s=time.perf_counter() - t0, pending=self._ckpt_writer.pending,
             )
         else:
             model.save_model(epoch_path, self.train_state, state)
@@ -459,12 +814,16 @@ class ExperimentBuilder:
                   "interval; skipping the interval write", file=sys.stderr)
         else:
             path = self._checkpoint_path("latest")
+            t0 = time.perf_counter()
             if self._ckpt_writer is not None:
                 self._ckpt_writer.submit(
                     path, self.model.snapshot_model(self.train_state, self.state)
                 )
             else:
                 self.model.save_model(path, self.train_state, self.state)
+            self.telemetry.event("checkpoint_interval",
+                                 iter=int(self.state["current_iter"]),
+                                 stall_s=time.perf_counter() - t0)
         self._last_ckpt_t = time.monotonic()
 
     def pack_and_save_metrics(self, start_time, create_summary_csv, train_losses,
@@ -524,6 +883,7 @@ class ExperimentBuilder:
             for test_sample in self.data.get_test_batches(
                 total_batches=num_batches, augment_images=False
             ):
+                self._maybe_emergency_exit(write_checkpoint=False)
                 per_model_per_batch_targets[idx].extend(np.array(test_sample[3]))
                 per_model_per_batch_preds = self.test_evaluation_iteration(
                     val_sample=test_sample, model_idx=idx,
@@ -551,11 +911,35 @@ class ExperimentBuilder:
     # ------------------------------------------------------------------
 
     def run_experiment(self):
+        self._install_signal_handlers()
         if self.checkpoint_async and self._ckpt_writer is None:
             self._ckpt_writer = AsyncCheckpointWriter()
+        if self.watchdog_enabled and self._watchdog is None:
+            self._watchdog = DispatchWatchdog(
+                min_deadline_s=self.watchdog_min_s, factor=self.watchdog_factor,
+                logs_dir=self.logs_filepath, on_hang=self._on_hang,
+                identity={"process_index": 0, "process_count": 1},
+                capture_count=self._captures,
+            )
         try:
-            return self._run_experiment()
+            # activate(): the event sink, the ledger's hook and SIGUSR1 for
+            # the run; its exit stops the profiler and flushes, on every
+            # path (return, pause, requeue, crash).
+            with self.telemetry.activate(), sanitize.nan_checks(self.debug_nans):
+                try:
+                    return self._run_experiment()
+                except RuntimeError as exc:
+                    # A failed device allocation: forensics, then the
+                    # registered code (requeueing the same run would fail
+                    # the same way).
+                    if not is_resource_exhausted(exc):
+                        raise
+                    self._handle_oom(exc)
+                    sys.exit(OOM_EXIT_CODE)
         finally:
+            if self._watchdog is not None:
+                self._watchdog.close()
+                self._watchdog = None
             writer_error = None
             if self._ckpt_writer is not None:
                 # Drained and closed on every exit path, the pause's
@@ -565,6 +949,8 @@ class ExperimentBuilder:
                 self._ckpt_writer.close()
                 self._ckpt_writer = None
             self.data.close()
+            self.telemetry.shutdown()
+            self._restore_signal_handlers()
             in_flight = sys.exc_info()[1]
             benign_exit = in_flight is None or (
                 isinstance(in_flight, SystemExit) and not in_flight.code
@@ -579,7 +965,11 @@ class ExperimentBuilder:
         while (self.state["current_iter"] < total_iters
                and not self.args.evaluate_on_test_set_only):
             start, faults = self.state["current_iter"], self.data_faults
-            self._train_loop(total_iters)
+            try:
+                self._train_loop(total_iters)
+            except _RollbackSignal as trip:
+                self._perform_rollback(trip)
+                continue
             if (self.state["current_iter"] == start
                     and self.data_faults == faults):
                 raise RuntimeError(
@@ -631,35 +1021,49 @@ class ExperimentBuilder:
 
     def _train_loop_host(self, batches):
         """``device_prefetch`` 0: each sample prepared inline, buffered
-        into groups flushed at K or an epoch's end."""
+        into groups flushed at K or an epoch's end (poisoned as the fault
+        plan says)."""
         buffered = []
         for train_sample in batches:
             buffered.append(train_sample)
             next_iter = self.state["current_iter"] + len(buffered)
             if (len(buffered) == self.iters_per_dispatch
                     or next_iter % self.args.total_iter_per_epoch == 0):
-                self._dispatch(buffered)
+                self._dispatch(faultinject.poison_batches(
+                    buffered, self.state["current_iter"]))
                 buffered = []
         if buffered:
-            self._dispatch(buffered)
+            self._dispatch(faultinject.poison_batches(
+                buffered, self.state["current_iter"]))
 
     def _dispatch(self, group) -> None:
         """One learner call on ``group`` (a list of samples or a staged
         group), then the epoch boundary or the interval checkpoint when
-        due."""
+        due, then the shutdown check: after the epoch boundary, so that a
+        signal landing on a boundary dispatch still gets its validation,
+        row and checkpoint first. Every boundary after the process's first
+        (which builds the eval path's plans) runs in the watchdog's window
+        with ``observe`` off."""
         self.total_losses, self.state["current_iter"] = self.train_iteration(
             samples=group,
             epoch_idx=self.state["current_iter"] / self.args.total_iter_per_epoch,
             total_losses=self.total_losses, current_iter=self.state["current_iter"],
         )
         if self.state["current_iter"] % self.args.total_iter_per_epoch == 0:
-            self._run_epoch_boundary()
+            if self._epoch_boundaries_done >= 1:
+                with self._armed(self.state["current_iter"], observe=False,
+                                 scale=self._boundary_deadline_scale()):
+                    self._run_epoch_boundary()
+            else:
+                self._run_epoch_boundary()
             self._epoch_data_wait_s = self._epoch_stage_wait_s = 0.0
             self._epoch_train_t0 = time.perf_counter()
         elif (self.checkpoint_interval_s > 0
               and time.monotonic() - self._last_ckpt_t
               >= self.checkpoint_interval_s):
             self._interval_checkpoint()
+        faultinject.sigterm_due(self.state["current_iter"])
+        self._maybe_emergency_exit()
 
     def _run_epoch_boundary(self) -> None:
         train_wall_s = time.perf_counter() - self._epoch_train_t0
@@ -671,7 +1075,12 @@ class ExperimentBuilder:
             waits = f"{self._epoch_data_wait_s:.3f} s blocked on the loader"
         print(f"epoch {self.epoch} train loop {train_wall_s:.3f} s, of which "
               f"{waits}", flush=True)
+        t_sync = time.perf_counter()
         train_losses = self.build_summary_dict(self.total_losses, phase="train")
+        epoch_sync_s = time.perf_counter() - t_sync
+        train_losses.update(self.telemetry.epoch_stats("train", epoch=self.epoch))
+        self.telemetry.boundary(self.state["current_iter"], epoch_sync_s,
+                                reason="epoch_summary")
         self._sentinel_epoch_boundary(train_losses)
         total_losses = {}
         num_val_batches = int(self.args.num_evaluation_tasks / self.args.batch_size)
@@ -707,10 +1116,12 @@ class ExperimentBuilder:
         self.save_models(model=self.model, epoch=self.epoch, state=self.state)
         self.total_losses = {}
         self.epochs_done_in_this_run += 1
+        self._epoch_boundaries_done += 1
         save_to_json(
             filename=os.path.join(self.logs_filepath, "summary_statistics.json"),
             dict_to_store=self.state["per_epoch_statistics"],
         )
+        self.telemetry.flush()
         if self.epochs_done_in_this_run >= self.total_epochs_before_pause:
             print(
                 "train_seed {}, val_seed: {}, at pause time".format(

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..inner_loop import init_lslr, lslr_update
 from ..ops.losses import masked_cross_entropy, nll
+from ..utils import sanitize
 from ..utils.platform import resolve_device, set_f32_numerics
 from ..utils.trees import (
     merge,
@@ -575,20 +576,21 @@ class MAMLFewShotLearner(CheckpointableLearner):
         """``len(group[0])`` meta-updates of ``epoch``'s program variant.
         Returns ``(new_state, metrics)`` with ``(K,)`` ``loss``,
         ``accuracy`` and ``nonfinite``. On a card each is a replay of the
-        captured step; on the CPU the eager step."""
+        captured step (the eager step under ``--debug_nans``); on the CPU
+        the eager step."""
         importance = self._train_importance(epoch)
         lr = self._epoch_lr(epoch)
         branch = dict(second_order=self._use_second_order(epoch),
                       final_only=self._final_only(epoch))
         device = self._device(state)
-        if device.type == "cuda":
+        if device.type == "cuda" and not sanitize.debug_nans_enabled():
             if self._step_graphs is None:
                 self._step_graphs = StepGraphs(device)
             new_state, rows = self._step_graphs.run(
                 self, state, group, importance, lr, **branch
             )
             return new_state, dict(zip(("loss", "accuracy", "nonfinite"), rows))
-        if device.type != "cpu":
+        if device.type not in ("cpu", "cuda"):
             raise ValueError(f"the learner runs on cuda or cpu, got {device}")
         state = state._replace(opt_state=set_injected_lr(state.opt_state, lr))
         weights = self._importance(state, importance)

@@ -30,8 +30,17 @@ tensor, and the state a dispatch returns is a copy of the outputs.
 Before capture the step runs once eagerly on the capture's stream:
 cuDNN builds its convolution plans, the fused-norm wrappers query their
 launch plans, and the allocator and the libraries' workspaces warm up on
-that stream, none of which may happen inside a capture. A capture that
-fails raises; nothing runs the eager step in its place.
+that stream, none of which may happen inside a capture. The context
+managers of ``warmup_hooks`` are entered around that warm-up, once a
+capture (the program ledger counts its FLOPs there, ``telemetry/device.py``;
+the capture guard of ``utils/sanitize.py`` counts captures there). A
+capture that fails raises; nothing runs the eager step in its place.
+
+The capture runs under ``collector_paused``: Python's cyclic garbage
+collector may otherwise run on the capturing thread and finalize what an
+earlier run left in a reference cycle (a learner's step graphs), and
+destroying a graph there ends the capture with
+``cudaErrorStreamCaptureInvalidated`` (``tools/port_capture_probe.py``).
 
 The fused-norm wrappers run at capture, not on replay: their
 ``launch_counts`` see a step once. Each graph keeps the launches it
@@ -44,6 +53,8 @@ kernel nodes a replay launches can be read back from it
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 
 import numpy as np
@@ -55,12 +66,31 @@ from ..utils.trees import tree_leaves, tree_map, tree_unflatten
 #: Eager steps on the capture's stream before the capture.
 WARMUP_STEPS = 1
 
+#: Factories ``hook(key, steps)`` of context managers entered around the
+#: warm-up of every capture; ``key`` is the graph's ``(second_order,
+#: final_only, ((shape, dtype), ...))``.
+warmup_hooks: list = []
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Keeps Python's cyclic garbage collector off for the block, so that
+    no finalizer runs on this thread inside a capture; what is garbage by
+    then is collected at the first collection after it."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
 
 class StepGraph:
     """One captured ``_train_step`` with its static buffers."""
 
     def __init__(self, learner, state, batch, importance: np.ndarray, lr: float,
-                 *, second_order: bool, final_only: bool, stream):
+                 *, second_order: bool, final_only: bool, stream, key=None):
         t0 = time.perf_counter()
         device = batch[0].device
         self.key = (second_order, final_only)
@@ -84,7 +114,9 @@ class StepGraph:
 
         current = torch.cuda.current_stream(device)
         stream.wait_stream(current)
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), contextlib.ExitStack() as hooks:
+            for hook in list(warmup_hooks):
+                hooks.enter_context(hook(key, WARMUP_STEPS))
             for _ in range(WARMUP_STEPS):
                 step()
         current.wait_stream(stream)
@@ -92,8 +124,9 @@ class StepGraph:
         before = dict(fused_norm.launch_counts)
         # thread_local: the prefetcher's thread may pin host memory and
         # copy on its own stream while this thread captures.
-        with torch.cuda.graph(self.graph, stream=stream,
-                              capture_error_mode="thread_local"):
+        with collector_paused(), torch.cuda.graph(
+            self.graph, stream=stream, capture_error_mode="thread_local"
+        ):
             self._outputs, metrics = step()
             self._metrics = torch.stack(
                 [metrics["loss"], metrics["accuracy"], metrics["nonfinite"]]
@@ -170,7 +203,7 @@ class StepGraphs:
             graph = StepGraph(
                 learner, state, tuple(a[0] for a in group), importance, lr,
                 second_order=second_order, final_only=final_only,
-                stream=self.stream,
+                stream=self.stream, key=key,
             )
             self.graphs[key] = graph
         return graph.dispatch(state, group, importance, lr)

@@ -1,4 +1,7 @@
 """Telemetry of the port (``howtotrainyourmamlpytorch_tpu/telemetry/``):
-the serving runtime's metric primitives (``registry``) and the structured
-JSONL event log (``events``). The trainer's telemetry, the device ledger
-and the profiler hooks are ROADMAP A12."""
+metric primitives (``registry``), the structured JSONL event log
+(``events``), and the trainer's observability: ``runtime.TrainTelemetry``
+over the heartbeat (``heartbeat``), the anomaly detectors (``anomaly``),
+the profiler controller (``profiling``) and the program ledger and OOM
+forensics (``device``). The submodules are imported where they are used,
+so that importing the event log does not import the learner."""

@@ -1,17 +1,28 @@
 """Structured run events: a host-buffered JSONL log
 (``howtotrainyourmamlpytorch_tpu/telemetry/events.py``: ``emit``, the
-``EventLog`` sink and ``ensure_trace_id``).
+``EventLog`` sink, the event context and ``read_events``).
 
 One line per event, ``{"t": <unix seconds>, "type": <str>, ...fields}``,
 after a ``{"type": "schema", "version": 1}`` line. ``emit`` only appends a
 dict to a buffer: no I/O, no device read (fields are host values).
-``flush`` appends the buffer to the file; a serving process flushes from a
-thread of its own (``serve_maml --telemetry``). With no sink installed
-``emit`` is one ``None`` check, so the serve path pays nothing by default.
+``flush`` appends the buffer to the file: a serving process flushes from a
+thread of its own (``serve_maml --telemetry``), a training run at the
+loop's log and epoch boundaries and on every exit path
+(``runtime.TrainTelemetry``). With no sink installed ``emit`` is one
+``None`` check, so library code pays nothing outside an instrumented run.
 
-A process-wide context (today the run's ``trace_id``) is merged into every
-event, whichever thread emits it. A parent can hand its trace id to child
-processes in ``MAML_TRACE_ID``. Non-finite floats are written as ``null``.
+The training events and their fields are the JAX package's: ``step``,
+``host_sync``, ``checkpoint_save`` / ``checkpoint_load`` /
+``checkpoint_submit`` / ``checkpoint_interval``, ``nonfinite_trip``,
+``rollback``, ``preemption``, ``requeue_exit``, ``hang``, ``oom``,
+``data_fault``, ``anomaly``, ``memory``, ``epoch_summary``,
+``program_profile``, ``profile_start`` / ``profile_stop``, ``run_start`` /
+``run_end``.
+
+A process-wide context (``set_context``: the run's ``trace_id``) is merged
+into every event, whichever thread emits it. The dispatcher hands one
+trace id to every phase it starts in ``MAML_TRACE_ID``. Non-finite floats
+are written as ``null``.
 """
 
 from __future__ import annotations
@@ -30,12 +41,31 @@ TRACE_ID_ENV = "MAML_TRACE_ID"
 _context: dict = {}
 
 
+def new_trace_id() -> str:
+    """A fresh 16-hex run-scoped trace id."""
+    return uuid.uuid4().hex[:16]
+
+
+def set_context(**fields) -> dict:
+    """Replaces the context merged into every event (fields that are None
+    are left out); returns the previous one for ``restore_context``."""
+    global _context
+    previous = _context
+    _context = {key: value for key, value in fields.items() if value is not None}
+    return previous
+
+
+def restore_context(previous: dict) -> None:
+    global _context
+    _context = dict(previous)
+
+
 def ensure_trace_id() -> str:
     """The context's trace id, set first from ``MAML_TRACE_ID`` or a fresh
     16-hex id when there is none."""
     trace_id = _context.get("trace_id")
     if not trace_id:
-        trace_id = os.environ.get(TRACE_ID_ENV) or uuid.uuid4().hex[:16]
+        trace_id = os.environ.get(TRACE_ID_ENV) or new_trace_id()
         _context["trace_id"] = trace_id
     return str(trace_id)
 
@@ -103,6 +133,34 @@ class EventLog:
                   f"dropped {len(batch)} event(s)", file=sys.stderr)
             return 0
         return len(lines)
+
+
+def read_events(path: str, since: float | None = None) -> list[dict]:
+    """The events of a JSONL file, a complete last line without its newline
+    (a killed writer's) included; an unparseable line is skipped with a
+    warning. ``since`` drops events stamped before that unix time."""
+    events, torn = [], 0
+    try:
+        with open(path, "rb") as f:
+            lines = f.read().splitlines()
+    except OSError:
+        return []
+    for line in lines:
+        if not line.strip():
+            continue
+        try:
+            record = json.loads(line)
+        except ValueError:
+            torn += 1
+            continue
+        if (since is not None and record.get("type") != "schema"
+                and float(record.get("t", 0.0)) < since):
+            continue
+        events.append(record)
+    if torn:
+        print(f"WARNING: skipped {torn} unparseable line(s) in {path}",
+              file=sys.stderr)
+    return events
 
 
 _active: EventLog | None = None

@@ -1,6 +1,6 @@
 """Metric primitives: counters, gauges and exact-window latency quantiles
-(``howtotrainyourmamlpytorch_tpu/telemetry/registry.py``, the parts the
-serving metrics use).
+(``howtotrainyourmamlpytorch_tpu/telemetry/registry.py``): the serving
+metrics' primitives and the trainer's ``MetricsRegistry``.
 
 Percentiles are exact over a bounded ring of recent samples, not read off
 fixed histogram buckets; the cumulative ``count`` and ``sum`` cover the
@@ -50,6 +50,15 @@ class LatencyStat:
             "p99_ms": self.percentile(99),
         }
 
+    def quantile_snapshot(self, quantiles=(50, 95, 99)) -> dict:
+        """``snapshot`` with the caller's quantiles."""
+        with self._lock:
+            count, total = self._count, self._sum
+        out = {"count": count, "sum_ms": total}
+        for q in quantiles:
+            out[f"p{q:g}_ms"] = self.percentile(q)
+        return out
+
 
 class Counter:
     def __init__(self, name: str):
@@ -83,3 +92,38 @@ class Gauge:
     def value(self) -> float:
         with self._lock:
             return self._value
+
+
+class MetricsRegistry:
+    """Named get-or-create store of the three primitives (the trainer's
+    distributions); ``snapshot`` renders them for the event log."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counters: dict[str, Counter] = {}
+        self._gauges: dict[str, Gauge] = {}
+        self._windows: dict[str, LatencyStat] = {}
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            return self._counters.setdefault(name, Counter(name))
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            return self._gauges.setdefault(name, Gauge(name))
+
+    def window(self, name: str, window: int = 2048) -> LatencyStat:
+        with self._lock:
+            if name not in self._windows:
+                self._windows[name] = LatencyStat(name, window=window)
+            return self._windows[name]
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            counters, gauges = dict(self._counters), dict(self._gauges)
+            windows = dict(self._windows)
+        return {
+            "counters": {name: c.value for name, c in counters.items()},
+            "gauges": {name: g.value for name, g in gauges.items()},
+            "windows": {name: w.quantile_snapshot() for name, w in windows.items()},
+        }

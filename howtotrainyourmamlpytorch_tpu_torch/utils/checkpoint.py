@@ -27,7 +27,11 @@ The contract:
 * a save splits into ``snapshot_for_save`` (the copy to host memory, on
   the caller's thread, before training moves on) and ``write_snapshot``
   (CRC, serialise, rename), which :class:`AsyncCheckpointWriter` runs on
-  one background thread, in order, drained on every exit path.
+  one background thread, in order, drained on every exit path;
+* the injected faults of ``utils/faultinject.py`` run where the JAX
+  package's do: before each write attempt, after a file is published, and
+  between an archive and its marker; saves, aliases, markers and loads
+  emit ``checkpoint_*`` events to an installed telemetry sink.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ import zlib
 from typing import NamedTuple
 
 import numpy as np
+
+from ..telemetry import events as telemetry_events
+from . import faultinject
 
 _EXPERIMENT_KEY = "__experiment_state__"
 _MANIFEST_KEY = "__manifest__"
@@ -208,15 +215,21 @@ def _host(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
-def _retrying(action, retries: int, backoff_s: float, cleanup=None):
+def _retrying(action, retries: int, backoff_s: float, cleanup=None,
+              target: str | None = None) -> int:
     """Runs ``action`` up to ``retries`` times while it raises ``OSError``,
-    backing off exponentially; re-raises the last error."""
+    backing off exponentially; re-raises the last error. Each attempt on
+    ``target`` first passes the injected write faults
+    (``faultinject.checkpoint_write_attempt``). Returns the attempts made."""
     last_error: OSError | None = None
     for attempt in range(max(int(retries), 1)):
         if attempt:
             time.sleep(backoff_s * (2 ** (attempt - 1)))
         try:
-            return action()
+            if target is not None:
+                faultinject.checkpoint_write_attempt(target)
+            action()
+            return attempt + 1
         except OSError as exc:
             last_error = exc
             if cleanup is not None:
@@ -263,7 +276,9 @@ def write_snapshot(
     retries: int = WRITE_RETRIES,
     backoff_s: float = WRITE_BACKOFF_S,
 ) -> str:
-    """The background half: manifest, npz, atomic rename, retried."""
+    """The background half: manifest, npz, atomic rename, retried; then
+    the ``checkpoint_save`` event."""
+    t_start = time.perf_counter()
     arrays = dict(snapshot.arrays)
     manifest = {
         "schema": SCHEMA_VERSION,
@@ -283,7 +298,14 @@ def write_snapshot(
             np.savez(f, **arrays)
         os.replace(tmp, filepath)
 
-    _retrying(write, retries, backoff_s, cleanup=lambda: _remove_quietly(tmp))
+    attempts = _retrying(write, retries, backoff_s,
+                         cleanup=lambda: _remove_quietly(tmp), target=filepath)
+    faultinject.checkpoint_written(filepath)
+    telemetry_events.emit(
+        "checkpoint_save", path=os.path.basename(filepath),
+        duration_s=time.perf_counter() - t_start,
+        bytes=os.path.getsize(filepath), attempts=attempts,
+    )
     return filepath
 
 
@@ -428,6 +450,7 @@ def publish_alias(
     """Publishes ``dst`` as a hardlink (or copy) of the checkpoint ``src``
     and an atomic rename: no second serialisation. Safe because every
     write lands a new inode by rename and never edits a file in place."""
+    t_start = time.perf_counter()
     tmp = dst + ".alias.tmp"
 
     def link():
@@ -438,7 +461,12 @@ def publish_alias(
             shutil.copyfile(src, tmp)
         os.replace(tmp, dst)
 
-    _retrying(link, retries, backoff_s, cleanup=lambda: _remove_quietly(tmp))
+    _retrying(link, retries, backoff_s, cleanup=lambda: _remove_quietly(tmp),
+              target=dst)
+    faultinject.checkpoint_written(dst)
+    telemetry_events.emit("checkpoint_alias", path=os.path.basename(dst),
+                          src=os.path.basename(src),
+                          duration_s=time.perf_counter() - t_start)
     return dst
 
 
@@ -457,7 +485,10 @@ def publish_done_marker(
 ) -> str:
     """Writes ``<filepath>.ready`` (atomic, retried) with the archive's
     digest: the last step of an epoch publish, so a directory watcher sees
-    only settled checkpoints."""
+    only settled checkpoints. ``kill_trainer_mid_publish`` fires first:
+    the archive is on disk, its marker is not."""
+    faultinject.trainer_publish_marker(filepath)
+    t_start = time.perf_counter()
     payload = json.dumps({
         "schema": MARKER_SCHEMA_VERSION,
         "digest": checkpoint_digest(filepath),
@@ -471,7 +502,10 @@ def publish_done_marker(
             f.write(payload)
         os.replace(tmp, marker)
 
-    _retrying(write, retries, backoff_s, cleanup=lambda: _remove_quietly(tmp))
+    _retrying(write, retries, backoff_s, cleanup=lambda: _remove_quietly(tmp),
+              target=marker)
+    telemetry_events.emit("checkpoint_ready", path=os.path.basename(filepath),
+                          duration_s=time.perf_counter() - t_start)
     return marker
 
 
@@ -577,6 +611,7 @@ def load_checkpoint(
     in archive order, checked against the template's ``[(path, leaf),
     ...]``. ``CheckpointCorruptError`` for a corrupt file, ``ValueError``
     for a leaf count, key-path fingerprint or shape that differs."""
+    t_start = time.perf_counter()
     leaves, manifest, experiment_state = _read_verified(filepath, retries, backoff_s)
     if len(leaves) != len(template_path_leaves):
         raise ValueError(
@@ -593,6 +628,9 @@ def load_checkpoint(
     restored = _restore_prefix(
         filepath, [leaf for _, leaf in template_path_leaves], leaves
     )
+    telemetry_events.emit("checkpoint_load", path=os.path.basename(filepath),
+                          duration_s=time.perf_counter() - t_start,
+                          leaves=len(template_path_leaves))
     return restored, experiment_state
 
 
@@ -620,6 +658,7 @@ def load_for_inference(
     which lead the train state's flatten order. The whole manifest is
     verified; the key-path fingerprint, which covers the optimizer too, is
     not, and the prefix's count and shapes stand in for it."""
+    t_start = time.perf_counter()
     leaves, _, experiment_state = _read_verified(filepath, retries, backoff_s)
     if len(leaves) < len(template_path_leaves):
         raise ValueError(
@@ -629,4 +668,7 @@ def load_for_inference(
     restored = _restore_prefix(
         filepath, [leaf for _, leaf in template_path_leaves], leaves
     )
+    telemetry_events.emit("checkpoint_load", path=os.path.basename(filepath),
+                          duration_s=time.perf_counter() - t_start,
+                          leaves=len(template_path_leaves))
     return restored, experiment_state

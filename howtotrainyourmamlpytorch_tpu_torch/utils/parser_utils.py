@@ -11,8 +11,18 @@ JAX package's flags, defaults and merge order
 * ``dataset_path`` is joined onto ``$DATASET_DIR``.
 
 ``get_args`` returns ``(args, device)``: the card, or a raise unless the
-caller asks for the CPU. ``load_maml_config`` reads a JSON alone (no command
-line, no ``DATASET_DIR``) for the entry points that take no data.
+caller asks for the CPU, in its argument or with ``--device cpu`` (which the
+dispatcher and the chaos harness pass on to the runs they start).
+``load_maml_config`` reads a JSON alone (no command line, no
+``DATASET_DIR``) for the entry points that take no data.
+
+The operations plane's flags keep the JAX defaults: ``--telemetry True``,
+``--watchdog True`` with ``--watchdog_min_s 600`` and ``--watchdog_factor
+20``, ``--profile_trace_path`` / ``--profile_num_iters`` /
+``--profile_trigger_path``, ``--peak_flops`` (0: from the card's name),
+``--debug_nans`` (``utils/sanitize.set_debug_nans``) and ``--on_nonfinite
+halt|skip|rollback``. ``--check_tracer_leaks`` is accepted and has no
+effect: PyTorch has no tracers to leak.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import os
 from ..models.backbone import BackboneConfig
 from ..models.common import DeviceAugment, WireCodec
 from ..models.maml import MAMLConfig
+from . import sanitize
 from .platform import resolve_device
 
 
@@ -170,6 +181,10 @@ def get_args(argv=None, device=None):
     """``(args, device)``: the flags of ``argv`` (``sys.argv`` by default)
     under the JSON they name, as a ``Bunch``; ``device`` is the card unless
     the caller passes another (``resolve_device``)."""
+    # ``--device`` is the port's own and stays out of ``args``.
+    device_flag = argparse.ArgumentParser(add_help=False)
+    device_flag.add_argument("--device", default=None)
+    flags, argv = device_flag.parse_known_args(argv)
     args_dict = vars(get_parser().parse_args(argv))
     if args_dict["name_of_args_json_file"] != "None":
         args_dict = extract_args_from_json(
@@ -185,7 +200,8 @@ def get_args(argv=None, device=None):
     args.process_index, args.process_count = 0, 1
     if int(getattr(args, "data_shard_count", 0) or 0) < 1:
         args.data_shard_index, args.data_shard_count = 0, 1
-    device = resolve_device(device)
+    sanitize.set_debug_nans(bool(args.debug_nans))
+    device = resolve_device(device if device is not None else flags.device)
     print("use device", device)
     return args, device
 

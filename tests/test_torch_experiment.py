@@ -49,6 +49,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-5
 THETA_RTOL, THETA_ATOL = 1e-3, 1e-5
 EPOCHS, ITERS = 3, 2
+# Wall-clock columns of the summary (TrainTelemetry.epoch_stats): no two
+# runs share them.
+TIMING = ("_step_time_p", "_data_wait_p", "_stage_wait_p")
+
+
+def _timed(key):
+    return any(part in key for part in TIMING)
 
 
 def _args(tmp_path, name, **overrides):
@@ -183,8 +190,10 @@ def test_port_checkpoint_loads_in_the_jax_learner(runs):
 
 
 def test_pause_and_resume_gives_the_unpaused_statistics(runs):
+    assert set(runs["paused"]) == set(runs["port"])
     for key, values in runs["port"].items():
-        np.testing.assert_array_equal(runs["paused"][key], values, err_msg=key)
+        if not _timed(key):
+            np.testing.assert_array_equal(runs["paused"][key], values, err_msg=key)
     saved = runs["tmp_path"] / "paused" / "saved_models"
     assert os.path.samefile(saved / "train_model_latest", saved / f"train_model_{EPOCHS}")
     assert (saved / f"train_model_{EPOCHS}.ready").exists()
@@ -257,6 +266,8 @@ def test_interval_checkpoint_resumes_mid_epoch(runs, tmp_path, monkeypatch):
     with open(tmp_path / "interval" / "logs" / "summary_statistics.json") as f:
         stats = json.load(f)
     for key, values in runs["port"].items():
+        if _timed(key):
+            continue
         if key.startswith("train_"):
             np.testing.assert_array_equal(np.delete(stats[key], 1),
                                           np.delete(values, 1), err_msg=key)
@@ -281,7 +292,9 @@ def test_interval_checkpoint_resumes_mid_epoch(runs, tmp_path, monkeypatch):
 def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
     """The knobs still not ported raise naming their ROADMAP item;
     ``device_augment`` (A7's, ported since) builds a run whose learner
-    rotates on the device and whose loader ships the quarter turns."""
+    rotates on the device and whose loader ships the quarter turns, and
+    ``on_nonfinite rollback`` (A12's, ported since) builds a run under that
+    policy."""
     monkeypatch.setenv("DATASET_DIR", str(runs["tmp_path"]))
     args = _args(runs["tmp_path"], "refused", continue_from_epoch="from_scratch",
                  **{knob: value})
@@ -296,6 +309,11 @@ def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
         builder = build()
         assert builder.model.cfg.device_augment.kind == "rot90"
         assert builder.data.dataset.defer_augment
+        return
+    if knob == "on_nonfinite":
+        builder = build()
+        builder.data.close()
+        assert builder.on_nonfinite == "rollback"
         return
     with pytest.raises(NotImplementedError, match=item):
         build()

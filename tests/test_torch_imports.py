@@ -140,3 +140,15 @@ def test_compute_options_slice_modules_are_in_the_import_check():
     assert {"DeviceAugment", "rot90_by_gather", "crop_flip_by_key",
             "decode_augment_images", "decode_train_batch"} <= set(dir(common))
     assert not hasattr(common, "refuse_unported")
+
+
+def test_operations_plane_modules_are_in_the_import_check():
+    """The training CLI's operations plane (fault injection, the watchdog,
+    the sanitizers, the trainer telemetry, the dispatcher and the chaos
+    harness) is among the modules the import check walks."""
+    modules = _port_modules()
+    for name in ("utils.faultinject", "utils.watchdog", "utils.sanitize",
+                 "telemetry.runtime", "telemetry.device", "telemetry.heartbeat",
+                 "telemetry.anomaly", "telemetry.profiling", "telemetry.events",
+                 "train_maml_system_dispatch", "chaos_train"):
+        assert f"{port.__name__}.{name}" in modules

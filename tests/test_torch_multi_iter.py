@@ -216,6 +216,9 @@ def test_k_dispatch_keeps_one_sample_per_meta_update(k_runs):
     for name in ("k4", "k4_inline"):
         assert stats[name].keys() == stats["k1"].keys()
         for key, values in stats["k1"].items():
+            if any(part in key for part in ("_step_time_p", "_data_wait_p",
+                                            "_stage_wait_p")):
+                continue  # wall-clock columns (TrainTelemetry.epoch_stats)
             if "learning_rate" in key or "importance" in key:
                 np.testing.assert_allclose(stats[name][key], values, rtol=1e-12,
                                            atol=1e-15, err_msg=f"{name} {key}")

@@ -11,10 +11,12 @@ same inputs, with deterministic cuDNN: the graph is held to the eager
 ``_train_step`` bit for bit.
 """
 
+import gc
 import os
 import subprocess
 import sys
 import textwrap
+import weakref
 
 import numpy as np
 import pytest
@@ -262,3 +264,95 @@ def test_a_failed_capture_raises(cuda):
                           text=True, env=env, cwd=REPO, timeout=600)
     # The warm-up step ran eagerly (one host read); the capture raised.
     assert f"RAISED {WARMUP_STEPS} " in proc.stdout, proc.stdout + proc.stderr
+
+
+def test_replay_after_a_rollback_equals_an_eager_step_from_the_restored_state(
+        cuda, tmp_path):
+    """A rollback hands a state restored from a checkpoint to the graphs
+    captured before it (``experiment_builder._perform_rollback``): the
+    replay copies it into the static inputs, so two replays from it, after
+    replays from a NaN-poisoned state, equal eager steps from it bit for
+    bit, with no new capture."""
+    learner = learner_of()
+    rng = np.random.RandomState(3)
+    state = learner.init_state(torch.Generator().manual_seed(1))
+    learner.run_train_iters(state, batches(rng, 2), 0)
+    learner.save_model(str(tmp_path / "train_model_1"), state, {"current_iter": 0})
+    poisoned = batches(rng, 2)
+    poisoned[0] = (poisoned[0][0], np.full_like(poisoned[0][1], np.nan),
+                   *poisoned[0][2:])
+    bad, bad_m = learner.run_train_iters(state, poisoned, 0)
+    assert bool(bad_m["nonfinite"][0])
+    captures = len(learner._step_graphs.graphs)
+    restored, _ = learner.load_model(str(tmp_path), "train_model", 1, device=cuda)
+    assert same(restored, state)
+    data = batches(rng, 2)
+    want, want_m = eager(learner, restored, data, 0)
+    got, got_m = learner.run_train_iters(restored, data, 0)
+    torch.cuda.synchronize()
+    assert same(got, want)
+    for k in METRICS:
+        assert torch.equal(got_m[k], want_m[k]), k
+    assert len(learner._step_graphs.graphs) == captures
+
+
+def test_capture_guard_counts_one_capture_per_branch(cuda):
+    """Over dispatches at epochs 0, 1 (the MSL branch again) and 2, 3 (the
+    final-only branch), K = 1 and K = 2: one capture per (second_order,
+    final_only) branch and batch shape, none twice."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.sanitize import capture_guard
+
+    learner = learner_of()
+    rng = np.random.RandomState(4)
+    state = learner.init_state(torch.Generator().manual_seed(1))
+    with capture_guard() as guard:
+        for epoch in (0, 1, 2, 3):
+            for k in (1, 2):
+                state, _ = learner.run_train_iters(state, batches(rng, k), epoch)
+    torch.cuda.synchronize()
+    guard.assert_captures_once()
+    guard.assert_captures(1, second_order=True, final_only=False)
+    guard.assert_captures(1, second_order=True, final_only=True)
+    assert len(guard.events) == len(learner._step_graphs.graphs) == 2
+
+
+def test_capture_runs_with_the_collector_paused(cuda):
+    """A learner whose step graphs an earlier run left in a reference cycle
+    is finalized outside the next capture, never inside it (destroying a
+    graph there ends the capture, ``tools/port_capture_probe.py``): the
+    warm-up runs with the collector on, the captured step with it off, it
+    is on again after the dispatch, and the replays that follow the
+    collection of the old graphs equal eager steps."""
+    rng = np.random.RandomState(7)
+    old = learner_of()
+    old.run_train_iters(old.init_state(torch.Generator().manual_seed(2)),
+                        batches(rng, 1), 0)
+    cycle = {"learner": old}
+    cycle["self"] = cycle
+    gone = weakref.ref(old)
+    del old, cycle
+
+    learner = learner_of()
+    step = learner._train_step
+    collector = []
+
+    def watched(*args, **kwargs):
+        collector.append(gc.isenabled())
+        return step(*args, **kwargs)
+
+    learner._train_step = watched
+    state = learner.init_state(torch.Generator().manual_seed(1))
+    state, _ = learner.run_train_iters(state, batches(rng, 1), 0)
+    torch.cuda.synchronize()
+    assert collector == [True] * WARMUP_STEPS + [False]
+    assert gc.isenabled()
+    gc.collect()
+    assert gone() is None
+    learner._train_step = step
+    data = batches(rng, 2)
+    want, want_m = eager(learner, state, data, 0)
+    got, got_m = learner.run_train_iters(state, data, 0)
+    torch.cuda.synchronize()
+    assert same(got, want)
+    for k in METRICS:
+        assert torch.equal(got_m[k], want_m[k]), k

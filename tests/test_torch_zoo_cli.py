@@ -157,7 +157,11 @@ def test_gradient_descent_at_k5_is_the_k1_run(runs):
     k5 = runs["gd"]["port_k5"]
     assert k5["builder"].iters_per_dispatch == 1
     for key, values in runs["gd"]["port"]["stats"].items():
-        if key != "epoch_run_time":
+        # Wall-clock columns (epoch_run_time, TrainTelemetry.epoch_stats)
+        # differ from run to run.
+        if key != "epoch_run_time" and not any(
+                part in key for part in ("_step_time_p", "_data_wait_p",
+                                         "_stage_wait_p")):
             np.testing.assert_array_equal(k5["stats"][key], values, err_msg=key)
 
 
