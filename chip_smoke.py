@@ -100,6 +100,32 @@ Phases, in order; any failure exits non-zero before the result lines:
              serve bars, so whole episodes are held to the plain engine as
              SENSITIVITY_* says, classify alone to the CLASSIFY bar, and
              bit for bit to a fresh engine.
+   serve pool - the supervised replica pool and the durable tier at the
+             flagship's full width (meta-batch 4, fused norm, warmed at
+             5x1x15). Part 1: two worker processes of ``serve_maml`` (each
+             with its CUDA context and its tier) under ``ReplicaPool`` with
+             digest routing behind ``make_http_server``; worker 0's first
+             spawn armed with replica_kill_at_request=3, worker 1's with
+             wedge_replica_at_request=6 (POOL_FAULTS); 32 episodes, 8 of
+             them repeated support sets, from up to 4 loopback clients in
+             the order the ring makes deterministic: no failed request, 2
+             deaths, 2 restarts, a retry, each answer held to one
+             in-process engine (bitwise, else the serve bars); seconds from
+             each fault to HEALTHY and the wedge's detection; the respawned
+             worker 0 answers a support set it cached before its death from
+             its rehydrated spill (launches 4/0), its kernel library from
+             the executable cache, no nvcc build; a corrupt promote's 409
+             with no worker touched, a good one's 200 with worker 0 swapped
+             first; no worker left. ``serve_maml --replicas 2`` as a command
+             line, started after Part 1 so that it boots beside Part 2: one
+             episode, exit 0 on SIGTERM, no worker left.
+             Part 2, in process: a LocalReplica pool of two engines with
+             tiers: launches per cache-miss (24/20), RAM-hit and spill-hit
+             (4/0) dispatch held exactly; /admin/scale 2 -> 3 -> 2; the
+             port's load test at POOL_LOADTEST_QPS with a kill (the verdict
+             must pass, no error); a stale executable-cache fence rebuilt
+             with nvcc, the logits unchanged. The live workers' kernel
+             shapes join [coverage].
    graph   - the flagship and north-star learners with remat on, as the
              CLIs train, from one state over 5 batches: ``run_train_iters``
              (K=5 replays of the captured step) against 5 eager
@@ -122,7 +148,8 @@ Phases, in order; any failure exits non-zero before the result lines:
              own without remat, and held to the plain-norm learner's under
              the train phase's tolerances.
    resnet graph - the ResNet-12 learner from its JSON with the three fused
-             flags and remat on, through the graph phase's checks (captured
+             flags and remat on, through the graph phase's checks at K=3
+             (RESNET_GRAPH_ITERS) and one timing repeat (captured
              launches per iteration bn_stats_act 200 MSL, 128 final-only;
              bn_stats and K5 0) and the remat phase's, its first loss and
              meta-gradient held to the plain-norm learner's as
@@ -140,7 +167,7 @@ Phases, in order; any failure exits non-zero before the result lines:
              JSON with the three fused flags, over a synthetic Omniglot-shaped
              tree of 250 classes x 20 binary 28x28 PNGs (a made-up
              dataset_name, so it is not count-checked), an MSL horizon of 2
-             epochs: 2 epochs of 15 iterations with 40 validation tasks and
+             epochs: 2 epochs of 15 iterations with 24 validation tasks and
              the ensemble test, then ``--continue_from_epoch latest`` to 3
              epochs (past the horizon: the final-only graph), then to 4 with
              ``--iters_per_dispatch 5``, then to 5 at K=5 and to 6 at K=1
@@ -157,7 +184,7 @@ Phases, in order; any failure exits non-zero before the result lines:
 6. cli north star - the same on the mini-ImageNet north-star JSON
              (84x84x3, 48 filters, 2 tasks 5-way 5-shot, 15 targets) over a
              pre-split tree of 64/16/20 classes x 20 RGB PNGs (600 images a
-             class cut to 20), an MSL horizon of 1 epoch: 1 epoch of 8
+             class cut to 20), an MSL horizon of 1 epoch: 1 epoch of 6
              iterations, 10 evaluation tasks, the ensemble
              over the one
              model, then ``latest`` to 2 epochs, to 3 at K=5, then to 4
@@ -183,9 +210,9 @@ Phases, in order; any failure exits non-zero before the result lines:
              the train phase's tolerances.
 8. cli zoo - each zoo learner's entry point (``train_<learner>_system.main``)
              with the three fused flags on one flagship-width Omniglot tree
-             (written once): 2 epochs of 6 iterations,
+             (written once): 2 epochs of 4 iterations,
              synchronized after
-             each learner call, 24 evaluation tasks and
+             each learner call, 16 evaluation tasks and
              the ensemble, then
              ``latest`` to a 3rd epoch as the CLI runs (gradient descent at
              ``--iters_per_dispatch 5``, which it does not act on; ANIL past
@@ -198,8 +225,8 @@ Phases, in order; any failure exits non-zero before the result lines:
              above and the eval ms per iteration. ANIL's captured graphs
              are held to their kernel nodes as MAML's are.
 9. cli resnet12 - train_maml_system.main on the ResNet-12 JSON with the
-             three fused flags over the zoo's Omniglot tree: 2 epochs of 10
-             iterations (synchronized), 40 evaluation tasks and the
+             three fused flags over the zoo's Omniglot tree: 2 epochs of 4
+             iterations (synchronized), 24 evaluation tasks and the
              ensemble, then ``latest`` to a 3rd epoch at
              ``--iters_per_dispatch 5`` past an MSL horizon of 2; launches
              per train and eval iteration held to CLI_RESNET12_*
@@ -512,6 +539,8 @@ ZOO_LAUNCHES = {
 }
 # Meta-updates a dispatch in the graph phase and in the CLI's K>1 calls.
 GRAPH_ITERS = 5
+#: The ResNet-12 graph phase's K: an eager ResNet-12 step takes over a second.
+RESNET_GRAPH_ITERS = 3
 #: Repeats of the graph phases' replay and eager timings.
 TIMING_REPEATS = 2
 # Each wrapper's device kernel in csrc/fused_norm.cu, as it stands in the
@@ -1555,12 +1584,13 @@ def eager_steps(learner, state, batches, epoch):
                    for k in ("loss", "accuracy", "nonfinite")}
 
 
-def graph_phase(torch, fn, cases=None) -> dict:
+def graph_phase(torch, fn, cases=None, iters=GRAPH_ITERS, repeats=TIMING_REPEATS) -> dict:
     """The captured train step against the eager one at both widths (or
     ``cases``: (tag, config, batch maker, MSL and final-only launches per
-    iteration[, JSON keys])), remat on: bit for bit across both branches and an epoch
-    change, a held state unchanged, every captured launch on the capture's
-    stream; then capture, replay and eager times."""
+    iteration[, JSON keys])), remat on: K=``iters`` replays bit for bit
+    against as many eager steps across both branches and an epoch change, a
+    held state unchanged, every captured launch on the capture's stream;
+    then capture, and over ``repeats`` repeats replay and eager, times."""
     from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
 
     def same(a, b):
@@ -1597,7 +1627,7 @@ def graph_phase(torch, fn, cases=None) -> dict:
             if not learner.cfg.remat_inner_steps:
                 fail(f"graph {tag}: remat_inner_steps is off")
             state = learner.init_state(torch.Generator().manual_seed(104))
-            batches = [make(np.random.RandomState(20 + i)) for i in range(GRAPH_ITERS)]
+            batches = [make(np.random.RandomState(20 + i)) for i in range(iters)]
             if learner._epoch_lr(0) == learner._epoch_lr(1):
                 fail(f"graph {tag}: epochs 0 and 1 have one learning rate")
             checked = []
@@ -1634,7 +1664,7 @@ def graph_phase(torch, fn, cases=None) -> dict:
                 fail(f"graph {tag}: captured kernels on streams {captured_streams}, "
                      f"the capture's is {graphs.stream.cuda_stream}")
             replay_ms, eager_ms = [], []
-            for _ in range(TIMING_REPEATS):
+            for _ in range(repeats):
                 t0 = time.perf_counter()
                 learner.run_train_iters(state, batches, 0)
                 torch.cuda.synchronize()
@@ -1642,12 +1672,12 @@ def graph_phase(torch, fn, cases=None) -> dict:
                 eager_steps(learner, state, batches, 0)
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
-                replay_ms.append((t1 - t0) * 1e3 / GRAPH_ITERS)
-                eager_ms.append((t2 - t1) * 1e3 / GRAPH_ITERS)
+                replay_ms.append((t1 - t0) * 1e3 / iters)
+                eager_ms.append((t2 - t1) * 1e3 / iters)
             for g in branches.values():
                 check_replay(g, f"graph {tag}")
             out[tag] = {
-                "bitwise_equal_to_eager": True, "epochs": checked,
+                "iters": iters, "bitwise_equal_to_eager": True, "epochs": checked,
                 "capture_ms": {("final_only" if k[1] else "msl"): g.capture_s * 1e3
                                for k, g in branches.items()},
                 "replay_ms_per_iter": replay_ms, "eager_ms_per_iter": eager_ms,
@@ -2159,7 +2189,7 @@ def cli_flagship_phase(torch, fn):
     out = cli_phase(
         torch, fn, "cli_flagship", FLAGSHIP, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 40,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 24,
          "multi_step_loss_num_epochs": 2},
         [({}, [], True, 1, -1),
          ({"total_epochs": 3}, latest, False, 1, -1),
@@ -2178,7 +2208,7 @@ def cli_flagship_phase(torch, fn):
 
 
 def cli_north_star_phase(torch, fn):
-    per_epoch = 8
+    per_epoch = 6
     latest = ["--continue_from_epoch", "latest"]
     out = cli_phase(
         torch, fn, "cli_north_star", NORTH_STAR, write_imagenet_tree,
@@ -2200,14 +2230,14 @@ def cli_north_star_phase(torch, fn):
 
 def cli_zoo_phase(torch, fn, kind, dataset_dir):
     """A zoo learner's entry point on the Omniglot tree in ``dataset_dir``
-    with the three fused flags: 2 epochs of 6 iterations (synchronized
-    after each learner call), 24 evaluation tasks and the ensemble test,
+    with the three fused flags: 2 epochs of 4 iterations (synchronized
+    after each learner call), 16 evaluation tasks and the ensemble test,
     then ``latest`` to a 3rd epoch as the CLI runs (gradient descent at
     ``--iters_per_dispatch 5``, which it does not act on; ANIL past an MSL
     horizon of 2, its final-only graph)."""
     import importlib
 
-    per_epoch = 6
+    per_epoch = 4
     _, config, _, module = next(z for z in ZOO if z[0] == kind)
     main = importlib.import_module(
         f"howtotrainyourmamlpytorch_tpu_torch.{module}"
@@ -2216,7 +2246,7 @@ def cli_zoo_phase(torch, fn, kind, dataset_dir):
     out = cli_phase(
         torch, fn, f"cli_{kind}", config, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 24,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 16,
          "multi_step_loss_num_epochs": 2},
         [({}, [], True, 1, -1),
          ({"total_epochs": 3}, ["--continue_from_epoch", "latest"], False,
@@ -2235,14 +2265,15 @@ def cli_zoo_phase(torch, fn, kind, dataset_dir):
 
 def resnet_graph_phase(torch, fn) -> dict:
     """The ResNet-12 learner from its JSON with the three fused flags and
-    remat on, as the CLI trains: the graph phase's checks (K=5 replays
-    bitwise equal to 5 eager steps at epochs 0, 1 and 2, past an MSL horizon
+    remat on, as the CLI trains: the graph phase's checks (K=3 replays
+    bitwise equal to 3 eager steps at epochs 0, 1 and 2, past an MSL horizon
     of 2; the captures' launches and every graph's kernel nodes held to
-    ``CLI_RESNET12_*``) and the remat phase's (the first loss and
-    meta-gradient bitwise equal without remat, and held to the plain-norm
-    learner's)."""
+    ``CLI_RESNET12_*``; one timing repeat: an eager ResNet-12 step takes
+    over a second) and the remat phase's (the first loss and meta-gradient
+    bitwise equal without remat, and held to the plain-norm learner's)."""
     out = graph_phase(torch, fn, [("resnet12", RESNET12, train_batch,
-                                   CLI_RESNET12_TRAIN, CLI_RESNET12_TRAIN_FINAL)])
+                                   CLI_RESNET12_TRAIN, CLI_RESNET12_TRAIN_FINAL)],
+                      iters=RESNET_GRAPH_ITERS, repeats=1)
     out.update(remat_phase(torch, [
         ("remat_resnet12", RESNET12, train_batch(np.random.RandomState(2))),
     ], chaotic=True))
@@ -2251,16 +2282,16 @@ def resnet_graph_phase(torch, fn) -> dict:
 
 def cli_resnet12_phase(torch, fn, dataset_dir):
     """``train_maml_system.main`` on the ResNet-12 JSON with the three fused
-    flags over the Omniglot tree in ``dataset_dir``: 2 epochs of 6
-    iterations (synchronized after each learner call), 40 evaluation tasks
+    flags over the Omniglot tree in ``dataset_dir``: 2 epochs of 4
+    iterations (synchronized after each learner call), 24 evaluation tasks
     and the ensemble test, then ``latest`` to a 3rd epoch at
     ``--iters_per_dispatch 5``, past an MSL horizon of 2 (the final-only
     graph). Launches per iteration held to ``CLI_RESNET12_*``."""
-    per_epoch = 6
+    per_epoch = 4
     out = cli_phase(
         torch, fn, "cli_resnet12", RESNET12, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 40,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 24,
          "multi_step_loss_num_epochs": 2},
         [({}, [], True, 1, -1),
          ({"total_epochs": 3}, ["--continue_from_epoch", "latest"], False,
@@ -2999,46 +3030,605 @@ def chaos_phase(torch, fn, dataset_dir) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [serve_pool]: the supervised replica pool and the durable tier
+# ---------------------------------------------------------------------------
+
+#: Faults armed in the first spawn of each worker (MAML_FAULTS); a respawn
+#: runs clean.
+POOL_FAULTS = {0: "replica_kill_at_request=3", 1: "wedge_replica_at_request=6"}
+#: Supervision of the worker pool: a warmed worker answers a dispatch in
+#: tens of ms and a probe in ms, while a process takes 10-13 s to its first
+#: dispatch on the card (PERF.md §5): probes every 0.25 s with a 1 s budget,
+#: a wedged request given up after 10 s (by then the other worker is back),
+#: restarts after 0.2 s.
+POOL_SUPERVISION = dict(health_interval_s=0.25, health_timeout_s=1.0, unhealthy_after=2,
+                        restart_backoff_s=0.2, restart_backoff_max_s=2.0,
+                        dispatch_timeout_s=10.0)
+POOL_EPISODES = 32  # 24 support sets, 8 repeats
+POOL_WARMUP = "5x1x15"
+FUSED_FLAG = ["--use_pallas_fused_norm", "True"]
+#: The in-process load test: open-loop Poisson arrivals at this rate for
+#: this long, the replica serving request POOL_LOADTEST_KILL_AT killed.
+POOL_LOADTEST_QPS, POOL_LOADTEST_S, POOL_LOADTEST_KILL_AT = 20.0, 6.0, 20
+POOL_LOADTEST_P99_MS = 2000.0
+
+
+def child_pids(pid: int) -> list[int]:
+    """The live children of ``pid``, read from /proc."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            if int(fields[1]) == pid and fields[0] != "Z":
+                out.append(int(entry))
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def pool_episodes(owner_of):
+    """The 32 flagship episodes of Part 1 in their phases: ``a0`` two
+    support sets worker 0 owns (one client, before its fault); ``a`` two
+    more of worker 0's (the third kills it) and two of worker 1's; ``r``
+    a repeat of ``a0[0]``'s support set with new queries; ``b`` the rest,
+    7 of them repeats. ``owner_of`` maps an episode to its ring owner."""
+    rng = np.random.RandomState(12)
+    fresh = []
+    while len(fresh) < 24:
+        xs = (rng.rand(5, 1, 1, 28, 28) > 0.8).astype(np.float32)
+        xq = (rng.rand(15, 1, 28, 28) > 0.8).astype(np.float32)
+        fresh.append((xs, np.arange(5).reshape(5, 1), xq))
+    owners = [owner_of(e) for e in fresh]
+    zero = [i for i, o in enumerate(owners) if o == 0]
+    one = [i for i, o in enumerate(owners) if o == 1]
+    if len(zero) < 6 or len(one) < 6:
+        fail(f"[serve_pool] the ring gave owners {owners}")
+    a0 = [fresh[i] for i in zero[:2]]
+    a = [fresh[zero[2]], fresh[one[0]], fresh[zero[3]], fresh[one[1]]]
+    used = set(zero[:4] + one[:2])
+    rest = [e for i, e in enumerate(fresh) if i not in used]
+
+    def repeat(ep, seed):
+        q = (np.random.RandomState(seed).rand(15, 1, 28, 28) > 0.8).astype(np.float32)
+        return (ep[0], ep[1], q)
+
+    r = [repeat(a0[0], 100)]
+    repeats = [repeat(e, 101 + i) for i, e in enumerate(a0[1:] + a + rest[:2])]
+    b = [e for pair in zip(rest, repeats + [None] * len(rest)) for e in pair if e is not None]
+    if len(a0) + len(a) + len(r) + len(b) != POOL_EPISODES:
+        fail("[serve_pool] episode plan does not add up")
+    return {"a0": a0, "a": a, "r": r, "b": b}
+
+
+def read_worker_events(paths) -> list[dict]:
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry.events import read_events
+
+    return [e for p in paths if os.path.exists(p) for e in read_events(p)]
+
+
+def serve_pool_workers(torch, work, reference) -> dict:
+    """Part 1: two worker processes of ``serve_maml`` (flagship, fused norm,
+    warmed at 5x1x15, each with its tier) under a ``ReplicaPool`` with
+    digest routing behind ``make_http_server``; worker 0's first spawn is
+    killed at its 3rd request, worker 1's wedged at its 6th; 32 episodes
+    from 4 loopback clients answered with no failure and held to the
+    in-process engine ``reference``; the respawned worker 0 answers a
+    support set it cached before its death from its rehydrated spill with
+    no adapt launch and no nvcc build; a corrupt promote's 409 and a good
+    one's 200 on both workers; no worker left."""
+    import shutil
+    import threading
+
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+    from howtotrainyourmamlpytorch_tpu_torch.serve import (
+        PoolConfig,
+        ReplicaPool,
+        make_http_server,
+        routing_digest,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.serve.resilience.replica import (
+        SubprocessReplica,
+        serve_maml_argv,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.serve.tier import HashRing
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import events
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import load_maml_config
+
+    tier_root = os.path.join(work, "tier")
+    spawns, worker_logs, telemetry = [], [], []
+    armed = dict(POOL_FAULTS)
+
+    def factory(index: int):
+        spawn = sum(1 for s in spawns if s["index"] == index)
+        tag = f"worker{index}_spawn{spawn}"
+        port_file = os.path.join(work, f"{tag}.port")
+        env = {k: v for k, v in os.environ.items() if k != "MAML_FAULTS"}
+        fault = armed.pop(index, None)
+        if fault:
+            env["MAML_FAULTS"] = fault
+        log = os.path.join(work, f"{tag}.log")
+        tel = os.path.join(work, f"{tag}.jsonl")
+        worker_logs.append(log)
+        telemetry.append(tel)
+        argv = serve_maml_argv(FLAGSHIP, port_file=port_file, warmup=POOL_WARMUP,
+                               telemetry=tel, tier_dir=os.path.join(tier_root,
+                                                                     f"replica-{index}"),
+                               debug_kernels=True, train_flags=FUSED_FLAG)
+        replica = SubprocessReplica(argv, replica_id=tag, env=env, port_file=port_file,
+                                    log_path=log, startup_timeout_s=300.0)
+        spawns.append({"index": index, "spawn": spawn, "replica": replica,
+                       "port_file": port_file, "fault": fault})
+        return replica
+
+    def worker_url(spawn):
+        with open(spawn["port_file"]) as f:
+            return f"http://127.0.0.1:{f.read().strip()}"
+
+    def worker_health(spawn):
+        return json.loads(http_call(f"{worker_url(spawn)}/healthz", timeout=30)[1])
+
+    def worker_kernels(spawn):
+        return json.loads(http_call(f"{worker_url(spawn)}/debug/kernels", timeout=30)[1])
+
+    def worker_metric(spawn, name):
+        text = http_call(f"{worker_url(spawn)}/metrics", timeout=30)[1].decode()
+        return next(float(line.split()[-1]) for line in text.splitlines()
+                    if line.startswith(f"maml_serve_{name} "))
+
+    def tail_logs():
+        for log in worker_logs:
+            if os.path.exists(log):
+                print(f"[serve_pool] tail of {log}:\n" + open(log).read()[-3000:],
+                      flush=True)
+
+    log = events.EventLog(os.path.join(work, "pool_events.jsonl"))
+    previous = events.install(log)
+    pool = server = thread = None
+    t0 = time.perf_counter()
+    try:
+        pool = ReplicaPool(factory, PoolConfig(n_replicas=2, route_by_digest=True,
+                                               tier_root=tier_root, **POOL_SUPERVISION))
+        if not pool.wait_ready(timeout=300):
+            tail_logs()
+            fail("[serve_pool] the worker pool did not come up")
+        up_s = time.perf_counter() - t0
+        server = make_http_server(pool, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        ring = HashRing(pool.config.ring_vnodes)
+        ring.add(0)
+        ring.add(1)
+
+        def owner_of(ep):
+            payload = episode_json(*ep)
+            return ring.route(routing_digest(np.asarray(payload["support"]),
+                                             np.asarray(payload["support_labels"])))
+
+        plan = pool_episodes(owner_of)
+        answers = {}
+        t_traffic = time.perf_counter()
+        # a0: worker 0 answers two support sets; wait until its spill holds
+        # them (the writes run on its writer thread).
+        answers["a0"] = post_concurrently(base, plan["a0"], clients=1)[0]
+        spill0 = os.path.join(tier_root, "replica-0", "spill")
+        deadline = time.monotonic() + 30
+        while sum(len(f) for _, _, f in os.walk(spill0)) < 2:
+            if time.monotonic() > deadline:
+                fail("[serve_pool] worker 0's spill never held its two entries")
+            time.sleep(0.05)
+        answers["a"] = post_concurrently(base, plan["a"], clients=4)[0]
+        deadline = time.monotonic() + 300
+        while pool.metrics.replica_restarts_total.value < 1 or not pool.wait_ready(0.1):
+            if time.monotonic() > deadline:
+                tail_logs()
+                fail(f"[serve_pool] worker 0 did not come back: {pool.stats()}")
+            time.sleep(0.1)
+        respawn0 = spawns[-1]
+        if respawn0["index"] != 0 or respawn0["spawn"] != 1:
+            fail(f"[serve_pool] unexpected spawns {[(s['index'], s['spawn']) for s in spawns]}")
+        before = worker_kernels(respawn0)
+        answers["r"] = post_concurrently(base, plan["r"], clients=1)[0]
+        after = worker_kernels(respawn0)
+        tier0 = worker_health(respawn0)["tier"]
+        answers["b"] = post_concurrently(base, plan["b"], clients=4)[0]
+        deadline = time.monotonic() + 300
+        while pool.metrics.replica_restarts_total.value < 2 or not pool.wait_ready(0.1):
+            if time.monotonic() > deadline:
+                tail_logs()
+                fail(f"[serve_pool] worker 1 did not come back: {pool.stats()}")
+            time.sleep(0.1)
+        traffic_s = time.perf_counter() - t_traffic
+        stats = pool.stats()
+
+        # Every request answered, and each answer the in-process engine's,
+        # bit for bit: grouping moves no bit of a task's logits (§7).
+        flat = [(k, i, ep, answers[k][i]) for k in ("a0", "a", "r", "b")
+                for i, ep in enumerate(plan[k])]
+        statuses = [s for *_, (s, _) in flat]
+        if any(s != 200 for s in statuses) or stats["request_errors"]:
+            tail_logs()
+            fail(f"[serve_pool] statuses {statuses}, errors "
+                 f"{[(k, i, b) for k, i, _, (s, b) in flat if s != 200]}, pool {stats}")
+        got = np.stack([np.asarray(b["logits"], np.float32) for *_, (_, b) in flat])
+        want = np.stack(reference([ep for _, _, ep, _ in flat]))
+        gap = np.abs(got - want).reshape(len(flat), -1).max(axis=1)
+        bitwise = int((gap == 0).sum())
+        if bitwise != len(flat):
+            fail(f"[serve_pool] {len(flat) - bitwise} answers differ from the in-process "
+                 f"engine's: {gap.tolist()}")
+        if (stats["replica_deaths_total"], stats["replica_restarts_total"]) != (2, 2) \
+                or stats["retry_total"] < 1:
+            fail(f"[serve_pool] deaths/restarts/retries {stats}")
+        first0 = spawns[0]["replica"]
+        if first0.returncode != 86:
+            fail(f"[serve_pool] the killed worker exited {first0.returncode}, not 86")
+
+        # The respawned worker 0: the repeated support set from its
+        # rehydrated spill, no adapt launch, no nvcc build, an exec hit.
+        hit = answers["r"][0][1]
+        launched = {k: after["launches"][k] - before["launches"][k]
+                    for k in SERVE_HIT_LAUNCHES}
+        if not hit["cache_hit"] or launched != SERVE_HIT_LAUNCHES:
+            fail(f"[serve_pool] the respawn's repeat: cache_hit {hit['cache_hit']}, "
+                 f"launches {launched}")
+        if (tier0["spill"]["hits"] < 2 or tier0["nvcc_builds"] != 0
+                or tier0["kernel_library"] != "exec_cache" or tier0["exec"]["hits"] != 1):
+            fail(f"[serve_pool] the respawned worker's tier {tier0}")
+
+        # Seconds from each fault to HEALTHY, and the wedge's detection.
+        log.flush()
+        pool_events = events.read_events(log.path)
+        worker_events = read_worker_events(telemetry)
+        dead = {e["slot"]: e["t"] for e in pool_events if e["type"] == "replica_dead"}
+        healthy = {}
+        for e in pool_events:
+            if e["type"] == "replica_healthy" and e["slot"] in dead and e["t"] > dead[e["slot"]]:
+                healthy.setdefault(e["slot"], e["t"])
+        wedged = [e["t"] for e in worker_events
+                  if e["type"] == "serve_fault" and e["fault"] == "wedge"]
+        if set(dead) != {0, 1} or set(healthy) != {0, 1} or len(wedged) != 1:
+            fail(f"[serve_pool] events: dead {dead}, healthy {healthy}, wedge {wedged}")
+        cfg = pool.config
+        budget = cfg.unhealthy_after * cfg.health_interval_s + cfg.health_timeout_s
+        probe_bound = cfg.unhealthy_after * (cfg.health_interval_s + cfg.health_timeout_s)
+        detect_s = dead[1] - wedged[0]
+        if detect_s > probe_bound + 1.0:
+            fail(f"[serve_pool] the wedge took {detect_s:.3f} s to detect "
+                 f"(probe bound {probe_bound} s)")
+        recovery = {"kill": healthy[0] - dead[0], "wedge": healthy[1] - wedged[0]}
+
+        # Promotion through the pool: a corrupt copy's 409 at the front
+        # door, no worker touched; a good one's 200 on both, replica 0
+        # canaried first.
+        live = [s for s in spawns if s["replica"].returncode is None]
+        learner = MAMLFewShotLearner(load_maml_config(FLAGSHIP, use_pallas_fused_norm=True))
+        ckpt, bad = os.path.join(work, "train_model_7"), os.path.join(work, "corrupt")
+        learner.save_model(ckpt, learner.init_state(torch.Generator().manual_seed(7)),
+                           {"current_iter": 0})
+        shutil.copy(ckpt, bad)
+        with open(bad, "r+b") as f:
+            f.truncate(128)
+        probe = episode_json(*plan["b"][0])
+        first = json.loads(http_call(f"{base}/v1/episode", probe)[1])
+        status_bad, body_bad, _ = http_call(f"{base}/admin/promote", {"checkpoint": bad})
+        second = json.loads(http_call(f"{base}/v1/episode", probe)[1])
+        touched = [(worker_health(s)["state_version"], worker_metric(s, "swap_rejected_total"))
+                   for s in live]
+        if (status_bad != 409 or json.loads(body_bad)["reason"] != "corrupt_checkpoint"
+                or touched != [(0, 0), (0, 0)] or first["logits"] != second["logits"]):
+            fail(f"[serve_pool] corrupt promote: {status_bad} {body_bad!r}, workers' "
+                 f"(version, rejections) {touched}")
+        status_good, body_good, _ = http_call(f"{base}/admin/promote", {"checkpoint": ckpt})
+        promoted = json.loads(body_good)
+        versions = [worker_health(s)["state_version"] for s in live]
+        time.sleep(1.5)  # the workers flush their telemetry each second
+        swaps = [name for _, name in sorted(
+            (e["t"], os.path.basename(path)[:7]) for path in telemetry
+            for e in read_worker_events([path]) if e["type"] == "swap_promoted")]
+        if (status_good != 200 or promoted != {"promoted_replicas": 2, "state_version": 1}
+                or versions != [1, 1] or swaps != ["worker0", "worker1"]):
+            fail(f"[serve_pool] good promote: {status_good} {promoted}, versions "
+                 f"{versions}, swaps in order {swaps}")
+        worker_shapes = {}
+        for s in live:
+            for name, keys in worker_kernels(s)["shapes"].items():
+                worker_shapes.setdefault(name, set()).update(
+                    (tuple(k[0]), *k[1:]) for k in keys)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        if pool is not None:
+            pool.close()
+        events.install(previous)
+    left = [s["replica"].pid for s in spawns if pid_alive(s["replica"].pid)]
+    if left:
+        fail(f"[serve_pool] worker pids left after close: {left}")
+    return {
+        "pool_up_s": up_s, "traffic_s": traffic_s, "episodes": len(flat), "clients": 4,
+        "failed_requests": stats["request_errors"],
+        "replica_deaths_total": stats["replica_deaths_total"],
+        "replica_restarts_total": stats["replica_restarts_total"],
+        "retry_total": stats["retry_total"],
+        "rehydrations_total": stats["rehydrations_total"],
+        "bitwise_vs_in_process": bitwise, "max_abs_err_vs_in_process": float(gap.max()),
+        "recovery_s": recovery, "wedge_detect_s": detect_s,
+        "wedge_budget_s": budget, "wedge_probe_bound_s": probe_bound,
+        "killed_exit": first0.returncode,
+        "wedged_exit": spawns[1]["replica"].returncode,
+        "respawn0": {"cache_hit": hit["cache_hit"], "launches": launched,
+                     "spill_hits": tier0["spill"]["hits"], "nvcc_builds": tier0["nvcc_builds"],
+                     "kernel_library": tier0["kernel_library"], "exec": tier0["exec"],
+                     "spill_write_s": tier0["spill_write_s"]},
+        "replica_ready_s": stats["replica_ready_s"],
+        "promote": {"corrupt": status_bad, "good": status_good, "versions": versions,
+                    "swap_order": swaps},
+        "worker_shapes": {k: sorted(v, key=repr) for k, v in worker_shapes.items()},
+        "spawns": len(spawns),
+    }
+
+
+class PoolCli:
+    """``python3 -m ...serve_maml --replicas 2`` on the flagship JSON as a
+    command line, started at once and left to boot beside other work (a
+    thread notes when its pool is ready); ``finish`` sends one episode,
+    then SIGTERM, and holds it to exit 0 with both workers stopped."""
+
+    def __init__(self, work):
+        import threading
+
+        self.port_file = os.path.join(work, "front.port")
+        self.log_path = os.path.join(work, "front.log")
+        cmd = [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.serve_maml",
+               "--config", FLAGSHIP, "--init_from_scratch", "--replicas", "2",
+               "--warmup", POOL_WARMUP, "--port", "0", "--port_file", self.port_file,
+               "--health_interval_s", "0.25", *FUSED_FLAG]
+        env = {k: v for k, v in os.environ.items() if k != "MAML_FAULTS"}
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                         stderr=subprocess.STDOUT)
+        self.ready_s = self.base = None
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    def _watch(self):
+        while self.proc.poll() is None and time.perf_counter() - self.t0 < 300:
+            if os.path.exists(self.port_file):
+                base = f"http://127.0.0.1:{open(self.port_file).read().strip()}"
+                status, body, _ = http_call(f"{base}/healthz")
+                if status == 200 and json.loads(body)["healthy_replicas"] == 2:
+                    self.ready_s, self.base = time.perf_counter() - self.t0, base
+                    return
+            time.sleep(0.1)
+
+    def finish(self) -> dict:
+        import signal
+
+        self.watcher.join(timeout=300)
+        if self.base is None:
+            fail(f"[serve_pool] the CLI pool did not come up:\n{open(self.log_path).read()}")
+        status, body, _ = http_call(
+            f"{self.base}/v1/episode",
+            episode_json(*make_episodes(np.random.RandomState(3), 2)[0]))
+        logits = np.asarray(json.loads(body).get("logits", []), np.float32)
+        if status != 200 or logits.shape != (15, 5) or not np.isfinite(logits).all():
+            fail(f"[serve_pool] the CLI pool answered {status}, logits {logits.shape}")
+        workers = child_pids(self.proc.pid)
+        t1 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        code = self.proc.wait(timeout=120)
+        drain_s = time.perf_counter() - t1
+        left = [pid for pid in workers if pid_alive(pid)]
+        if code != 0 or len(workers) != 2 or left:
+            fail(f"[serve_pool] CLI exit {code} on SIGTERM, workers {workers}, left "
+                 f"{left}:\n" + open(self.log_path).read()[-3000:])
+        return {"ready_s": self.ready_s, "exit_code": code, "workers": len(workers),
+                "drain_s": drain_s, "workers_left": 0}
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def serve_pool_in_process(fn, work) -> dict:
+    """Part 2: a ``LocalReplica`` pool of two flagship engines with tiers in
+    this process: launches per cache-miss, RAM-hit and spill-hit dispatch
+    held exactly; ``/admin/scale`` 2 -> 3 -> 2; the load test with a kill;
+    a stale executable-cache fence, typed and rebuilt."""
+    import threading
+
+    from howtotrainyourmamlpytorch_tpu_torch import serve_maml
+    from howtotrainyourmamlpytorch_tpu_torch.serve import (
+        PoolConfig,
+        ReplicaPool,
+        make_http_server,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.serve.resilience import LocalReplica
+    from howtotrainyourmamlpytorch_tpu_torch.serve_loadtest import (
+        run_loadtest,
+        synth_episodes,
+        verdict_line,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry import events
+    from howtotrainyourmamlpytorch_tpu_torch.utils import faultinject
+
+    tier_root = os.path.join(work, "tier_in_process")
+    opts, flags = serve_maml.get_parser().parse_known_args(
+        ["--config", FLAGSHIP, "--init_from_scratch", "--warmup", POOL_WARMUP, *FUSED_FLAG])
+
+    def build(index):
+        opts.tier_dir = os.path.join(tier_root, f"replica-{index}")
+        return serve_maml.build_api(opts, flags)[0]
+
+    pool = ReplicaPool(lambda i: LocalReplica(build(i), f"local-{i}"), PoolConfig(
+        n_replicas=2, health_interval_s=0.1, restart_backoff_s=0.1, min_uptime_s=0.5,
+        route_by_digest=True, tier_root=tier_root))
+    server = thread = None
+    out = {}
+    try:
+        if not pool.wait_ready(timeout=300):
+            fail("[serve_pool] the in-process pool did not come up")
+        raw = make_episodes(np.random.RandomState(21), 10)[:4]  # distinct support sets
+        first = None
+
+        def repeats(seed):
+            return [(xs, ys, (np.random.RandomState(seed + i).rand(15, 1, 28, 28) > 0.8)
+                     .astype(np.float32)) for i, (xs, ys, _) in enumerate(raw[:2])]
+
+        launches = {}
+        for kind, eps in (("miss", raw), ("hit", repeats(200)), ("spill_hit", repeats(300))):
+            if kind == "spill_hit":
+                for slot in pool._slots:
+                    slot.replica.api.engine.cache.flush_spill()
+                    slot.replica.api.engine.cache.clear()
+            fn.reset_launch_counts()
+            answers = [pool.classify(*ep) for ep in eps]
+            launches[kind] = dict(fn.launch_counts)
+            if first is None:
+                first = answers[0]["logits"]
+            per = SERVE_LAUNCHES if kind == "miss" else SERVE_HIT_LAUNCHES
+            want = {k: v * len(eps) for k, v in per.items()}
+            if launches[kind] != want or any(a["cache_hit"] != (kind != "miss")
+                                             for a in answers):
+                fail(f"[serve_pool] {kind} dispatches launched {launches[kind]}, expected "
+                     f"{want}; cache hits {[a['cache_hit'] for a in answers]}")
+        promotions = sum(s.replica.api.engine.cache.spill_hits for s in pool._slots)
+        if promotions != 2:
+            fail(f"[serve_pool] {promotions} spill promotions, expected 2")
+        tiers = [s.replica.api.engine.tier_stats() for s in pool._slots]
+        writes = sum(t["spill"]["writes"] for t in tiers)
+        out["spill_writes"] = writes
+        out["spill_write_ms_each"] = 1e3 * sum(t["spill_write_s"] for t in tiers) / writes
+        out["launches"] = {k: {n: v // (4 if k == "miss" else 2) for n, v in d.items()}
+                           for k, d in launches.items()}
+        out["launches_total"] = {n: sum(d[n] for d in launches.values()) for n in fn.KERNELS}
+
+        # /admin/scale 2 -> 3 -> 2 through the HTTP front door.
+        server = make_http_server(pool, port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        scale = []
+        for size in (3, 2):
+            t0 = time.perf_counter()
+            status, body, _ = http_call(f"{base}/admin/scale", {"pool_size": size})
+            if status != 200 or not pool.wait_ready(timeout=120):
+                fail(f"[serve_pool] /admin/scale to {size}: {status} {body!r}")
+            health = json.loads(http_call(f"{base}/healthz")[1])
+            if (health["pool_size"], health["healthy_replicas"]) != (size, size):
+                fail(f"[serve_pool] /healthz after scaling to {size}: {health}")
+            scale.append({"to": size, "status": status, "s": time.perf_counter() - t0})
+        out["scale"] = scale
+
+        # The load test, the replica serving request K killed.
+        episodes = synth_episodes(16, way=5, shot=1, query=15, image_shape=(1, 28, 28))
+        faultinject.activate(faultinject.FaultPlan(
+            replica_kill_at_request=POOL_LOADTEST_KILL_AT))
+        try:
+            result = run_loadtest(pool, episodes, rate_qps=POOL_LOADTEST_QPS,
+                                  duration_s=POOL_LOADTEST_S,
+                                  p99_budget_ms=POOL_LOADTEST_P99_MS, error_slo=0.01,
+                                  timeout_s=30.0, seed=0)
+        finally:
+            faultinject.deactivate()
+        print(f"[serve_pool] load test {verdict_line(result)}", flush=True)
+        if not result["slo_pass"] or result["completed_ok"] != result["offered"]:
+            fail(f"[serve_pool] the load test failed its verdict: {result}")
+        if not result["serve_recovery_s"]:
+            fail("[serve_pool] the load test saw no degraded window: the kill did not land")
+        out["loadtest"] = result
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        pool.close()
+
+    # A stale executable-cache fence: typed, sent to telemetry, rebuilt
+    # with nvcc; the engine then serves the same logits as before.
+    log = events.EventLog(os.path.join(work, "stale_events.jsonl"))
+    previous = events.install(log)
+    nvcc_before = fn.build_stats["nvcc_builds"]
+    faultinject.activate(faultinject.FaultPlan(stale_exec_cache_at=1))
+    try:
+        t0 = time.perf_counter()
+        api = build(0)
+        rebuild_s = time.perf_counter() - t0
+        try:
+            answer = api.classify(*raw[0])
+            tier = api.engine.tier_stats()
+        finally:
+            api.close()
+        fired = list(faultinject.events)
+    finally:
+        faultinject.deactivate()
+        events.install(previous)
+    log.flush()
+    kinds = [e["type"] for e in events.read_events(log.path)]
+    if (fired != ["stale-exec-fence"] or tier["exec"]["stale"] != 1
+            or tier["exec"]["writes"] != 1 or fn.build_stats["nvcc_builds"] != nvcc_before + 1
+            or "tier_exec_stale" not in kinds or "tier_exec_rebuilt" not in kinds
+            or not np.array_equal(answer["logits"], first)):
+        fail(f"[serve_pool] stale fence: events {fired}, exec {tier['exec']}, nvcc builds "
+             f"{fn.build_stats['nvcc_builds'] - nvcc_before}, telemetry {kinds}")
+    out["stale_fence"] = {"exec": tier["exec"], "nvcc_rebuilds": 1, "engine_s": rebuild_s,
+                          "nvcc_s": next(e["nvcc_s"] for e in events.read_events(log.path)
+                                         if e["type"] == "tier_exec_rebuilt"),
+                          "logits_bitwise_as_before": True}
+    return out
+
+
+def serve_pool_phase(torch, fn) -> dict:
+    """[serve_pool]: Part 1 (worker processes, then the command line) and
+    Part 2 (in process), at the flagship's full width."""
+    import tempfile
+
+    from howtotrainyourmamlpytorch_tpu_torch import serve_maml
+
+    opts, flags = serve_maml.get_parser().parse_known_args(
+        ["--config", FLAGSHIP, "--init_from_scratch", "--warmup", POOL_WARMUP, *FUSED_FLAG])
+    reference_api = serve_maml.build_api(opts, flags)[0]
+
+    def reference(eps):
+        return [reference_api.classify(*ep)["logits"] for ep in eps]
+
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_pool_") as work:
+            with phase_timer("serve_pool_workers"):
+                out["workers"] = serve_pool_workers(torch, work, reference)
+            cli = PoolCli(work)  # boots beside Part 2; Part 1's times stay clean
+            try:
+                with phase_timer("serve_pool_in_process"):
+                    out["in_process"] = serve_pool_in_process(fn, work)
+                with phase_timer("serve_pool_cli"):
+                    out["cli"] = cli.finish()
+            finally:
+                cli.kill()
+    finally:
+        reference_api.close()
+    out["launches"] = out["in_process"]["launches_total"]
+    return out
+
+
 def timing_reps(shape) -> int:
     """Fewer timed calls for the large north-star shapes."""
     return 20 if np.prod(shape) >= 4_000_000 else 100
-
-
-class ShapeLog:
-    """Records the input shape and LeakyReLU slope (``None`` for
-    ``bn_stats``, which takes none) of every kernel wrapper call while
-    active, and ``"bfloat16"`` after them for a bfloat16 input. The wrappers in ``fn`` are swapped for recording ones; the
-    Functions look them up in the module when called, so the swap sees
-    every launch."""
-
-    def __init__(self, fn):
-        self.fn = fn
-        self.shapes = {name: set() for name in fn.KERNELS}
-
-    def __enter__(self):
-        import inspect
-
-        import torch
-
-        _bf16 = torch.bfloat16
-        self.saved = {name: getattr(self.fn, name) for name in self.fn.KERNELS}
-        for name, orig in self.saved.items():
-            signature = inspect.signature(orig)
-
-            def record(x, *args, _name=name, _orig=orig, _sig=signature, **kwargs):
-                bound = _sig.bind(x, *args, **kwargs)
-                bound.apply_defaults()
-                key = (tuple(x.shape), bound.arguments.get("slope"))
-                if x.dtype == _bf16:
-                    key += ("bfloat16",)
-                self.shapes[_name].add(key)
-                return _orig(x, *args, **kwargs)
-            setattr(self.fn, name, record)
-        return self
-
-    def __exit__(self, *exc):
-        for name, orig in self.saved.items():
-            setattr(self.fn, name, orig)
 
 
 def kernel_cells(res) -> str:
@@ -3078,8 +3668,8 @@ class phase_timer:
 def print_graph(phase, tag, g) -> None:
     """A graph phase's line: capture, replay and eager ms, then everything
     as JSON."""
-    print(f"[{phase}] {tag}: run_train_iters(K={GRAPH_ITERS}) bitwise equal to "
-          f"{GRAPH_ITERS} eager steps at epochs 0, 1 (lr and importance moved) "
+    print(f"[{phase}] {tag}: run_train_iters(K={g['iters']}) bitwise equal to "
+          f"{g['iters']} eager steps at epochs 0, 1 (lr and importance moved) "
           f"and 2 (final-only), held state unchanged | capture ms "
           + " ".join(f"{k} {v:.1f}" for k, v in g["capture_ms"].items())
           + " | replay ms per iteration "
@@ -3167,6 +3757,45 @@ def print_chaos(r, smi) -> None:
           flush=True)
 
 
+def print_serve_pool(r, smi) -> None:
+    """The pool phase's lines, with the card's name and power limit beside
+    the times."""
+    w, c, p = r["workers"], r["cli"], r["in_process"]
+    print(f"[serve_pool] workers: {w['episodes']} episodes from {w['clients']} clients, "
+          f"failed {w['failed_requests']}, deaths {w['replica_deaths_total']}, restarts "
+          f"{w['replica_restarts_total']}, retries {w['retry_total']}; answers bitwise "
+          f"equal to the in-process engine {w['bitwise_vs_in_process']} of {w['episodes']} "
+          f"(max gap {w['max_abs_err_vs_in_process']:.3e}); fault to HEALTHY kill "
+          f"{w['recovery_s']['kill']:.3f} s, wedge {w['recovery_s']['wedge']:.3f} s; wedge "
+          f"detected in {w['wedge_detect_s']:.3f} s (unhealthy_after x interval + timeout "
+          f"{w['wedge_budget_s']:.2f} s, probe bound {w['wedge_probe_bound_s']:.2f} s) | "
+          f"{smi}", flush=True)
+    print(f"[serve_pool] respawned worker 0: repeat support set cache_hit "
+          f"{w['respawn0']['cache_hit']}, launches {json.dumps(w['respawn0']['launches'])}, "
+          f"spill hits {w['respawn0']['spill_hits']}, kernel library from "
+          f"{w['respawn0']['kernel_library']}, nvcc builds {w['respawn0']['nvcc_builds']}; "
+          f"promote corrupt {w['promote']['corrupt']}, good {w['promote']['good']} "
+          f"(swaps in order {w['promote']['swap_order']}); killed worker exit "
+          f"{w['killed_exit']}, wedged worker exit {w['wedged_exit']}; no worker left",
+          flush=True)
+    lt = p["loadtest"]
+    print(f"[serve_pool] cli --replicas 2 (booted beside the in-process part): ready "
+          f"{c['ready_s']:.1f} s, exit {c['exit_code']} "
+          f"on SIGTERM after {c['drain_s']:.2f} s, workers left {c['workers_left']} | in "
+          f"process: launches per dispatch {json.dumps(p['launches'])}; spill write-through "
+          f"{p['spill_write_ms_each']:.2f} ms each on the writer thread ({p['spill_writes']}); scale "
+          f"{[(s['to'], s['status']) for s in p['scale']]}; load test at "
+          f"{POOL_LOADTEST_QPS} qps for {POOL_LOADTEST_S} s, kill at request "
+          f"{POOL_LOADTEST_KILL_AT}: serve_slo_p99_ms {lt['serve_slo_p99_ms']} "
+          f"serve_loadtest_p99_ms {lt['serve_loadtest_p99_ms']} serve_error_rate "
+          f"{lt['serve_error_rate']} serve_recovery_s {lt['serve_recovery_s']}; stale fence "
+          f"{json.dumps(p['stale_fence'])} | {smi}", flush=True)
+    print(f"[serve_pool] {PHASE_SECONDS['serve_pool']:.1f} s (workers "
+          f"{PHASE_SECONDS['serve_pool_workers']:.1f}, cli {PHASE_SECONDS['serve_pool_cli']:.1f}"
+          f", in process {PHASE_SECONDS['serve_pool_in_process']:.1f}) | "
+          f"{json.dumps(r, default=str)}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3243,135 +3872,140 @@ def main() -> int:
     errs_bf16 = {k: max(r[k]["max_abs_err"] for r in bf16.values() if k in r)
                  for k in fn.KERNELS}
 
-    # 3-8. the main paths, every kernel call's input shape recorded.
-    with ShapeLog(fn) as shapes:
-        # 3. serve, MAML++ on the VGG and on ResNet-12
-        with phase_timer("serve"):
-            serve = serve_phase(torch, fn)
-        print(f"[serve] {json.dumps(serve)}", flush=True)
-        with phase_timer("resnet_serve"):
-            resnet_serve = serve_phase(torch, fn, RESNET12, RESNET_SERVE_LAUNCHES,
-                                       chaotic=True)
-        print(f"[resnet_serve] {json.dumps(resnet_serve)}", flush=True)
-        # The serving runtime's front door: HTTP, the command line, and the
-        # in-process API at north-star width.
-        with phase_timer("serve_http"):
-            serve_http = serve_http_phase(torch, fn)
-        print_serve("serve_http", serve_http)
-        with phase_timer("serve_cli"):
-            serve_cli = serve_cli_phase(torch)
-        print(f"[serve_cli] ready after {serve_cli['ready_s']:.1f} s, first episode "
-              f"{serve_cli['first_episode_ms']:.1f} ms, exit {serve_cli['exit_code']} on "
-              f"SIGTERM | {json.dumps(serve_cli)}", flush=True)
-        with phase_timer("serve_api_north_star"):
-            serve_north = serve_api_north_star_phase(torch, fn)
-        print_serve("serve_api_north_star", serve_north)
+    # 3-8. the main paths, every kernel launch's input shape recorded in
+    # ``fn.launch_shapes`` from here on.
+    fn.reset_launch_shapes()
+    # 3. serve, MAML++ on the VGG and on ResNet-12
+    with phase_timer("serve"):
+        serve = serve_phase(torch, fn)
+    print(f"[serve] {json.dumps(serve)}", flush=True)
+    with phase_timer("resnet_serve"):
+        resnet_serve = serve_phase(torch, fn, RESNET12, RESNET_SERVE_LAUNCHES,
+                                   chaotic=True)
+    print(f"[resnet_serve] {json.dumps(resnet_serve)}", flush=True)
+    # The serving runtime's front door: HTTP, the command line, and the
+    # in-process API at north-star width.
+    with phase_timer("serve_http"):
+        serve_http = serve_http_phase(torch, fn)
+    print_serve("serve_http", serve_http)
+    with phase_timer("serve_cli"):
+        serve_cli = serve_cli_phase(torch)
+    print(f"[serve_cli] ready after {serve_cli['ready_s']:.1f} s, first episode "
+          f"{serve_cli['first_episode_ms']:.1f} ms, exit {serve_cli['exit_code']} on "
+          f"SIGTERM | {json.dumps(serve_cli)}", flush=True)
+    with phase_timer("serve_api_north_star"):
+        serve_north = serve_api_north_star_phase(torch, fn)
+    print_serve("serve_api_north_star", serve_north)
+    # The supervised replica pool and the durable tier.
+    with phase_timer("serve_pool"):
+        serve_pool = serve_pool_phase(torch, fn)
+    print_serve_pool(serve_pool, smi)
 
-        # 4. train
-        with phase_timer("train"):
-            train = train_phase(torch, fn)
-        print(f"[train] meta_iters_per_s {train['meta_iters_per_s']:.3f} step_p50_ms "
-              f"{train['step_p50_ms']:.2f} | {json.dumps(train)}", flush=True)
-        with phase_timer("graph"):
-            graph = graph_phase(torch, fn)
-        for tag, g in graph.items():
-            print_graph("graph", tag, g)
-        with phase_timer("remat"):
-            remat = remat_phase(torch)
-        print(f"[remat] fused against plain-norm learners, remat_inner_steps on "
-              f"{json.dumps(remat)}", flush=True)
-        with phase_timer("resnet_graph"):
-            resnet_graph = resnet_graph_phase(torch, fn)
-        print_graph("resnet_graph", "resnet12", resnet_graph["resnet12"])
-        print(f"[resnet_graph] fused against the plain-norm learner, remat on, "
-              f"and remat on against off: {json.dumps(resnet_graph['remat_resnet12'])}",
-              flush=True)
-        with phase_timer("backbone_options"):
-            options = backbone_options_phase(torch, fn)
-        print(f"[backbone_options] {json.dumps(options)}", flush=True)
+    # 4. train
+    with phase_timer("train"):
+        train = train_phase(torch, fn)
+    print(f"[train] meta_iters_per_s {train['meta_iters_per_s']:.3f} step_p50_ms "
+          f"{train['step_p50_ms']:.2f} | {json.dumps(train)}", flush=True)
+    with phase_timer("graph"):
+        graph = graph_phase(torch, fn)
+    for tag, g in graph.items():
+        print_graph("graph", tag, g)
+    with phase_timer("remat"):
+        remat = remat_phase(torch)
+    print(f"[remat] fused against plain-norm learners, remat_inner_steps on "
+          f"{json.dumps(remat)}", flush=True)
+    with phase_timer("resnet_graph"):
+        resnet_graph = resnet_graph_phase(torch, fn)
+    print_graph("resnet_graph", "resnet12", resnet_graph["resnet12"])
+    print(f"[resnet_graph] fused against the plain-norm learner, remat on, "
+          f"and remat on against off: {json.dumps(resnet_graph['remat_resnet12'])}",
+          flush=True)
+    with phase_timer("backbone_options"):
+        options = backbone_options_phase(torch, fn)
+    print(f"[backbone_options] {json.dumps(options)}", flush=True)
 
-        # 5-6. the training command line
-        cli = {}
-        for name, phase in (("cli_flagship", cli_flagship_phase),
-                            ("cli_north_star", cli_north_star_phase)):
+    # 5-6. the training command line
+    cli = {}
+    for name, phase in (("cli_flagship", cli_flagship_phase),
+                        ("cli_north_star", cli_north_star_phase)):
+        with phase_timer(name):
+            cli[name] = phase(torch, fn)
+        print_cli(name, cli[name])
+
+    # 7-8. the learner zoo: fused against plain, then each entry point
+    # on one shared Omniglot tree.
+    with phase_timer("zoo_plain"):
+        zoo_plain = zoo_plain_phase(torch)
+    print(f"[zoo_plain] first update, fused against plain-norm learners "
+          f"{json.dumps(zoo_plain)}", flush=True)
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_tree_") as tree:
+        with phase_timer("zoo_tree"):
+            write_omniglot_tree(os.path.join(tree, "omniglot_synth"))
+        for kind, *_ in ZOO:
+            name = f"cli_{kind}"
             with phase_timer(name):
-                cli[name] = phase(torch, fn)
+                cli[name] = cli_zoo_phase(torch, fn, kind, tree)
             print_cli(name, cli[name])
+        # 9. MAML++ on ResNet-12 through the same entry point.
+        with phase_timer("cli_resnet12"):
+            cli["cli_resnet12"] = cli_resnet12_phase(torch, fn, tree)
+        print_cli("cli_resnet12", cli["cli_resnet12"])
 
-        # 7-8. the learner zoo: fused against plain, then each entry point
-        # on one shared Omniglot tree.
-        with phase_timer("zoo_plain"):
-            zoo_plain = zoo_plain_phase(torch)
-        print(f"[zoo_plain] first update, fused against plain-norm learners "
-              f"{json.dumps(zoo_plain)}", flush=True)
-        import tempfile
-
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_tree_") as tree:
-            with phase_timer("zoo_tree"):
-                write_omniglot_tree(os.path.join(tree, "omniglot_synth"))
-            for kind, *_ in ZOO:
-                name = f"cli_{kind}"
-                with phase_timer(name):
-                    cli[name] = cli_zoo_phase(torch, fn, kind, tree)
-                print_cli(name, cli[name])
-            # 9. MAML++ on ResNet-12 through the same entry point.
-            with phase_timer("cli_resnet12"):
-                cli["cli_resnet12"] = cli_resnet12_phase(torch, fn, tree)
-            print_cli("cli_resnet12", cli["cli_resnet12"])
-
-            # 10. The MAML learner's compute options: bfloat16 (the step
-            # graph and the CLI), on-device augmentation, task chunks and
-            # lane padding.
-            with phase_timer("graph_bf16"):
-                graph_bf16 = graph_phase(torch, fn, [(
-                    "flagship_bf16", BF16_CONFIG, train_batch, CLI_FLAGSHIP_TRAIN,
-                    CLI_FLAGSHIP_TRAIN_FINAL, {"compute_dtype": "bfloat16"},
-                )])
-            print_graph("graph_bf16", "flagship_bf16", graph_bf16["flagship_bf16"])
-            with phase_timer("cli_bf16"):
-                cli["cli_bf16"], cli_bf16_f32 = cli_bf16_phase(torch, fn, tree)
-            print(f"[cli_bf16] losses against the float32 run, first 30 iterations: "
-                  f"max gap {cli['cli_bf16']['loss_gap_vs_float32']['max']:.4f}, "
-                  f"mean {cli['cli_bf16']['loss_gap_vs_float32']['mean']:.4f} (bar "
-                  f"{BF16_LOSS_ATOL} + {BF16_LOSS_RTOL} x |float32|); float32 per "
-                  f"step meta_iters_per_s {cli_bf16_f32['per_step']['meta_iters_per_s']:.3f}"
-                  f" step_p50_ms {cli_bf16_f32['per_step']['step_p50_ms']:.2f} peak_mem_gb "
-                  f"{cli_bf16_f32['peak_mem_gb']:.3f}", flush=True)
-            print_cli("cli_bf16", cli["cli_bf16"])
-            with phase_timer("device_augment"):
-                augmented = device_augment_phase(torch, fn, tree)
-            print(f"[device_augment] 3 replayed iterations and the checkpoint bitwise "
-                  f"equal to the host-rotated run's: losses "
-                  f"{augmented['device_augment']['train_losses']} | per step ms p50 "
-                  f"{augmented['device_augment']['per_step']['step_p50_ms']:.2f} "
-                  f"(host-rotated {augmented['device_augment_host']['per_step']['step_p50_ms']:.2f})"
-                  f" | {PHASE_SECONDS['device_augment']:.1f} s | {json.dumps(augmented)}",
-                  flush=True)
-            # 11. The operations plane on the same tree.
-            with phase_timer("chaos"):
-                chaos = chaos_phase(torch, fn, tree)
-            print_chaos(chaos, smi)
-        with phase_timer("task_chunk"):
-            chunked = task_chunk_phase(torch, fn)
-        print("[task_chunk] " + " | ".join(
-            f"{tag}: step peak GB chunked {r['chunked_step_peak_gb']:.3f} full "
-            f"{r['full_step_peak_gb']:.3f}, dispatch peak GB chunked "
-            f"{r['chunked_dispatch_peak_gb']:.3f} full {r['full_dispatch_peak_gb']:.3f}, "
-            f"replay ms/iter chunked {r['chunked_replay_ms_per_iter']:.2f} full "
-            f"{r['full_replay_ms_per_iter']:.2f}, first loss gap {r['first_loss_rel_gap']:.2e}"
-            for tag, r in chunked.items() if tag != "launches")
-            + f" | {PHASE_SECONDS['task_chunk']:.1f} s | {json.dumps(chunked)}", flush=True)
-        with phase_timer("lane_pad"):
-            lane_pad = lane_pad_phase(torch, fn)
-        print(f"[lane_pad] north star 48 -> 64 filters against unpadded: served "
-              f"episodes max {lane_pad['episode_max_abs_err']:.3e} median "
-              f"{lane_pad['episode_median_abs_err']:.3e} (bars {lane_pad['episode_bars']}), "
-              f"eval logits {lane_pad['eval_logit_max_abs_err']:.3e}, first loss gap "
-              f"{lane_pad['first_loss_rel_gap_vs_plain']:.2e}; replay ms/iter padded "
-              f"{lane_pad['padded_replay_ms_per_iter']:.2f} unpadded "
-              f"{lane_pad['unpadded_replay_ms_per_iter']:.2f}; checkpoints both ways "
-              f"bitwise | {PHASE_SECONDS['lane_pad']:.1f} s | {json.dumps(lane_pad)}",
+        # 10. The MAML learner's compute options: bfloat16 (the step
+        # graph and the CLI), on-device augmentation, task chunks and
+        # lane padding.
+        with phase_timer("graph_bf16"):
+            graph_bf16 = graph_phase(torch, fn, [(
+                "flagship_bf16", BF16_CONFIG, train_batch, CLI_FLAGSHIP_TRAIN,
+                CLI_FLAGSHIP_TRAIN_FINAL, {"compute_dtype": "bfloat16"},
+            )])
+        print_graph("graph_bf16", "flagship_bf16", graph_bf16["flagship_bf16"])
+        with phase_timer("cli_bf16"):
+            cli["cli_bf16"], cli_bf16_f32 = cli_bf16_phase(torch, fn, tree)
+        print(f"[cli_bf16] losses against the float32 run, first 30 iterations: "
+              f"max gap {cli['cli_bf16']['loss_gap_vs_float32']['max']:.4f}, "
+              f"mean {cli['cli_bf16']['loss_gap_vs_float32']['mean']:.4f} (bar "
+              f"{BF16_LOSS_ATOL} + {BF16_LOSS_RTOL} x |float32|); float32 per "
+              f"step meta_iters_per_s {cli_bf16_f32['per_step']['meta_iters_per_s']:.3f}"
+              f" step_p50_ms {cli_bf16_f32['per_step']['step_p50_ms']:.2f} peak_mem_gb "
+              f"{cli_bf16_f32['peak_mem_gb']:.3f}", flush=True)
+        print_cli("cli_bf16", cli["cli_bf16"])
+        with phase_timer("device_augment"):
+            augmented = device_augment_phase(torch, fn, tree)
+        print(f"[device_augment] 3 replayed iterations and the checkpoint bitwise "
+              f"equal to the host-rotated run's: losses "
+              f"{augmented['device_augment']['train_losses']} | per step ms p50 "
+              f"{augmented['device_augment']['per_step']['step_p50_ms']:.2f} "
+              f"(host-rotated {augmented['device_augment_host']['per_step']['step_p50_ms']:.2f})"
+              f" | {PHASE_SECONDS['device_augment']:.1f} s | {json.dumps(augmented)}",
               flush=True)
+        # 11. The operations plane on the same tree.
+        with phase_timer("chaos"):
+            chaos = chaos_phase(torch, fn, tree)
+        print_chaos(chaos, smi)
+    with phase_timer("task_chunk"):
+        chunked = task_chunk_phase(torch, fn)
+    print("[task_chunk] " + " | ".join(
+        f"{tag}: step peak GB chunked {r['chunked_step_peak_gb']:.3f} full "
+        f"{r['full_step_peak_gb']:.3f}, dispatch peak GB chunked "
+        f"{r['chunked_dispatch_peak_gb']:.3f} full {r['full_dispatch_peak_gb']:.3f}, "
+        f"replay ms/iter chunked {r['chunked_replay_ms_per_iter']:.2f} full "
+        f"{r['full_replay_ms_per_iter']:.2f}, first loss gap {r['first_loss_rel_gap']:.2e}"
+        for tag, r in chunked.items() if tag != "launches")
+        + f" | {PHASE_SECONDS['task_chunk']:.1f} s | {json.dumps(chunked)}", flush=True)
+    with phase_timer("lane_pad"):
+        lane_pad = lane_pad_phase(torch, fn)
+    print(f"[lane_pad] north star 48 -> 64 filters against unpadded: served "
+          f"episodes max {lane_pad['episode_max_abs_err']:.3e} median "
+          f"{lane_pad['episode_median_abs_err']:.3e} (bars {lane_pad['episode_bars']}), "
+          f"eval logits {lane_pad['eval_logit_max_abs_err']:.3e}, first loss gap "
+          f"{lane_pad['first_loss_rel_gap_vs_plain']:.2e}; replay ms/iter padded "
+          f"{lane_pad['padded_replay_ms_per_iter']:.2f} unpadded "
+          f"{lane_pad['unpadded_replay_ms_per_iter']:.2f}; checkpoints both ways "
+          f"bitwise | {PHASE_SECONDS['lane_pad']:.1f} s | {json.dumps(lane_pad)}",
+          flush=True)
 
     print("[replay] fused-norm kernel nodes of each captured graph, each equal "
           f"to the launches its capture counted: {json.dumps(REPLAY_NODES)}",
@@ -3385,16 +4019,20 @@ def main() -> int:
     for shape, res in bf16.items():
         for name in res:
             checked[name].add((shape, None if name == "bn_stats" else SLOPE, "bfloat16"))
-    unchecked = {k: sorted(v - checked[k]) for k, v in shapes.shapes.items()
-                 if v - checked[k]}
+    # The shapes the main paths launched at here and in the live pool
+    # workers.
+    ran = {name: set(keys) for name, keys in fn.launch_shapes.items()}
+    for name, keys in serve_pool["workers"]["worker_shapes"].items():
+        ran[name].update(keys)
+    unchecked = {k: sorted(v - checked[k]) for k, v in ran.items() if v - checked[k]}
     if unchecked:
         fail(f"kernel (shape, slope) pairs of the main paths that no check "
              f"compared with the plain version: {unchecked}")
-    no_bf16 = [k for k, v in shapes.shapes.items() if not any(len(c) == 3 for c in v)]
+    no_bf16 = [k for k, v in ran.items() if not any(len(c) == 3 for c in v)]
     if no_bf16:
         fail(f"kernels that no bfloat16 path launched: {no_bf16}")
     print("[coverage] (shape, slope) each kernel ran at on the main paths, each "
-          f"checked above: {json.dumps({k: sorted(v) for k, v in shapes.shapes.items()})}",
+          f"checked above: {json.dumps({k: sorted(v) for k, v in ran.items()})}",
           flush=True)
 
     # 9. result: bn_stats_act and bn_act_bwd at the serve path's support
@@ -3407,7 +4045,7 @@ def main() -> int:
     # The bf16 columns: each kernel at (5, 512, 28, 28) in bfloat16 (the
     # bytes of the float32 rows' (5, 256, 28, 28)), its largest error over
     # the bf16 shapes, and the bf16 CLI's launches.
-    paths = [serve, resnet_serve, serve_http, serve_north, train, *cli.values(),
+    paths = [serve, resnet_serve, serve_http, serve_north, serve_pool, train, *cli.values(),
              cli_bf16_f32, *augmented.values(), chaos["telemetry"], chunked, lane_pad]
     kernels = []
     for name in fn.KERNELS:

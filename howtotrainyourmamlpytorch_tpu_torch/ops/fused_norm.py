@@ -69,7 +69,8 @@ in ``launch_counts``: one device launch per call.
 
 The library is built with ``nvcc`` on first use into ``_build/`` next to the
 package (listed in ``.gitignore``), keyed by a hash of the source and the
-flags, and loaded with ``ctypes``.
+flags, and loaded with ``ctypes``; a serving engine with a durable tier
+loads it from its executable cache instead (``serve/tier/execcache.py``).
 """
 
 from __future__ import annotations
@@ -97,6 +98,14 @@ KERNELS = ("bn_stats", "bn_stats_act", "bn_act_bwd", "bn_act_pool_apply")
 #: entry is one device launch.
 launch_counts: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
+#: Every ``(shape, slope)`` each kernel launched at in this process, with
+#: ``"bfloat16"`` after them for a bfloat16 input (``slope`` is None for
+#: ``bn_stats``); cleared by ``reset_launch_shapes``. A serving worker
+#: started with ``--debug_kernels`` reports it on ``GET /debug/kernels``,
+#: so a script can check that every shape a worker ran was held to the
+#: plain version.
+launch_shapes: dict[str, set] = {name: set() for name in KERNELS}
+
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PACKAGE_DIR, "csrc", "fused_norm.cu")
 BUILD_DIR = os.path.join(_PACKAGE_DIR, "_build")
@@ -112,6 +121,17 @@ _lib_lock = threading.Lock()
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+
+
+def reset_launch_shapes() -> None:
+    for shapes in launch_shapes.values():
+        shapes.clear()
+
+
+def launch_record() -> dict:
+    """The launch counts and shapes, JSON-ready (shapes as lists)."""
+    return {"launches": dict(launch_counts),
+            "shapes": {name: sorted(keys, key=repr) for name, keys in launch_shapes.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -233,17 +253,29 @@ def _nvcc() -> str:
     )
 
 
-def library_path() -> str:
+def library_digest() -> str:
+    """sha256 of the kernel source and the nvcc flags: the library's
+    identity (its file name under ``_build/`` and its key in the serving
+    tier's executable cache)."""
     with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"fused_norm_{digest.hexdigest()[:16]}.so")
+        return hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
 
 
-def build() -> tuple[str, float, str]:
-    """Compiles ``csrc/fused_norm.cu`` unless this source's library exists.
-    Returns ``(path, seconds, compiler output)``; raises if nvcc fails."""
+def library_path() -> str:
+    return os.path.join(BUILD_DIR, f"fused_norm_{library_digest()[:16]}.so")
+
+
+#: nvcc runs in this process and their seconds; and where the loaded
+#: library came from (``"nvcc"``, ``"build_dir"`` or ``"exec_cache"``).
+build_stats = {"nvcc_builds": 0, "nvcc_s": 0.0, "library_source": None}
+
+
+def build(fresh: bool = False) -> tuple[str, float, str]:
+    """Compiles ``csrc/fused_norm.cu`` unless this source's library exists
+    (``fresh`` compiles it anyway and replaces it). Returns ``(path,
+    seconds, compiler output)``; raises if nvcc fails."""
     path = library_path()
-    if os.path.exists(path):
+    if os.path.exists(path) and not fresh:
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -258,36 +290,69 @@ def build() -> tuple[str, float, str]:
             f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}"
         )
     os.replace(tmp, path)
+    build_stats["nvcc_builds"] += 1
+    build_stats["nvcc_s"] += seconds
     return path, seconds, proc.stdout + proc.stderr
 
 
-def _load():
+def dlopen_bytes(payload: bytes) -> ctypes.CDLL:
+    """Loads a shared library from its bytes through an anonymous memory
+    file, so the bytes loaded are the bytes the caller verified."""
+    fd = os.memfd_create("fused_norm.so")
+    try:
+        os.write(fd, payload)
+        return ctypes.CDLL(f"/proc/self/fd/{fd}")
+    finally:
+        os.close(fd)
+
+
+def load_library(payload: bytes | None = None) -> str:
+    """Loads the kernel library into this process: from ``payload`` (the
+    verified bytes of the serving tier's executable cache) or, with none,
+    from ``build()``. Returns where the loaded library came from; a
+    library loaded before stays (same source digest, same kernels). A
+    library that does not load raises: nothing falls back."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(build()[0])
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        plan = [i, i, i, i, i, i]  # cluster, cpb, staged, threads, blocks, smem
-        signatures = {
-            "bn_fwd_setup": [p, p],
-            "bn_fwd_active_clusters": [i, i, i, i, p],
-        }
-        for suffix in _SUFFIX.values():
-            signatures.update({
-                f"bn_stats{suffix}": [p, p, p, i, i, i, *plan, p],
-                f"bn_stats_act{suffix}": [p, p, p, p, p, p, i, i, i, f, f, *plan, p],
-                f"bn_act_bwd{suffix}": [p, p, p, p, p, p, p, p, p, i, i, i, f, f,
-                                        *plan, p],
-                f"bn_act_pool_apply{suffix}": [p, p, p, p, p, p, i, i, i, i, f, f,
-                                               i, p],
-            })
-        for name, argtypes in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if _lib is None:
+            if payload is not None:
+                lib, source = dlopen_bytes(payload), "exec_cache"
+            else:
+                before = build_stats["nvcc_builds"]
+                lib = ctypes.CDLL(build()[0])
+                source = "nvcc" if build_stats["nvcc_builds"] > before else "build_dir"
+            _bind(lib)
+            _lib = lib
+            build_stats["library_source"] = source
+        return build_stats["library_source"]
+
+
+def _load():
+    if _lib is None:
+        load_library()
+    return _lib
+
+
+def _bind(lib) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    plan = [i, i, i, i, i, i]  # cluster, cpb, staged, threads, blocks, smem
+    signatures = {
+        "bn_fwd_setup": [p, p],
+        "bn_fwd_active_clusters": [i, i, i, i, p],
+    }
+    for suffix in _SUFFIX.values():
+        signatures.update({
+            f"bn_stats{suffix}": [p, p, p, i, i, i, *plan, p],
+            f"bn_stats_act{suffix}": [p, p, p, p, p, p, i, i, i, f, f, *plan, p],
+            f"bn_act_bwd{suffix}": [p, p, p, p, p, p, p, p, p, i, i, i, f, f,
+                                    *plan, p],
+            f"bn_act_pool_apply{suffix}": [p, p, p, p, p, p, i, i, i, i, f, f,
+                                           i, p],
+        })
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
 
 
 # ---------------------------------------------------------------------------
@@ -333,13 +398,15 @@ def _check_like(g, x):
         )
 
 
-def _launch(name, x, *args):
+def _launch(name, x, *args, slope=None):
     """One launch of kernel ``name`` on ``x``'s element type."""
     symbol = name + _SUFFIX[x.dtype]
     rc = getattr(_load(), symbol)(*args)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
     launch_counts[name] += 1
+    key = (tuple(x.shape), slope)
+    launch_shapes[name].add(key + ("bfloat16",) if x.dtype == torch.bfloat16 else key)
 
 
 def _dims(x):
@@ -568,7 +635,7 @@ def bn_stats_act(x, gamma, beta, eps=EPS, slope=SLOPE, plan: Plan | None = None)
     with torch.cuda.device(x.device):
         _launch("bn_stats_act", x, _ptr(x), _ptr(gamma), _ptr(beta), _ptr(y),
                 _ptr(mean), _ptr(var), n, c, hw, eps, slope,
-                *_plan_args(plan), _stream(x))
+                *_plan_args(plan), _stream(x), slope=slope)
     return y, mean, var
 
 
@@ -588,7 +655,7 @@ def bn_act_bwd(x, g, mean, var, gamma, beta, eps=EPS, slope=SLOPE,
     with torch.cuda.device(x.device):
         _launch("bn_act_bwd", x, _ptr(x), _ptr(g), _ptr(mean), _ptr(var),
                 _ptr(gamma), _ptr(beta), _ptr(dx), _ptr(dgamma), _ptr(dbeta),
-                n, c, hw, eps, slope, *_plan_args(plan), _stream(x))
+                n, c, hw, eps, slope, *_plan_args(plan), _stream(x), slope=slope)
     return dx, dgamma, dbeta
 
 
@@ -614,7 +681,7 @@ def bn_act_pool_apply(x, mean, var, gamma, beta, eps=EPS, slope=SLOPE):
     with torch.cuda.device(x.device):
         _launch("bn_act_pool_apply", x, _ptr(x), _ptr(mean), _ptr(var),
                 _ptr(gamma), _ptr(beta), _ptr(y), n, c, h, w, eps, slope,
-                _elementwise_blocks(y), _stream(x))
+                _elementwise_blocks(y), _stream(x), slope=slope)
     return y
 
 

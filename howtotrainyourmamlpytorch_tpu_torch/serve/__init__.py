@@ -10,12 +10,20 @@ a request's support set, answer its queries, on the card.
 * ``geometry``   - coarsening mixed episode shapes onto a bucket lattice;
 * ``metrics``    - latency quantiles, counters, Prometheus text;
 * ``errors``     - the typed failures;
-* ``resilience`` - admission control and the safe hot swap;
-* ``api``        - ``ServingAPI`` and the HTTP front door.
+* ``resilience`` - admission control, the safe hot swap and the replica
+  flavours the pool supervises;
+* ``pool``       - N replicas behind one front door: health-probed,
+  restarted with backoff and a circuit breaker, re-dispatch on a death,
+  routing by digest on a consistent-hash ring;
+* ``tier``       - the durable serving state: the artifact spill under
+  the LRU, the fenced executable cache of the kernel library, the ring;
+* ``api``        - ``ServingAPI`` and the HTTP front door, over one engine
+  or a pool.
 
-Entry point: ``python3 -m howtotrainyourmamlpytorch_tpu_torch.serve_maml``.
-The replica pool, the durable tier and the control-plane daemons are
-ROADMAP A11.
+Entry points: ``python3 -m howtotrainyourmamlpytorch_tpu_torch.serve_maml``
+(``--replicas N`` for a supervised pool) and ``python3 -m
+howtotrainyourmamlpytorch_tpu_torch.serve_loadtest`` (the open-loop SLO
+verdict). The promotion and autoscaler daemons are ROADMAP A11.
 """
 
 from .api import ServingAPI, make_http_server
@@ -32,6 +40,7 @@ from .errors import (
     SwapRejectedError,
 )
 from .metrics import ServeMetrics
+from .pool import PoolConfig, ReplicaPool
 
 __all__ = [
     "ServingAPI",
@@ -51,4 +60,6 @@ __all__ = [
     "DispatchFailedError",
     "ReplicaDeadError",
     "SwapRejectedError",
+    "PoolConfig",
+    "ReplicaPool",
 ]

@@ -3,7 +3,8 @@ server over it (``howtotrainyourmamlpytorch_tpu/serve/api.py``).
 
 ``ServingAPI`` puts the engine, the micro-batcher, the cache, admission
 control and the metrics behind one synchronous ``classify``. The HTTP
-front door is a minimal ``http.server`` over the same object::
+front door is a minimal ``http.server`` over it or over a
+``serve/pool.ReplicaPool``, which has the same surface::
 
     POST /v1/episode     {"support": [...], "support_labels": [...],
                           "query": [...], "tag": optional}
@@ -14,25 +15,37 @@ front door is a minimal ``http.server`` over the same object::
                             "geometry_rejected" when no bucket holds it)
     POST /admin/promote  {"checkpoint": "<path>"}: verify, canary, publish;
                          409 on rejection, the old state still serving
-    POST /admin/scale    409: a single engine, not a replica pool (the pool
-                         is ROADMAP A11)
+    POST /admin/scale    {"pool_size": n}: ``ReplicaPool.resize(n)``; 409 on
+                         a single engine
     GET  /healthz        200 once warmed or once an episode was answered,
                          503 with "ready": false before
     GET  /metrics        Prometheus text (serve/metrics.py)
+    GET  /debug/kernels  the fused-norm kernels' launch counts and shapes
+                         (``ops/fused_norm.launch_record``), served only by
+                         a server built with ``debug_kernels=True``
 
 Handler threads touch no tensor: every dispatch, promotion and raw swap
-runs on the batcher's worker thread.
+runs on the batcher's worker thread. A server over one engine is a
+replica: it consults the serve faults on each episode, leaving the
+process with ``os._exit(REPLICA_KILL_EXIT)`` under
+``replica_kill_at_request`` and stalling every handler under
+``wedge_replica_at_request``; a pool's front door passes them to its
+replicas.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 from concurrent import futures
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..ops import fused_norm
+from ..telemetry import events as telemetry_events
+from ..utils import faultinject
 from .batcher import MicroBatcher
 from .engine import ServeConfig, ServingEngine
 from .errors import DeadlineExceededError, OverloadedError, SwapRejectedError
@@ -43,6 +56,14 @@ from .resilience.swap import promote_checkpoint, promote_state
 
 #: Cap on a request body (64 MB of JSON is about 200 84x84x3 images).
 MAX_BODY_BYTES = 64 * 1024 * 1024
+
+#: Exit code of a worker killed by the ``replica_kill_at_request`` fault,
+#: told apart from a real crash in the pool's logs.
+REPLICA_KILL_EXIT = 86
+
+#: How long a wedged handler stalls: every client and supervisor timeout
+#: fires first.
+_WEDGE_STALL_S = 3600.0
 
 
 class ServingAPI:
@@ -138,12 +159,15 @@ class ServingAPI:
         }
 
     def healthz(self) -> dict:
-        """Readiness, degradation, queue depth and age, last-dispatch age."""
+        """Readiness, degradation, queue depth and age, last-dispatch age,
+        this process's fused-norm launches and their shapes, and the
+        durable tier's counters when there is one."""
         queue_depth = self.batcher.queue_depth()
         oldest_age_s = self.batcher.oldest_pending_age_s()
         ready = self.engine.ready
         degraded = self.admission.degraded(queue_depth, oldest_age_s)
         status = "unready" if not ready else "degraded" if degraded else "ok"
+        tier = self.engine.tier_stats()
         return {
             "status": status,
             "ready": ready,
@@ -160,6 +184,7 @@ class ServingAPI:
             "warmed_buckets": [
                 "x".join(str(d) for d in b) for b in self.engine.warmed_buckets()
             ],
+            **({} if tier is None else {"tier": tier}),
         }
 
     def stats(self) -> dict:
@@ -178,16 +203,30 @@ class ServingAPI:
         if not self._closed:
             self._closed = True
             self.batcher.close()
+            self.engine.close()
 
 
 class _Handler(BaseHTTPRequestHandler):
-    """Routes requests onto the bound ``ServingAPI``."""
+    """Routes requests onto the bound ``ServingAPI`` or ``ReplicaPool``."""
 
     api: ServingAPI
+    #: True when this server is a replica (one engine): the kill and wedge
+    #: faults fire here, never at a pool's front door.
+    consult_faults = True
+    #: True when ``GET /debug/kernels`` is served.
+    debug_kernels = False
     protocol_version = "HTTP/1.1"
 
     def log_message(self, format, *args):  # noqa: A002 (stdlib signature)
         pass
+
+    def _stalled(self) -> bool:
+        """The wedge: a live worker that answers nothing, as a process
+        stuck in the GIL or on the device looks to its clients."""
+        if getattr(self.server, "wedged", False):
+            time.sleep(_WEDGE_STALL_S)
+            return True
+        return False
 
     def _send(self, code: int, body: bytes, content_type: str,
               extra_headers: dict | None = None) -> None:
@@ -205,12 +244,16 @@ class _Handler(BaseHTTPRequestHandler):
                    extra_headers)
 
     def do_GET(self) -> None:  # noqa: N802 (stdlib casing)
+        if self._stalled():
+            return
         if self.path == "/healthz":
             payload = self.api.healthz()
             self._send_json(200 if payload.get("ready") else 503, payload)
         elif self.path == "/metrics":
             self._send(200, self.api.metrics_text().encode(),
                        "text/plain; version=0.0.4")
+        elif self.path == "/debug/kernels" and self.debug_kernels:
+            self._send_json(200, fused_norm.launch_record())
         else:
             self._send_json(404, {"error": f"no route {self.path}"})
 
@@ -223,6 +266,8 @@ class _Handler(BaseHTTPRequestHandler):
         return json.loads(self.rfile.read(length))
 
     def do_POST(self) -> None:  # noqa: N802 (stdlib casing)
+        if self._stalled():
+            return
         routes = {"/v1/episode": self._post_episode,
                   "/admin/promote": self._post_promote,
                   "/admin/scale": self._post_scale}
@@ -233,6 +278,18 @@ class _Handler(BaseHTTPRequestHandler):
             route()
 
     def _post_episode(self) -> None:
+        if self.consult_faults:
+            fault = faultinject.serve_request_fault()
+            if fault is not None:
+                telemetry_events.emit("serve_fault", fault=fault)
+            if fault == "kill":
+                # A crash: no answer, no clean-up; the pool sees the
+                # connection drop.
+                os._exit(REPLICA_KILL_EXIT)
+            if fault == "wedge":
+                self.server.wedged = True
+                if self._stalled():
+                    return
         try:
             payload = self._read_body()
             if payload is None:
@@ -286,22 +343,37 @@ class _Handler(BaseHTTPRequestHandler):
         self._send_json(200, result)
 
     def _post_scale(self) -> None:
-        """409: only a replica pool scales (ROADMAP A11), so an autoscaler
-        pointed at one engine fails loudly."""
+        """``{"pool_size": n}`` -> ``ReplicaPool.resize(n)``; 409 on a single
+        engine, so an autoscaler pointed at one fails loudly."""
         try:
-            if self._read_body() is None:
+            payload = self._read_body()
+            if payload is None:
                 return
-        except (ValueError, TypeError) as exc:
+            if not getattr(self.api, "is_replica_pool", False):
+                self._send_json(409, {"error": "serving tier is not a replica "
+                                               "pool; /admin/scale needs one"})
+                return
+            result = self.api.resize(int(payload["pool_size"]))
+        except (KeyError, ValueError, TypeError) as exc:
             self._send_json(400, {"error": str(exc)})
             return
-        self._send_json(409, {"error": "serving tier is not a replica pool; "
-                                       "/admin/scale needs one"})
+        except Exception as exc:
+            self._send_json(500, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        self._send_json(200, result)
 
 
-def make_http_server(api: ServingAPI, host: str = "127.0.0.1",
-                     port: int = 0) -> ThreadingHTTPServer:
-    """Builds (does not start) the HTTP server over ``api``; ``port=0``
-    binds an ephemeral port (``server.server_address``). Run it with
-    ``serve_forever()``."""
-    handler = type("BoundServeHandler", (_Handler,), {"api": api})
-    return ThreadingHTTPServer((host, port), handler)
+def make_http_server(api, host: str = "127.0.0.1", port: int = 0,
+                     debug_kernels: bool = False) -> ThreadingHTTPServer:
+    """Builds (does not start) the HTTP server over a ``ServingAPI`` or a
+    ``ReplicaPool``; ``port=0`` binds an ephemeral port
+    (``server.server_address``). Run it with ``serve_forever()``.
+    ``debug_kernels`` adds ``GET /debug/kernels``."""
+    handler = type("BoundServeHandler", (_Handler,), {
+        "api": api,
+        "consult_faults": not getattr(api, "is_replica_pool", False),
+        "debug_kernels": debug_kernels,
+    })
+    server = ThreadingHTTPServer((host, port), handler)
+    server.wedged = False
+    return server

@@ -28,8 +28,16 @@ Each dispatch feeds ``ServeMetrics`` on ``engine.metrics``
 (``telemetry/events.py``; nothing without a sink). The first dispatch of
 each ``(kind, shape)`` signature is counted in the compile table and
 emits ``serve_compile``: the port compiles nothing per signature, the
-count stands where JAX counts its XLA traces. The program ledger, the
-durable tier and the fault-injection hooks are ROADMAP A11 and A12.
+count stands where JAX counts its XLA traces. The program ledger is
+ROADMAP A12.
+
+With ``ServeConfig.tier_dir`` the engine keeps a durable tier
+(``serve/tier/``): the cache writes through to a crash-consistent spill at
+``<tier_dir>/spill``, rehydrated at construction, and on a card the
+fused-norm kernel library is loaded from the fenced executable cache at
+``<tier_dir>/exec`` (built and stored there on a miss), so a warm respawn
+runs no nvcc build. The ``nan_next_logits`` fault poisons the host logits
+of a dispatch and of a canary.
 
 The engine runs on the card unless built with ``device="cpu"``, and serves
 in float32 with TF32 off and deterministic cuDNN algorithms
@@ -39,6 +47,7 @@ in float32 with TF32 off and deterministic cuDNN algorithms
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 from typing import Any, NamedTuple, Sequence
@@ -49,12 +58,15 @@ import torch
 from ..models.common import encode_images
 from ..models.maml import MAMLFewShotLearner
 from ..telemetry import events as telemetry_events
+from ..utils import faultinject
 from ..utils.platform import resolve_device, set_f32_numerics
 from ..utils.trees import tree_map
 from .cache import AdaptedParamsCache, support_digest
 from .errors import SwapRejectedError
 from .geometry import GeometryPolicy, GeometryRejectedError
 from .metrics import ServeMetrics
+from .tier import ArtifactSpill, ExecutableCache
+from .tier.execcache import PROGRAM
 
 Tree = Any
 
@@ -120,8 +132,13 @@ class ServeConfig:
     max_queue_age_ms: float = 2_000.0
     #: ``Retry-After`` seconds of a shed response.
     retry_after_s: float = 1.0
-    #: The durable serving tier's root; raises (ROADMAP A11).
+    #: The durable serving tier's root (``serve/tier/``): the cache's
+    #: disk spill at ``<tier_dir>/spill`` and the kernel library's
+    #: executable cache at ``<tier_dir>/exec``. ``None``: RAM only.
     tier_dir: str | None = None
+    #: Disk-spill retention in entries; the oldest (mtime) are pruned past
+    #: it. <= 0 disables pruning.
+    spill_max_entries: int = 4096
     #: Geometry lattice of ``(way, shot, query)`` buckets; needs
     #: ``norm_layer="layer_norm"``. ``None``: exact buckets.
     geometry_lattice: tuple | None = None
@@ -136,11 +153,6 @@ class ServeConfig:
         if self.max_queue_depth < 1:
             raise ValueError(
                 f"max_queue_depth must be >= 1, got {self.max_queue_depth}"
-            )
-        if self.tier_dir is not None:
-            raise NotImplementedError(
-                "the durable serving tier (tier_dir: disk spill and the "
-                "executable cache) is ROADMAP item A11"
             )
 
 
@@ -217,6 +229,80 @@ class ServingEngine:
         #: the boot state and raw ``update_state`` publishes).
         self.published_digest: str | None = None
         self.published_source: str | None = None
+        self._spill: ArtifactSpill | None = None
+        self._exec_cache: ExecutableCache | None = None
+        #: Where the kernel library came from with a tier on a card
+        #: (``"exec_cache"``, ``"build_dir"`` or ``"nvcc"``), else None.
+        self.kernel_library: str | None = None
+        if self.config.tier_dir:
+            self._spill = ArtifactSpill(
+                os.path.join(self.config.tier_dir, "spill"),
+                max_entries=self.config.spill_max_entries, device=self.device,
+            )
+            self.cache.attach_spill(self._spill, learner=self.family, state_version=0)
+            self._exec_cache = ExecutableCache(
+                os.path.join(self.config.tier_dir, "exec"), device=self.device
+            )
+            self._spill.rehydrate_into(self.cache, learner=self.family, state_version=0,
+                                       limit=self.config.cache_capacity)
+            if (self.device.type == "cuda"
+                    and learner.cfg.backbone.use_pallas_fused_norm):
+                self._load_kernel_library()
+
+    # ------------------------------------------------------------------
+    # The durable tier
+    # ------------------------------------------------------------------
+
+    def _load_kernel_library(self) -> None:
+        """The fused-norm library from the executable cache when it holds a
+        verified one for this fence; else built (``fused_norm.build``,
+        with nvcc afresh after a stale or corrupt entry) and stored. A
+        library that does not load raises."""
+        from ..ops import fused_norm
+
+        signature = fused_norm.library_digest()
+        before = dict(self._exec_cache.stats)
+        payload = self._exec_cache.get(PROGRAM, signature)
+        if payload is None:
+            refused = {k: self._exec_cache.stats[k] - before[k]
+                       for k in ("stale", "corrupt_quarantined")}
+            path, seconds, _ = fused_norm.build(fresh=any(refused.values()))
+            with open(path, "rb") as f:
+                self._exec_cache.put(PROGRAM, signature, f.read())
+            telemetry_events.emit("tier_exec_rebuilt", program=PROGRAM,
+                                  nvcc_s=seconds, **refused)
+        self.kernel_library = fused_norm.load_library(payload)
+
+    def tier_stats(self) -> dict | None:
+        """The durable tier's counters, or None without one."""
+        if self._spill is None:
+            return None
+        from ..ops import fused_norm
+
+        return {
+            "spill": dict(self._spill.stats),
+            "spill_promotions": self.cache.spill_hits,
+            "spill_write_s": self.cache.spill_write_s,
+            "exec": dict(self._exec_cache.stats),
+            "kernel_library": self.kernel_library,
+            "nvcc_builds": fused_norm.build_stats["nvcc_builds"],
+        }
+
+    def rehydrate_spill(self, tier_dir: str) -> int:
+        """Adopts the verified entries of another tier directory into this
+        cache's RAM: the pool calls it on a dead replica's ring successor,
+        so the inherited arc is served from cache. Entries of another
+        ``(learner, state_version)`` are skipped."""
+        spill = ArtifactSpill(os.path.join(str(tier_dir), "spill"),
+                              max_entries=self.config.spill_max_entries,
+                              device=self.device)
+        return spill.rehydrate_into(self.cache, learner=self.family,
+                                    state_version=self.state_version,
+                                    limit=self.config.cache_capacity)
+
+    def close(self) -> None:
+        """Lands the spill's queued write-throughs."""
+        self.cache.close()
 
     # ------------------------------------------------------------------
     # State
@@ -245,6 +331,11 @@ class ServingEngine:
         with self._lock:
             self._published = _Published(self._published.version + 1, istate)
             self.cache.clear()
+            if self._spill is not None:
+                # Spill reads now verify against the new version, so the
+                # old entries are unreachable, as in the RAM LRU.
+                self.cache.attach_spill(self._spill, learner=self.family,
+                                        state_version=self._published.version)
             return self._published.version
 
     def warmed_buckets(self) -> list[tuple[int, int, int]]:
@@ -457,7 +548,8 @@ class ServingEngine:
         stacked = tree_map(lambda *leaves: torch.stack(leaves), *padded)
         xq = self._pad_rows([ep.x_query for ep in eps])
         t0 = time.perf_counter()
-        host = self._run_classify(istate, stacked, xq).cpu().numpy()
+        host = faultinject.poison_logits(
+            self._run_classify(istate, stacked, xq).cpu().numpy())
         classify_ms = (time.perf_counter() - t0) * 1e3
         metrics.classify_latency.observe(classify_ms)
         metrics.episodes_served.inc(len(eps))
@@ -559,7 +651,8 @@ class ServingEngine:
         buckets probed."""
         probed = list(buckets) if buckets is not None else self.warmed_buckets()
         for way, shot, query in probed:
-            logits = self._probe(istate, self._synthetic_episode(way, shot, query))
+            logits = faultinject.poison_logits(
+                self._probe(istate, self._synthetic_episode(way, shot, query)))
             if not np.isfinite(logits).all():
                 raise SwapRejectedError(
                     f"canary episode at bucket {way}x{shot}x{query} produced "

@@ -24,8 +24,8 @@ class OverloadedError(ServeError):
 
 
 class NoHealthyReplicaError(OverloadedError):
-    """No healthy replica to dispatch to. Raised by the replica pool,
-    which is ROADMAP A11; kept so that callers can name the type."""
+    """No healthy replica to dispatch to (``serve/pool.py``): a typed 503,
+    never a fall back to another engine."""
 
 
 class DeadlineExceededError(ServeError, TimeoutError):
@@ -40,8 +40,8 @@ class DispatchFailedError(ServeError):
 
 
 class ReplicaDeadError(ServeError):
-    """A pool replica crashed or refused the dispatch (the pool is ROADMAP
-    A11)."""
+    """A pool replica crashed, dropped the connection or stopped answering;
+    the pool re-dispatches the request."""
 
 
 class SwapRejectedError(ServeError):

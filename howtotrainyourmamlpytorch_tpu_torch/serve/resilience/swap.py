@@ -14,7 +14,9 @@ moves:
 
 A rejection leaves the old state serving, bit for bit: the only traces are
 ``swap_rejected_total`` and a ``swap_rejected`` event. Callers get
-``SwapRejectedError`` (409 at the HTTP front door).
+``SwapRejectedError`` (409 at the HTTP front door). The ``corrupt_swap_at``
+fault truncates the checkpoint right before gate 1 reads it, and
+``nan_next_logits`` poisons the canary's logits before gate 2.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 
 from ...telemetry import events as telemetry_events
+from ...utils import faultinject
 from ...utils.checkpoint import CheckpointError, checkpoint_digest
 from ..engine import ServingEngine
 from ..errors import SwapRejectedError
@@ -65,6 +68,7 @@ def promote_checkpoint(engine: ServingEngine, checkpoint_path: str, *,
     Every rejection is a ``SwapRejectedError`` (``corrupt_checkpoint``,
     ``incompatible_checkpoint`` or the canary's reason) with the typed
     checkpoint error as its ``__cause__``."""
+    faultinject.swap_checkpoint_loading(checkpoint_path)
     try:
         state, _ = engine.learner.load_inference_state(
             checkpoint_path, device=engine.device

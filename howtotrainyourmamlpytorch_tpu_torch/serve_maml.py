@@ -10,6 +10,7 @@ experiment JSON and a checkpoint in, an HTTP endpoint out, on the card.
         [--max_queue_depth 64] [--degrade_queue_depth 16] \\
         [--max_queue_age_ms 2000] [--retry_after_s 1.0] \\
         [--warmup 5x1x15,5x5x15] [--telemetry serve_telemetry.jsonl] \\
+        [--tier_dir <dir>] [--replicas 2] [--device cpu] [--debug_kernels] \\
         [--use_pallas_fused_norm True]
 
 Then::
@@ -27,12 +28,23 @@ norm kernels where the JSON leaves it unset). The weights come from a
 verified checkpoint, parameters and BN statistics only
 (``load_for_inference``), or fresh from seed 0 with ``--init_from_scratch``.
 ``--port 0`` binds an ephemeral port and ``--port_file`` names it once the
-server listens. SIGTERM shuts the server down and exits 0.
+server listens. SIGTERM shuts the server down and exits 0. ``--tier_dir``
+gives the engine a durable tier (the cache's disk spill and the kernel
+library's executable cache, ``serve/tier/``).
+
+``--replicas N`` (needs ``--warmup``) runs N worker processes of this
+command, one engine each, under a ``serve/pool.ReplicaPool`` behind this
+front door: health-probed every ``--health_interval_s``, restarted after
+``--restart_backoff_s`` (doubling) and parked by the circuit breaker. With
+``--tier_dir`` worker i keeps its tier at ``<tier_dir>/replica-<i>`` and
+each support set is routed to one worker by digest, so that its spill
+holds the set's artifact (and a dead worker's successor adopts it). A worker
+killed by the ``replica_kill_at_request`` fault exits 86. SIGTERM drains
+the pool: every worker is stopped before the front door exits.
 
 It runs on the card and raises without one (``main(argv, device="cpu")``
-for the CPU). ``--replicas N > 0``, a supervised replica pool, raises:
-ROADMAP A11 (``--health_interval_s`` and ``--restart_backoff_s`` are its
-flags).
+or ``--device cpu`` for the CPU; with ``--replicas`` the workers get the
+same ``--device``, and none without it, so each takes the card).
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ import argparse
 import os
 import signal
 import sys
+import tempfile
 import threading
 
 LEARNERS = ("maml", "gradient_descent", "matching_nets")
@@ -104,19 +117,32 @@ def get_parser() -> argparse.ArgumentParser:
         help="append serve_dispatch / serve_compile / swap events to this JSONL")
     add("--init_from_scratch", action="store_true",
         help="serve fresh weights from seed 0 (no checkpoint)")
+    add("--tier_dir", default=None,
+        help="durable serving tier root (disk spill, kernel-library cache); "
+             "with --replicas, worker i's is <tier_dir>/replica-<i> and "
+             "support sets are routed to workers by digest")
     add("--replicas", type=int, default=0,
-        help="supervised worker replicas (0 = single process; > 0 is ROADMAP A11)")
+        help="run N supervised worker processes behind this front door "
+             "(0 = single process)")
     add("--health_interval_s", type=float, default=0.5)
     add("--restart_backoff_s", type=float, default=1.0)
+    add("--device", default=None,
+        help="device of the engine (and of the workers); the card by default")
+    add("--debug_kernels", action="store_true",
+        help="serve GET /debug/kernels: the fused-norm kernels' launch counts "
+             "and shapes in this process")
     return parser
 
 
 def build_api(opts, train_flags=(), device=None):
-    """The warmed ``ServingAPI`` ``opts`` describe, and a line naming it."""
+    """The warmed ``ServingAPI`` ``opts`` describe (on ``device``, else
+    ``opts.device``, else the card), and a line naming it."""
     import torch
 
     from .serve import ServeConfig, ServingAPI
 
+    if device is None:
+        device = getattr(opts, "device", None)
     learner, device = build_learner(opts.learner, opts.config, train_flags, device)
     if opts.init_from_scratch:
         state, exp_state = (
@@ -131,6 +157,7 @@ def build_api(opts, train_flags=(), device=None):
             cache_capacity=opts.cache_capacity, max_queue_depth=opts.max_queue_depth,
             degrade_queue_depth=opts.degrade_queue_depth,
             max_queue_age_ms=opts.max_queue_age_ms, retry_after_s=opts.retry_after_s,
+            tier_dir=getattr(opts, "tier_dir", None),
         ),
         device=device,
     )
@@ -142,17 +169,55 @@ def build_api(opts, train_flags=(), device=None):
                  f"(epoch state: {exp_state.get('current_iter', 'fresh')})")
 
 
+def build_pool(opts, train_flags=(), device=None):
+    """The ``--replicas N`` topology: N worker processes of this command
+    under pool supervision, and a line naming it."""
+    from .serve.pool import PoolConfig, ReplicaPool
+    from .serve.resilience.replica import SubprocessReplica, serve_maml_argv
+
+    run_dir = tempfile.mkdtemp(prefix="serve_pool_")
+    tier_root = opts.tier_dir
+
+    def factory(index: int) -> SubprocessReplica:
+        port_file = os.path.join(run_dir, f"replica_{index}.port")
+        try:
+            os.remove(port_file)
+        except OSError:
+            pass
+        argv = serve_maml_argv(
+            opts.config, port_file=port_file, checkpoint=opts.checkpoint,
+            learner=opts.learner, warmup=opts.warmup, telemetry=opts.telemetry,
+            max_batch=opts.max_batch, max_wait_ms=opts.max_wait_ms,
+            cache_capacity=opts.cache_capacity, max_queue_depth=opts.max_queue_depth,
+            degrade_queue_depth=opts.degrade_queue_depth,
+            max_queue_age_ms=opts.max_queue_age_ms, retry_after_s=opts.retry_after_s,
+            tier_dir=tier_root and os.path.join(tier_root, f"replica-{index}"),
+            device=device, train_flags=train_flags,
+        )
+        return SubprocessReplica(argv, replica_id=f"worker-{index}", port_file=port_file,
+                                 log_path=os.path.join(run_dir, f"replica_{index}.log"))
+
+    pool = ReplicaPool(factory, PoolConfig(
+        n_replicas=opts.replicas, health_interval_s=opts.health_interval_s,
+        restart_backoff_s=opts.restart_backoff_s,
+        route_by_digest=bool(tier_root), tier_root=tier_root,
+    ))
+    return pool, f"{opts.replicas}-replica pool (worker logs in {run_dir})"
+
+
 def main(argv=None, device=None) -> int:
     """Serves until SIGTERM (or Ctrl-C); returns 0. Raises without a CUDA
-    device unless ``device`` names another."""
+    device unless ``device`` (or ``--device``) names another."""
     parser = get_parser()
     opts, train_flags = parser.parse_known_args(argv)
     if not opts.checkpoint and not opts.init_from_scratch:
         parser.error("--checkpoint is required (or pass --init_from_scratch)")
-    if opts.replicas > 0:
-        raise NotImplementedError(
-            "--replicas (the supervised replica pool) is ROADMAP item A11"
-        )
+    if opts.replicas > 0 and not opts.warmup:
+        # A worker is routable once warm: one that never warms stays
+        # STARTING and the pool would have no replica to route to.
+        parser.error("--replicas requires --warmup WAYxSHOTxQUERY[,...]: pool "
+                     "workers only become routable after warming their buckets")
+    device = device if device is not None else opts.device
     from .serve import make_http_server
     from .telemetry import events
 
@@ -173,11 +238,16 @@ def main(argv=None, device=None) -> int:
     api = server = None
     previous = None
     try:
-        api, detail = build_api(opts, train_flags, device)
-        server = make_http_server(api, opts.host, opts.port)
+        if opts.replicas > 0:
+            api, detail = build_pool(opts, train_flags, device)
+        else:
+            api, detail = build_api(opts, train_flags, device)
+        server = make_http_server(api, opts.host, opts.port, opts.debug_kernels)
         host, port = server.server_address[:2]
         if threading.current_thread() is threading.main_thread():
-            # shutdown() waits for serve_forever, so it runs off this thread.
+            # shutdown() waits for serve_forever, so it runs off this
+            # thread. SIGTERM drains through the finally below, so a pool's
+            # workers are stopped, never orphaned.
             previous = signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
                 target=server.shutdown, daemon=True).start())
         if opts.port_file:

@@ -1,6 +1,6 @@
-"""Deterministic fault injection for the training runtime
-(``howtotrainyourmamlpytorch_tpu/utils/faultinject.py``, its training
-faults).
+"""Deterministic fault injection for the training and serving runtimes
+(``howtotrainyourmamlpytorch_tpu/utils/faultinject.py``: its training,
+serve and durable-tier faults).
 
 Every recovery path of the builder, the checkpoint writer and the stager
 is driven by one of these one-shot failure points:
@@ -28,13 +28,35 @@ is driven by one of these one-shot failure points:
 * ``kill_trainer_mid_publish`` - SIGKILL between an epoch archive (and its
   alias) landing and its ``.ready`` marker.
 
+Serve-path faults (``serve/pool.py``, ``serve/resilience``):
+
+* ``replica_kill_at_request`` - the replica serving the Kth classify
+  request (counted in this process from activation, 1-based) dies: a
+  ``LocalReplica`` turns dead and raises ``ReplicaDeadError``, a worker
+  process's HTTP handler leaves with ``os._exit(86)``;
+* ``wedge_replica_at_request`` - the same trigger, but the replica wedges:
+  it answers neither requests nor health probes and does not die;
+* ``corrupt_swap_at`` - truncate the checkpoint at byte N the next time a
+  promotion loads it;
+* ``nan_next_logits`` - the next K classify outputs (canaries included)
+  are all NaN at the engine's logits boundary.
+
+Durable-tier faults (``serve/tier/``):
+
+* ``torn_spill_write_at`` - the Kth durable publish lands torn (half its
+  payload renamed into place);
+* ``corrupt_cache_entry_at`` - the Kth spill read first finds four bytes
+  flipped in the middle of its entry;
+* ``stale_exec_cache_at`` - the Kth executable-cache load sees its stored
+  fence drifted.
+
 The plan comes from ``activate(FaultPlan(...))`` or from the environment,
 ``MAML_FAULTS="nan_at_iter=40,sigterm_at_iter=120"`` (comma or semicolon
 separated ``key=int``), read once on first use. Every ``FaultPlan`` field
-of the JAX package parses; a serve or control-plane fault set to anything
-but its idle value raises ``NotImplementedError`` (ROADMAP A11). Fired
-faults are appended to ``events``. With no plan each hook is one ``None``
-check.
+of the JAX package parses; a control-plane fault (the promotion and
+autoscaler daemons') set to anything but its idle value raises
+``NotImplementedError`` (ROADMAP A11). Fired faults are appended to
+``events``. With no plan each hook is one ``None`` check.
 """
 
 from __future__ import annotations
@@ -83,17 +105,25 @@ class FaultPlan:
     stale_exec_cache_at: int | None = None
 
 
-#: Faults of the serving pool, the promotion and autoscaler daemons and the
-#: durable tier: ROADMAP A11 in the port.
-NOT_PORTED = (
+#: Faults of the serving pool and the durable tier.
+SERVE_KEYS = (
     "replica_kill_at_request", "wedge_replica_at_request", "corrupt_swap_at",
-    "nan_next_logits", "corrupt_candidate_at", "daemon_kill_at_phase",
-    "autoscaler_kill_at_phase", "regress_after_promote", "torn_spill_write_at",
-    "corrupt_cache_entry_at", "stale_exec_cache_at",
+    "nan_next_logits", "torn_spill_write_at", "corrupt_cache_entry_at",
+    "stale_exec_cache_at",
+)
+
+#: Faults of the promotion and autoscaler daemons: ROADMAP A11 in the port.
+NOT_PORTED = (
+    "corrupt_candidate_at", "daemon_kill_at_phase", "autoscaler_kill_at_phase",
+    "regress_after_promote",
 )
 
 _UNSET = object()  # the environment not yet read
 _plan: FaultPlan | None | object = _UNSET
+_serve_requests = 0  # classify requests since activation (serve faults)
+_tier_writes = 0  # durable-tier publishes since activation
+_tier_reads = 0  # spill-entry reads since activation
+_exec_loads = 0  # executable-cache loads since activation
 
 
 def _refuse_unported(plan: FaultPlan) -> FaultPlan:
@@ -102,7 +132,7 @@ def _refuse_unported(plan: FaultPlan) -> FaultPlan:
             if getattr(plan, name) != getattr(idle, name)]
     if set_:
         raise NotImplementedError(
-            f"serve and control-plane faults {set_} are ROADMAP item A11"
+            f"control-plane faults {set_} are ROADMAP item A11"
         )
     return plan
 
@@ -143,9 +173,12 @@ def current_plan() -> FaultPlan | None:
 
 
 def activate(plan: FaultPlan) -> FaultPlan:
-    """Installs ``plan`` over any environment plan and clears ``events``."""
+    """Installs ``plan`` over any environment plan, clears ``events`` and
+    restarts the request and tier counters (a serve fault fires at "the
+    Kth request after activation")."""
     global _plan
     _plan = _refuse_unported(plan)
+    _reset_counters()
     events.clear()
     return plan
 
@@ -154,6 +187,7 @@ def deactivate() -> None:
     """No plan; the environment is not read again (``reset`` does that)."""
     global _plan
     _plan = None
+    _reset_counters()
     events.clear()
 
 
@@ -161,7 +195,13 @@ def reset() -> None:
     """The next hook reads ``MAML_FAULTS`` again."""
     global _plan
     _plan = _UNSET
+    _reset_counters()
     events.clear()
+
+
+def _reset_counters() -> None:
+    global _serve_requests, _tier_writes, _tier_reads, _exec_loads
+    _serve_requests = _tier_writes = _tier_reads = _exec_loads = 0
 
 
 # ---------------------------------------------------------------------------
@@ -306,3 +346,109 @@ def trainer_publish_marker(filepath: str) -> None:
     plan.kill_trainer_mid_publish = 0
     events.append(f"kill-mid-publish:{os.path.basename(filepath)}")
     os.kill(os.getpid(), signal.SIGKILL)
+
+
+# ---------------------------------------------------------------------------
+# Serve-path failure points (serve/pool.py, serve/resilience, serve/tier)
+# ---------------------------------------------------------------------------
+
+
+def serve_request_fault() -> str | None:
+    """Once per classify request a replica answers: ``"kill"`` or
+    ``"wedge"`` when this is the planned Kth request (counted from
+    activation, 1-based), else ``None``. The replica decides what death
+    and wedging mean for it."""
+    global _serve_requests
+    plan = _active()
+    if plan is None or (plan.replica_kill_at_request is None
+                        and plan.wedge_replica_at_request is None):
+        return None
+    _serve_requests += 1
+    if plan.replica_kill_at_request == _serve_requests:
+        plan.replica_kill_at_request = None
+        events.append(f"replica-kill:{_serve_requests}")
+        return "kill"
+    if plan.wedge_replica_at_request == _serve_requests:
+        plan.wedge_replica_at_request = None
+        events.append(f"replica-wedge:{_serve_requests}")
+        return "wedge"
+    return None
+
+
+def swap_checkpoint_loading(filepath: str) -> None:
+    """Right before a promotion reads its checkpoint: the one-shot
+    ``corrupt_swap_at`` truncation."""
+    plan = _active()
+    if plan is None or plan.corrupt_swap_at is None:
+        return
+    n = plan.corrupt_swap_at
+    plan.corrupt_swap_at = None
+    with open(filepath, "r+b") as f:
+        f.truncate(n)
+    events.append(f"corrupt-swap:{os.path.basename(filepath)}@{n}")
+
+
+def poison_logits(logits: np.ndarray) -> np.ndarray:
+    """``logits`` (host, after the fetch) all NaN while ``nan_next_logits``
+    > 0, else ``logits`` itself; the engine consults it on every classify
+    output, canaries included."""
+    plan = _active()
+    if plan is None or plan.nan_next_logits <= 0:
+        return logits
+    plan.nan_next_logits -= 1
+    events.append(f"nan-logits:{plan.nan_next_logits}")
+    return np.full_like(np.asarray(logits, dtype=np.float32), np.nan)
+
+
+def torn_spill_write(data: bytes) -> bytes:
+    """On every durable publish (``serve/tier/atomic.atomic_write_bytes``):
+    the ``torn_spill_write_at``-th returns the first half of ``data``, so
+    the rename lands a torn file."""
+    global _tier_writes
+    plan = _active()
+    if plan is None or plan.torn_spill_write_at is None:
+        return data
+    _tier_writes += 1
+    if plan.torn_spill_write_at != _tier_writes:
+        return data
+    plan.torn_spill_write_at = None
+    cut = max(1, len(data) // 2)
+    events.append(f"torn-spill:{cut}")
+    return data[:cut]
+
+
+def corrupt_cache_entry(path: str) -> None:
+    """Before each spill read: the ``corrupt_cache_entry_at``-th first
+    writes four bytes into the middle of the entry on disk."""
+    global _tier_reads
+    plan = _active()
+    if plan is None or plan.corrupt_cache_entry_at is None:
+        return
+    _tier_reads += 1
+    if plan.corrupt_cache_entry_at != _tier_reads:
+        return
+    plan.corrupt_cache_entry_at = None
+    try:
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.seek(max(0, size // 2))
+            f.write(b"\xde\xad\xbe\xef")
+    except OSError:
+        pass
+    events.append(f"corrupt-entry:{os.path.basename(path)}")
+
+
+def stale_exec_cache(fence: dict) -> dict:
+    """On each executable-cache load, with the stored fence: the
+    ``stale_exec_cache_at``-th sees its toolchain field drifted (the JAX
+    package drifts ``jaxlib``; the port's fence has ``torch`` there)."""
+    global _exec_loads
+    plan = _active()
+    if plan is None or plan.stale_exec_cache_at is None:
+        return fence
+    _exec_loads += 1
+    if plan.stale_exec_cache_at != _exec_loads:
+        return fence
+    plan.stale_exec_cache_at = None
+    events.append("stale-exec-fence")
+    return {**fence, "torch": "0.0.0-faulted"}

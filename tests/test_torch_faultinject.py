@@ -1,7 +1,9 @@
 """The port's fault injection against the JAX package's
 (``utils/faultinject.py``), and the faults through the port's builder on
 the CPU: ``MAML_FAULTS`` parses to the same plan and the same errors for
-every training key, ``poison_batch`` poisons the same bytes, the
+every training, serve and tier key, each serve and tier hook fires at the
+same count with the same events and effect, ``poison_batch`` poisons the
+same bytes, the
 checkpoint and stager hooks fire where the JAX package's do, and a
 SIGTERM gives exit 75, an emergency checkpoint and an audit row, and the
 requeued run ends bit for bit on the unbroken run's state."""
@@ -47,12 +49,14 @@ def _clean_plans():
 def test_fault_plan_fields_are_the_jax_plans():
     assert ([f.name for f in dataclasses.fields(faultinject.FaultPlan)]
             == [f.name for f in dataclasses.fields(jfi.FaultPlan)])
-    assert set(TRAINING_KEYS) | set(faultinject.NOT_PORTED) == {
-        f.name for f in dataclasses.fields(jfi.FaultPlan)}
+    assert set(TRAINING_KEYS) | set(faultinject.SERVE_KEYS) | set(
+        faultinject.NOT_PORTED) == {f.name for f in dataclasses.fields(jfi.FaultPlan)}
+    assert len(faultinject.NOT_PORTED) == 4
 
 
 @pytest.mark.parametrize("spec", [
-    *(f"{key}={v}" for v, key in enumerate(TRAINING_KEYS, start=3)),
+    *(f"{key}={v}" for v, key in enumerate(TRAINING_KEYS + faultinject.SERVE_KEYS,
+                                           start=3)),
     "nan_at_iter=5; fail_next_writes=2",
     " sigterm_at_iter = 7 ,hang_at_iter=9,",
     "",
@@ -81,12 +85,54 @@ def test_bad_specs_raise_as_in_jax(monkeypatch, spec):
 
 @pytest.mark.parametrize("key", faultinject.NOT_PORTED)
 def test_serve_and_control_plane_faults_raise_naming_a11(monkeypatch, key):
+    """The control plane's faults (the promotion and autoscaler daemons)
+    still raise; the serve and tier faults run (below)."""
     monkeypatch.setenv("MAML_FAULTS", f"{key}=2")
     faultinject.reset()
     with pytest.raises(NotImplementedError, match="A11"):
         faultinject.current_plan()
     with pytest.raises(NotImplementedError, match="A11"):
         faultinject.activate(faultinject.FaultPlan(**{key: 2}))
+
+
+def _fire(module, key, tmp_path):
+    """Drives ``key``'s hook of ``module`` three times; returns what each
+    call gave (or left on disk)."""
+    if key in ("replica_kill_at_request", "wedge_replica_at_request"):
+        return [module.serve_request_fault() for _ in range(3)]
+    if key == "nan_next_logits":
+        return [np.isnan(module.poison_logits(np.ones((2, 3), np.float32))).all()
+                for _ in range(3)]
+    if key == "torn_spill_write_at":
+        return [module.torn_spill_write(b"abcdefgh") for _ in range(3)]
+    if key == "stale_exec_cache_at":
+        return [module.stale_exec_cache({"schema": 1}) != {"schema": 1} for _ in range(3)]
+    out, root = [], tmp_path / module.__name__.split(".")[0]
+    root.mkdir()
+    for i in range(3):
+        path = root / f"entry_{i}.bin"
+        path.write_bytes(bytes(range(64)))
+        hook = (module.swap_checkpoint_loading if key == "corrupt_swap_at"
+                else module.corrupt_cache_entry)
+        hook(str(path))
+        out.append(path.read_bytes())
+    return out
+
+
+@pytest.mark.parametrize("key", faultinject.SERVE_KEYS)
+def test_serve_and_tier_faults_fire_as_in_jax(monkeypatch, tmp_path, key):
+    """Each serve and tier key from ``MAML_FAULTS``: the same plan as the
+    JAX parser's, its hook firing once at the same call with the same
+    effect, and the same events (the stale fence drifts ``torch`` where
+    JAX's drifts ``jaxlib``)."""
+    monkeypatch.setenv("MAML_FAULTS", f"{key}=2")
+    faultinject.reset()
+    jfi.reset()
+    assert dataclasses.asdict(faultinject.current_plan()) == dataclasses.asdict(
+        jfi.current_plan())
+    got, want = _fire(faultinject, key, tmp_path), _fire(jfi, key, tmp_path)
+    assert got == want
+    assert faultinject.events == jfi.events and len(faultinject.events) >= 1
 
 
 @pytest.mark.parametrize("fault", ["nan_at_iter", "overflow_at_iter"])

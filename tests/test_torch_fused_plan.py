@@ -184,6 +184,16 @@ def test_launch_counts_cover_the_kernels_and_stay_zero_on_cpu(rng):
     assert tfn.launch_counts == dict.fromkeys(tfn.KERNELS, 0)
 
 
+def test_launch_shapes_reset_and_stay_empty_on_cpu(rng, monkeypatch):
+    for name in tfn.KERNELS:
+        monkeypatch.setitem(tfn.launch_shapes, name, {((1, 2, 3, 3), None)})
+    tfn.reset_launch_shapes()
+    x = torch.tensor(rng.randn(2, 3, 4, 4), dtype=torch.float32)
+    tfn.fused_bn_leaky_relu(x, torch.ones(3), torch.zeros(3))
+    assert tfn.launch_shapes == {name: set() for name in tfn.KERNELS}
+    assert tfn.launch_record()["shapes"] == {name: [] for name in tfn.KERNELS}
+
+
 def test_forward_kernels_refuse_cpu_tensors():
     """The wrappers take CUDA tensors only: a CPU tensor reaches the plain
     version through the ops, never a kernel wrapper's fallback."""

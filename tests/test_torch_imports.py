@@ -152,3 +152,23 @@ def test_operations_plane_modules_are_in_the_import_check():
                  "telemetry.anomaly", "telemetry.profiling", "telemetry.events",
                  "train_maml_system_dispatch", "chaos_train"):
         assert f"{port.__name__}.{name}" in modules
+
+
+def test_replica_pool_and_tier_modules_are_in_the_import_check():
+    """The supervised replica pool, the replica flavours, the durable tier
+    and the load test are among the modules the import check walks (no
+    JAX, nothing of the JAX package), with the JAX package's public names."""
+    from howtotrainyourmamlpytorch_tpu.serve import tier as jtier
+    from howtotrainyourmamlpytorch_tpu_torch import serve
+    from howtotrainyourmamlpytorch_tpu_torch.serve import resilience, tier
+
+    modules = _port_modules()
+    for name in ("serve.pool", "serve.resilience.replica", "serve.tier",
+                 "serve.tier.atomic", "serve.tier.ring", "serve.tier.spill",
+                 "serve.tier.execcache", "serve_loadtest"):
+        assert f"{port.__name__}.{name}" in modules
+    assert set(tier.__all__) == set(jtier.__all__)
+    assert {"PoolConfig", "ReplicaPool", "NoHealthyReplicaError",
+            "ReplicaDeadError"} <= set(serve.__all__)
+    assert {"Replica", "LocalReplica", "HttpReplica",
+            "SubprocessReplica"} <= set(resilience.__all__)

@@ -312,6 +312,47 @@ def test_admin_promote_roundtrip_and_rejection(served, rng, tmp_path):
     assert api.metrics.swaps_total.value == 1
 
 
+def test_kernel_record_is_served_only_on_debug_kernels(served, monkeypatch):
+    """``/healthz`` carries no kernel record; ``GET /debug/kernels`` is 404
+    unless the server was built with ``debug_kernels`` (``serve_maml
+    --debug_kernels``), and then answers ``fused_norm.launch_record()``."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_norm as tfn
+    from howtotrainyourmamlpytorch_tpu_torch.serve.resilience.replica import (
+        serve_maml_argv,
+    )
+
+    base, api = served
+    assert "kernels" not in get_json(f"{base}/healthz")[1]
+    with pytest.raises(urllib.error.HTTPError) as err:
+        get_json(f"{base}/debug/kernels")
+    assert err.value.code == 404
+
+    monkeypatch.setitem(tfn.launch_counts, "bn_stats_act", 24)
+    monkeypatch.setitem(tfn.launch_shapes, "bn_stats_act",
+                        {((5, 64, 28, 28), 0.01), ((5, 64, 14, 14), 0.01, "bfloat16")})
+    server = make_http_server(api, port=0, debug_kernels=True)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        status, record = get_json(
+            f"http://127.0.0.1:{server.server_address[1]}/debug/kernels")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert status == 200 and record == json.loads(json.dumps(tfn.launch_record()))
+    assert record["launches"]["bn_stats_act"] == 24
+    assert record["shapes"]["bn_stats_act"] == [
+        [[5, 64, 14, 14], 0.01, "bfloat16"], [[5, 64, 28, 28], 0.01]]
+    assert set(record["launches"]) == set(record["shapes"]) == set(tfn.KERNELS)
+
+    argv = serve_maml_argv("c.json", port_file="p", debug_kernels=True)
+    assert "--debug_kernels" in argv
+    assert "--debug_kernels" not in serve_maml_argv("c.json", port_file="p")
+    assert serve_maml.get_parser().parse_args(
+        ["--config", "c.json", "--debug_kernels"]).debug_kernels is True
+
+
 def test_admin_scale_is_409_on_one_engine(served):
     base, _ = served
     with pytest.raises(urllib.error.HTTPError) as err:
@@ -395,10 +436,15 @@ def test_cli_warmup_spec_parsing():
         serve_maml.parse_warmup("5x1")
 
 
-def test_cli_pool_mode_raises_naming_a11(cli_config):
-    with pytest.raises(NotImplementedError, match="A11"):
+def test_cli_pool_mode_raises_naming_a11(cli_config, capsys):
+    """``--replicas`` runs a supervised pool (tests/test_torch_serve_pool.py)
+    and refuses to start without ``--warmup``: a worker that never warms
+    would never become routable. The control-plane daemons are still A11."""
+    with pytest.raises(SystemExit) as exit_info:
         serve_maml.main(["--config", cli_config, "--init_from_scratch",
                          "--replicas", "2"], device="cpu")
+    assert exit_info.value.code == 2
+    assert "--replicas requires --warmup" in capsys.readouterr().err
 
 
 def test_cli_requires_a_checkpoint(cli_config, capsys):

@@ -12,6 +12,7 @@ episodes come from numpy ``RandomState`` seeds.
 import dataclasses
 import json
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import Future
@@ -55,6 +56,7 @@ from howtotrainyourmamlpytorch_tpu_torch.serve import (
     routing_digest,
     support_digest,
 )
+from howtotrainyourmamlpytorch_tpu_torch.serve.tier import ArtifactSpill
 from howtotrainyourmamlpytorch_tpu_torch.telemetry import events
 from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
 from test_torch_gradient_descent import shared_state_numpy
@@ -203,8 +205,18 @@ def test_cache_lru_eviction_and_digest():
         jsupport_digest(xs, ys, learner="maml", state_version=2, mask=mask)
     )
     assert routing_digest(xs, ys) == jrouting_digest(xs, ys)
-    with pytest.raises(NotImplementedError, match="A11"):
-        cache.attach_spill(None, learner="maml", state_version=0)
+    # A disk tier behind the LRU: write-through on put, a verified read
+    # promoted into RAM on a miss.
+    with tempfile.TemporaryDirectory() as tmp:
+        spill = ArtifactSpill(tmp)
+        cache.attach_spill(spill, learner="maml", state_version=0)
+        cache.put(keys[0], (0, {"w": torch.arange(3.0)}))
+        cache.flush_spill()
+        cache.clear()
+        version, artifact = cache.get(keys[0])
+        assert version == 0 and torch.equal(artifact["w"], torch.arange(3.0))
+        assert cache.spill_hits == 1 and spill.stats["writes"] == 1
+        cache.close()
 
 
 def test_cache_hit_skips_adapt_program(rng):
@@ -596,8 +608,7 @@ def test_malformed_episodes_rejected_at_the_front_door(rng):
     with pytest.raises(ValueError, match="mixed buckets"):
         engine.dispatch([engine.prepare_episode(*episode(rng, 5, 1, 3)),
                          engine.prepare_episode(*episode(rng, 5, 1, 2))])
-    with pytest.raises(NotImplementedError, match="A11"):
-        ServeConfig(tier_dir="tier")
+    assert ServeConfig(tier_dir="tier").tier_dir == "tier"  # the durable tier
 
 
 def test_ragged_and_gapped_support_sets_rejected(rng):
