@@ -92,7 +92,8 @@ Phases, in order; any failure exits non-zero before the result lines:
              on the flagship JSON (``--use_pallas_fused_norm True
              --init_from_scratch --port 0 --port_file --warmup 5x1x15``) as
              a subprocess: it names its port, answers /healthz and one
-             episode, and exits 0 on SIGTERM.
+             episode, and exits 0 on SIGTERM. It runs beside
+             [control_plane]'s second trainer process.
    serve api north star - the north-star JSON (use_pallas_fused_norm)
              through ``ServingAPI``, warmed at 5x5x15: 8 episodes of 84x84
              RGB from 4 threads, launches held exactly as above; from
@@ -127,8 +128,8 @@ Phases, in order; any failure exits non-zero before the result lines:
              with nvcc, the logits unchanged. The live workers' kernel
              shapes join [coverage].
    graph   - the flagship and north-star learners with remat on, as the
-             CLIs train, from one state over 5 batches: ``run_train_iters``
-             (K=5 replays of the captured step) against 5 eager
+             CLIs train, from one state over 3 batches: ``run_train_iters``
+             (K=3 replays of the captured step) against 3 eager
              ``_train_step`` bit for bit (state, Adam moments, per-iteration
              loss, accuracy, nonfinite) at epoch 0, at epoch 1 (the same
              graph, another learning rate and importance vector) and at
@@ -137,7 +138,7 @@ Phases, in order; any failure exits non-zero before the result lines:
              launch captured on the capture's stream; the captures'
              launches held to the CLI's per-iteration counts and to the
              kernel nodes of each graph. Prints, per
-             width, capture ms per branch and, over TIMING_REPEATS (2)
+             width, capture ms per branch and, over TIMING_REPEATS (1)
              repeats, replay and
              eager ms per iteration. (The north star's learning rate is
              constant in its config; the phase lowers its floor to move it.)
@@ -149,7 +150,7 @@ Phases, in order; any failure exits non-zero before the result lines:
              the train phase's tolerances.
    resnet graph - the ResNet-12 learner from its JSON with the three fused
              flags and remat on, through the graph phase's checks at K=3
-             (RESNET_GRAPH_ITERS) and one timing repeat (captured
+             (GRAPH_PHASE_ITERS) and one timing repeat (captured
              launches per iteration bn_stats_act 200 MSL, 128 final-only;
              bn_stats and K5 0) and the remat phase's, its first loss and
              meta-gradient held to the plain-norm learner's as
@@ -167,7 +168,7 @@ Phases, in order; any failure exits non-zero before the result lines:
              JSON with the three fused flags, over a synthetic Omniglot-shaped
              tree of 250 classes x 20 binary 28x28 PNGs (a made-up
              dataset_name, so it is not count-checked), an MSL horizon of 2
-             epochs: 2 epochs of 15 iterations with 24 validation tasks and
+             epochs: 2 epochs of 10 iterations with 8 validation tasks and
              the ensemble test, then ``--continue_from_epoch latest`` to 3
              epochs (past the horizon: the final-only graph), then to 4 with
              ``--iters_per_dispatch 5``, then to 5 at K=5 and to 6 at K=1
@@ -212,7 +213,7 @@ Phases, in order; any failure exits non-zero before the result lines:
              with the three fused flags on one flagship-width Omniglot tree
              (written once): 2 epochs of 4 iterations,
              synchronized after
-             each learner call, 16 evaluation tasks and
+             each learner call, 8 evaluation tasks and
              the ensemble, then
              ``latest`` to a 3rd epoch as the CLI runs (gradient descent at
              ``--iters_per_dispatch 5``, which it does not act on; ANIL past
@@ -247,10 +248,10 @@ Phases, in order; any failure exits non-zero before the result lines:
              steps on both branches, kernel nodes held to the flagship's
              counts. cli bf16: ``train_maml_system.main`` on that JSON with
              the three fused flags, first at ``--compute_dtype float32`` (2
-             epochs of 15 iterations), then at ``bfloat16``:
-             2 epochs of 15 with 40 validation tasks and the ensemble,
+             epochs of 10 iterations), then at ``bfloat16``:
+             2 epochs of 10 with 16 validation tasks and the ensemble,
              ``latest`` to a 3rd epoch at K=1 and a 4th at K=5; launches per
-             iteration the flagship's, the first 30 losses finite and within
+             iteration the flagship's, the first 20 losses finite and within
              JAX's bf16
              bar (rtol 0.1, atol 0.05) of the float32 run's. device augment:
              the flagship CLI with ``--device_augment True`` against host
@@ -258,7 +259,7 @@ Phases, in order; any failure exits non-zero before the result lines:
              equal. task chunk: the flagship at ``task_chunk`` 2 and 4, the
              north star at 1, each against its full batch from one state:
              the first loss within 1e-5 relative, the meta-gradient at the
-             GRAD bar, a K=5 dispatch's losses within 1e-5, launches per
+             GRAD bar, a K=3 dispatch's losses within 1e-5, launches per
              replay the full batch's per chunk, peak memory of each. lane
              pad: the north star at ``lane_pad_channels`` (48 -> 64)
              against unpadded from the same weights: served episodes and
@@ -273,8 +274,9 @@ Phases, in order; any failure exits non-zero before the result lines:
              flagship JSON) at full width with the three fused flags, on
              the tree of phase 8 (3 epochs of 4 iterations, 8 evaluation
              tasks, watchdog_min_s CHAOS_WATCHDOG_MIN_S): an unfaulted twin
-             (in another process, beside the rollback and OOM checks below),
-             then one supervised run of enospc,sigterm,kill,hang through
+             (in another process, beside the rollback and OOM checks below
+             and the supervised run's first phase), and one supervised run
+             of enospc,sigterm,kill,hang through
              ``train_maml_system_dispatch`` (``chaos_train.run_chaos``):
              phases exit 75, killed, 76, 0; the final train_model_latest
              and summary_statistics.csv (its wall-clock columns aside)
@@ -285,10 +287,27 @@ Phases, in order; any failure exits non-zero before the result lines:
              capture, finite losses to the end); ``oom_at_iter`` (a real
              torch.OutOfMemoryError, exit 77, oom_report.json with the
              card's memory); the CLI's per-step p50 with telemetry and the
-             watchdog off, then on (1 epoch of 25), and a resumed epoch with
+             watchdog off, then on (1 epoch of 12), and a resumed epoch with
              them on in which every train dispatch between boundaries runs
              under ``torch.cuda.set_sync_debug_mode`` with no
              synchronisation.
+   control plane - the serving control plane (``[control_plane]``) at
+             the flagship's width, fused: the promote loop
+             (``chaos_train.run_promote_chaos``: a trainer process killed
+             mid-publish and resumed, two in-process replicas behind the
+             HTTP front door under the load test, the promotion daemon in
+             its own process with a corrupt candidate, SIGKILLed after its
+             first promotion and restarted, a regressing last candidate
+             rolled back) with, beside its first trainer process, the
+             autoscale loop (``run_autoscale_chaos``: the autoscaler in its
+             own process killed with a scale-up journaled; thresholds from
+             latencies probed here; a replica killed under cache hits), and
+             serve cli beside the second. After each promotion and the
+             rollback ``/healthz``
+             names the staged file and 4 answers equal a fresh engine's on
+             it bit for bit; launches equal 24/20 per cache-miss dispatch,
+             warmup or canary and 4/0 per hit; neither daemon holds
+             ``/dev/nvidia*`` open.
 12. result - a [replay] line with each captured graph's kernel nodes, each
              phase's seconds, one JSON line listing the kernels (with their
              bfloat16 ms, bound, largest error and ulps, and launches in
@@ -537,12 +556,13 @@ ZOO_LAUNCHES = {
     "anil": (CLI_ANIL_TRAIN, CLI_ANIL_TRAIN_FINAL, CLI_ANIL_EVAL),
     "protonets": (CLI_PROTONETS_TRAIN, CLI_PROTONETS_TRAIN, CLI_PROTONETS_EVAL),
 }
-# Meta-updates a dispatch in the graph phase and in the CLI's K>1 calls.
+# Meta-updates a dispatch in the CLI's K>1 calls.
 GRAPH_ITERS = 5
-#: The ResNet-12 graph phase's K: an eager ResNet-12 step takes over a second.
-RESNET_GRAPH_ITERS = 3
+#: K of the graph, task-chunk and lane-padding phases' dispatches (replays
+#: held to as many eager steps; an eager ResNet-12 step takes over a second).
+GRAPH_PHASE_ITERS = 3
 #: Repeats of the graph phases' replay and eager timings.
-TIMING_REPEATS = 2
+TIMING_REPEATS = 1
 # Each wrapper's device kernel in csrc/fused_norm.cu, as it stands in the
 # mangled name the driver gives a graph's kernel node (bn_stats and
 # bn_stats_act are two instances of one template).
@@ -1584,7 +1604,8 @@ def eager_steps(learner, state, batches, epoch):
                    for k in ("loss", "accuracy", "nonfinite")}
 
 
-def graph_phase(torch, fn, cases=None, iters=GRAPH_ITERS, repeats=TIMING_REPEATS) -> dict:
+def graph_phase(torch, fn, cases=None, iters=GRAPH_PHASE_ITERS,
+                repeats=TIMING_REPEATS) -> dict:
     """The captured train step against the eager one at both widths (or
     ``cases``: (tag, config, batch maker, MSL and final-only launches per
     iteration[, JSON keys])), remat on: K=``iters`` replays bit for bit
@@ -2183,13 +2204,13 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
         }
 
 
-def cli_flagship_phase(torch, fn):
-    per_epoch = 15
+def cli_flagship_phase(torch, fn, dataset_dir):
+    per_epoch = 10
     latest = ["--continue_from_epoch", "latest"]
     out = cli_phase(
         torch, fn, "cli_flagship", FLAGSHIP, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 24,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 8,
          "multi_step_loss_num_epochs": 2},
         [({}, [], True, 1, -1),
          ({"total_epochs": 3}, latest, False, 1, -1),
@@ -2197,6 +2218,7 @@ def cli_flagship_phase(torch, fn):
          ({"total_epochs": 5}, latest, False, GRAPH_ITERS, 0),
          ({"total_epochs": 6}, latest, False, 1, 0)],
         CLI_FLAGSHIP_TRAIN, CLI_FLAGSHIP_TRAIN_FINAL, CLI_FLAGSHIP_EVAL,
+        dataset_dir=dataset_dir,
     )
     if out["epochs"] != 6:
         fail(f"cli_flagship: {out['epochs']} CSV rows, expected 6")
@@ -2213,7 +2235,7 @@ def cli_north_star_phase(torch, fn):
     out = cli_phase(
         torch, fn, "cli_north_star", NORTH_STAR, write_imagenet_tree,
         {"dataset_name": "imagenet_synth", "total_epochs": 1,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 10,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 4,
          "multi_step_loss_num_epochs": 1},
         [({}, [], True, 1, -1),
          ({"total_epochs": 2}, latest, False, 1, -1),
@@ -2231,7 +2253,7 @@ def cli_north_star_phase(torch, fn):
 def cli_zoo_phase(torch, fn, kind, dataset_dir):
     """A zoo learner's entry point on the Omniglot tree in ``dataset_dir``
     with the three fused flags: 2 epochs of 4 iterations (synchronized
-    after each learner call), 16 evaluation tasks and the ensemble test,
+    after each learner call), 8 evaluation tasks and the ensemble test,
     then ``latest`` to a 3rd epoch as the CLI runs (gradient descent at
     ``--iters_per_dispatch 5``, which it does not act on; ANIL past an MSL
     horizon of 2, its final-only graph)."""
@@ -2246,7 +2268,7 @@ def cli_zoo_phase(torch, fn, kind, dataset_dir):
     out = cli_phase(
         torch, fn, f"cli_{kind}", config, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 16,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 8,
          "multi_step_loss_num_epochs": 2},
         [({}, [], True, 1, -1),
          ({"total_epochs": 3}, ["--continue_from_epoch", "latest"], False,
@@ -2273,7 +2295,7 @@ def resnet_graph_phase(torch, fn) -> dict:
     bitwise equal without remat, and held to the plain-norm learner's)."""
     out = graph_phase(torch, fn, [("resnet12", RESNET12, train_batch,
                                    CLI_RESNET12_TRAIN, CLI_RESNET12_TRAIN_FINAL)],
-                      iters=RESNET_GRAPH_ITERS, repeats=1)
+                      repeats=1)
     out.update(remat_phase(torch, [
         ("remat_resnet12", RESNET12, train_batch(np.random.RandomState(2))),
     ], chaotic=True))
@@ -2283,7 +2305,7 @@ def resnet_graph_phase(torch, fn) -> dict:
 def cli_resnet12_phase(torch, fn, dataset_dir):
     """``train_maml_system.main`` on the ResNet-12 JSON with the three fused
     flags over the Omniglot tree in ``dataset_dir``: 2 epochs of 4
-    iterations (synchronized after each learner call), 24 evaluation tasks
+    iterations (synchronized after each learner call), 8 evaluation tasks
     and the ensemble test, then ``latest`` to a 3rd epoch at
     ``--iters_per_dispatch 5``, past an MSL horizon of 2 (the final-only
     graph). Launches per iteration held to ``CLI_RESNET12_*``."""
@@ -2291,7 +2313,7 @@ def cli_resnet12_phase(torch, fn, dataset_dir):
     out = cli_phase(
         torch, fn, "cli_resnet12", RESNET12, write_omniglot_tree,
         {"dataset_name": "omniglot_synth", "total_epochs": 2,
-         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 24,
+         "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 8,
          "multi_step_loss_num_epochs": 2},
         [({}, [], True, 1, -1),
          ({"total_epochs": 3}, ["--continue_from_epoch", "latest"], False,
@@ -2443,9 +2465,9 @@ def check_bf16_kernels(torch, fn, shape, gen, pool: bool, slope=SLOPE) -> dict:
 def cli_bf16_phase(torch, fn, dataset_dir) -> dict:
     """``train_maml_system.main`` on the bf16 flagship JSON with the three
     fused flags over the Omniglot tree in ``dataset_dir``, MSL horizon 2:
-    first at ``--compute_dtype float32`` (2 epochs of 15 iterations, the
-    reference), then at ``--compute_dtype bfloat16``: 2 epochs of 15
-    iterations with 40 validation tasks and the ensemble, ``latest`` to a
+    first at ``--compute_dtype float32`` (2 epochs of 10 iterations, the
+    reference), then at ``--compute_dtype bfloat16``: 2 epochs of 10
+    iterations with 16 validation tasks and the ensemble, ``latest`` to a
     3rd epoch at K=1 and to a 4th at K=5 (both final-only). Launches per
     iteration held to the flagship's counts (the dtype routes nothing
     elsewhere); every loss finite; within JAX's bf16 bar of the float32
@@ -2455,12 +2477,12 @@ def cli_bf16_phase(torch, fn, dataset_dir) -> dict:
     every parameter by about its learning rate whatever the gradient's
     size, so a rounding-level difference in a near-zero gradient becomes a
     full step (the task_chunk phase's float32 reassociation moves the
-    second loss by 2%); the per-iteration gaps over the first 30 are
+    second loss by 2%); the per-iteration gaps over the first 20 are
     printed."""
-    per_epoch = 15
+    per_epoch = 10
     latest = ["--continue_from_epoch", "latest"]
     base = {"dataset_name": "omniglot_synth", "total_epochs": 2,
-            "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 40,
+            "total_iter_per_epoch": per_epoch, "num_evaluation_tasks": 16,
             "multi_step_loss_num_epochs": 2}
     want = (CLI_FLAGSHIP_TRAIN, CLI_FLAGSHIP_TRAIN_FINAL, CLI_FLAGSHIP_EVAL)
     f32 = cli_phase(torch, fn, "cli_bf16_f32", BF16_CONFIG, write_omniglot_tree, base,
@@ -2549,7 +2571,7 @@ def task_chunk_phase(torch, fn) -> dict:
     each meta-gradient leaf at the GRAD bar, or within ROUTING_RTOL where a
     tie routes otherwise (cuDNN's algorithm for a group count of its own
     moves the inputs by an ulp; the north star's step is ill-conditioned
-    at its ties, §C of ROADMAP.md); then one K=5 dispatch of each
+    at its ties, §C of ROADMAP.md); then one K=3 dispatch of each
     (the chunked step captured and replayed), the chunked one bitwise equal
     to five eager chunked steps and a replay's launches the full batch's
     times the chunks; the peak device memory of each step and dispatch, and
@@ -2581,7 +2603,7 @@ def task_chunk_phase(torch, fn) -> dict:
         if loss_gap > 1e-5:
             fail(f"task_chunk {tag}: first loss gap {loss_gap}")
         res.update(compare_with_plain(steps["chunked"], steps["full"], f"task_chunk {tag}"))
-        batches = [make(np.random.RandomState(30 + i)) for i in range(GRAPH_ITERS)]
+        batches = [make(np.random.RandomState(30 + i)) for i in range(GRAPH_PHASE_ITERS)]
         dispatched = {}
         for name, learner in (("full", full), ("chunked", chunked)):
             learners.append(learner)
@@ -2595,7 +2617,7 @@ def task_chunk_phase(torch, fn) -> dict:
             t0 = time.perf_counter()
             learner.run_train_iters(state0, batches, 0)
             torch.cuda.synchronize()
-            res[f"{name}_replay_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / GRAPH_ITERS
+            res[f"{name}_replay_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / GRAPH_PHASE_ITERS
             dispatched[name] = m["loss"]
         chunks = batch[0].shape[0] // chunk
         (graph,) = chunked._step_graphs.graphs.values()
@@ -2628,7 +2650,7 @@ def lane_pad_phase(torch, fn) -> dict:
     own gap when its weights move by one ulp (cuDNN may take another
     algorithm for 64 channels than for 48); the first second-order step's
     loss and meta-gradient under the train phase's tolerances, the
-    padding's gradient exactly 0; a K=5 dispatch of each (capture, replay
+    padding's gradient exactly 0; a K=3 dispatch of each (capture, replay
     ms, launches per replay the unpadded counts); a padded checkpoint into
     an unpadded learner and back, bit for bit (but the padding lanes of the
     BN running variance, which decay from 1 towards the all-zero channel's
@@ -2686,7 +2708,7 @@ def lane_pad_phase(torch, fn) -> dict:
         if bool(padding.any()):
             fail("lane_pad: the padding's meta-gradient is not 0")
     out.update(compare_with_plain((p_loss, stripped), u_step, "lane_pad"))
-    batches = [north_star_batch(np.random.RandomState(40 + i)) for i in range(GRAPH_ITERS)]
+    batches = [north_star_batch(np.random.RandomState(40 + i)) for i in range(GRAPH_PHASE_ITERS)]
     records = [graph_records(padded), graph_records(unpadded)]
     states = {}
     for name, learner, state in (("padded", padded, sp), ("unpadded", unpadded, su)):
@@ -2695,14 +2717,14 @@ def lane_pad_phase(torch, fn) -> dict:
         t0 = time.perf_counter()
         learner.run_train_iters(state, batches, 0)
         torch.cuda.synchronize()
-        out[f"{name}_replay_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / GRAPH_ITERS
+        out[f"{name}_replay_ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / GRAPH_PHASE_ITERS
         (graph,) = learner._step_graphs.graphs.values()
         if graph.launches != CLI_NORTH_TRAIN:
             fail(f"lane_pad {name}: a replay launches {graph.launches}")
         check_replay(graph, f"lane_pad {name}")
         out[f"{name}_capture_ms"] = graph.capture_s * 1e3
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lane_pad_") as tmp:
-        exp = {"current_iter": GRAPH_ITERS}
+        exp = {"current_iter": GRAPH_PHASE_ITERS}
         padded.save_model(os.path.join(tmp, "train_model_1"), states["padded"], exp)
         into_unpadded, _ = unpadded.load_model(tmp, "train_model", 1)
         if not same(into_unpadded, strip_tree(states["padded"], su)):
@@ -2730,7 +2752,7 @@ CHAOS_EPOCHS, CHAOS_ITERS, CHAOS_EVAL_TASKS = 3, 4, 8
 #: against the supervised run.
 CHAOS_WATCHDOG_MIN_S = 25.0
 #: Iterations of each per-step run of the telemetry on/off comparison.
-TELEMETRY_ITERS = 25
+TELEMETRY_ITERS = 12
 
 
 def chaos_config(**overrides) -> dict:
@@ -2977,8 +2999,11 @@ def chaos_phase(torch, fn, dataset_dir) -> dict:
 
     out = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_chaos_") as work:
-        # The twin runs beside the rollback and OOM checks (only its bits
-        # are read); the supervised run and the timed telemetry runs alone.
+        # The twin runs beside the rollback and OOM checks and into the
+        # supervised run's first phase, which ends in its first fault
+        # after the twin is done (only the twin's bits are read; the
+        # recoveries are timed from the faults on); the timed telemetry
+        # runs alone.
         twin_cfg = os.path.join(work, "chaos_baseline.json")
         with open(twin_cfg, "w") as f:
             json.dump(chaos_config(experiment_name=os.path.join(work, "chaos_baseline")), f)
@@ -2991,21 +3016,25 @@ def chaos_phase(torch, fn, dataset_dir) -> dict:
                  "--name_of_args_json_file", twin_cfg, *FUSED_ARGV],
                 env=env, stdout=log, stderr=subprocess.STDOUT,
             )
-            try:
-                with phase_timer("chaos_rollback"):
-                    out["rollback"] = chaos_rollback(torch, work, dataset_dir)
-                with phase_timer("chaos_oom"):
-                    out["oom"] = chaos_oom(torch, work, dataset_dir)
-                twin_rc = twin.wait(timeout=chaos_train.RUN_TIMEOUT_S)
-            finally:
-                if twin.poll() is None:
-                    twin.kill()
-        t0 = time.perf_counter()
-        verdict = chaos_train.run_chaos(
-            work, CHAOS_SCHEDULE, config=chaos_config(), dataset_dir=dataset_dir,
-            extra_argv=FUSED_ARGV,
-        )
-        out["supervised_s"] = time.perf_counter() - t0
+        try:
+            with phase_timer("chaos_rollback"):
+                out["rollback"] = chaos_rollback(torch, work, dataset_dir)
+            with phase_timer("chaos_oom"):
+                out["oom"] = chaos_oom(torch, work, dataset_dir)
+            t0 = time.perf_counter()
+            verdict = chaos_train.run_chaos(
+                work, CHAOS_SCHEDULE, config=chaos_config(), dataset_dir=dataset_dir,
+                extra_argv=FUSED_ARGV,
+            )
+            out["supervised_s"] = time.perf_counter() - t0
+            twin_rc = twin.wait(timeout=chaos_train.RUN_TIMEOUT_S)
+            twin_end = os.path.getmtime(os.path.join(work, "chaos_baseline.log"))
+            with open(os.path.join(work, "chaos_phases.jsonl")) as f:
+                first_fault = json.loads(f.readline())["t_exit"]
+            out["twin_ended_before_first_fault"] = twin_end < first_fault
+        finally:
+            if twin.poll() is None:
+                twin.kill()
         exp, base = (os.path.join(work, name) for name in ("chaos_exp", "chaos_baseline"))
         try:
             got, want = chaos_train.final_leaves(exp), chaos_train.final_leaves(base)
@@ -3050,7 +3079,7 @@ POOL_WARMUP = "5x1x15"
 FUSED_FLAG = ["--use_pallas_fused_norm", "True"]
 #: The in-process load test: open-loop Poisson arrivals at this rate for
 #: this long, the replica serving request POOL_LOADTEST_KILL_AT killed.
-POOL_LOADTEST_QPS, POOL_LOADTEST_S, POOL_LOADTEST_KILL_AT = 20.0, 6.0, 20
+POOL_LOADTEST_QPS, POOL_LOADTEST_S, POOL_LOADTEST_KILL_AT = 20.0, 3.0, 20
 POOL_LOADTEST_P99_MS = 2000.0
 
 
@@ -3626,9 +3655,308 @@ def serve_pool_phase(torch, fn) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [control_plane]: the promotion daemon and the autoscaler over the pool
+# ---------------------------------------------------------------------------
+
+#: The promote loop's trainer (``chaos_train.PROMOTE_EPOCHS`` epochs of 1
+#: iteration) validates on 8 tasks (600): one meta-batch. Its watchdog is
+#: off: work beside its first process can stretch a first dispatch past
+#: the watchdog's floor, and its exit 76 would cost the kill mid-publish.
+CONTROL_EVAL_TASKS = 8
+#: The pool's replicas: the [serve_pool] shape (meta-batch 4, 5x1x15), so
+#: a fresh engine's answers are comparable bit for bit.
+CONTROL_SERVE = {"meta_batch_size": 4, "max_wait_ms": 0.0}
+CONTROL_QUERY = 15
+#: Probe episodes answered by the fleet after each promotion and by a
+#: fresh engine on the staged file.
+CONTROL_PROBES = 4
+#: The promotion daemon's SLO window and cadence here, shorter than JAX's
+#: defaults (10 s, 0.5 s): at the load test's 8 requests/s a 1 s window
+#: holds ~8 answers (none with probability e^-8), and the regression's NaN
+#: answers start with the first request after the publish.
+CONTROL_DAEMON = {"slo_watch_s": 1.0, "slo_poll_s": 0.1}
+
+
+def cuda_holders(pids) -> dict:
+    """``{pid: (holds /dev/nvidia*, listed by nvidia-smi as a compute app)}``
+    for each live pid: a process with a CUDA context holds the driver's
+    device files open and is a compute app of the card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.split()
+    out = {}
+    for pid in pids:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue  # gone
+        held = False
+        for fd in fds:
+            try:
+                held |= os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia")
+            except OSError:
+                pass
+        out[pid] = (held, str(pid) in smi)
+    return out
+
+
+class ControlMonitor:
+    """``chaos_train.ControlPlaneMonitor`` for the card: counts each
+    engine's probes (warmups and canaries), holds the fleet after each
+    promotion and after the rollback to the staged file (``/healthz``
+    digest, answers bitwise against a fresh engine), and samples the
+    daemons for a CUDA context while they run."""
+
+    def __init__(self, work, probe_eps):
+        import threading
+
+        from howtotrainyourmamlpytorch_tpu_torch.chaos_train import PROMOTE_EPOCHS
+
+        self.work, self.probe_eps = work, probe_eps
+        self.bad_name = f"train_model_{PROMOTE_EPOCHS + 40}"  # the regressing candidate
+        self.engines = []  # (engine, probe counter)
+        self.daemons = []  # (name, proc)
+        self.starts = {}
+        self.held = []
+        self.cuda_samples = []
+        self._learner = None
+        self._stop = threading.Event()
+        self._sampler = threading.Thread(target=self._sample, daemon=True)
+        self._sampler.start()
+
+    # chaos_train calls these three
+    def replica_built(self, index, api):
+        self._count_probes(api.engine)
+
+    def daemon_started(self, proc, name):
+        self.daemons.append((name, proc))
+
+    def journal_row(self, row, pool):
+        if "decision_id" in row:
+            return
+        if row["phase"] == "start":
+            self.starts[row["digest"]] = row
+        elif row["phase"] == "promoted":
+            self._hold(row["digest"], pool, "promoted")
+        elif row["phase"] == "rolled_back":
+            self._hold(row["to"], pool, "rolled_back")
+
+    def _count_probes(self, engine):
+        count = [0]
+        probe = engine._probe
+
+        def counted(istate, ep):
+            count[0] += 1
+            return probe(istate, ep)
+
+        engine._probe = counted
+        self.engines.append((engine, count))
+
+    def _hold(self, digest, pool, why):
+        from howtotrainyourmamlpytorch_tpu_torch import serve_maml
+        from howtotrainyourmamlpytorch_tpu_torch.serve import ServeConfig, ServingEngine
+        from howtotrainyourmamlpytorch_tpu_torch.utils.checkpoint import checkpoint_digest
+
+        staged = self.starts[digest]["staged"]
+        health = pool.healthz()
+        record = {"why": why, "digest": digest[:16],
+                  "healthz_digest_is_staged": (health["last_promoted_digest"] == digest
+                                               == checkpoint_digest(staged))}
+        if not record["healthz_digest_is_staged"]:
+            fail(f"[control_plane] after {why} /healthz serves "
+                 f"{health['last_promoted_digest']}, the staged file is {digest}")
+        if os.path.basename(self.starts[digest]["path"]) == self.bad_name:
+            record["answers"] = "NaN by regress_after_promote: not compared"
+            self.held.append(record)
+            return
+        got = [pool.classify(*ep, timeout=120.0)["logits"] for ep in self.probe_eps]
+        if self._learner is None:
+            self._learner, _ = serve_maml.build_learner(
+                "maml", os.path.join(self.work, "chaos_promote.json"), FUSED_FLAG)
+        istate, _ = self._learner.load_inference_state(staged)
+        engine = ServingEngine(self._learner, istate, ServeConfig(**CONTROL_SERVE))
+        self._count_probes(engine)
+        want = engine.dispatch([engine.prepare_episode(*ep) for ep in self.probe_eps])
+        gap = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail(f"[control_plane] after {why} of {digest[:16]} the fleet's answers "
+                 f"differ from a fresh engine's on the staged file by up to {gap}")
+        record["answers_bitwise_vs_fresh_engine"] = len(got)
+        self.held.append(record)
+
+    def _sample(self):
+        while not self._stop.wait(1.0):
+            live = [(n, p.pid) for n, p in self.daemons if p.poll() is None]
+            if live:
+                seen = cuda_holders([pid for _, pid in live] + [os.getpid()])
+                self.cuda_samples.append(
+                    {name: seen.get(pid) for name, pid in live} | {"self": seen.get(os.getpid())})
+
+    def close(self):
+        self._stop.set()
+        self._sampler.join(timeout=60)
+
+
+def control_plane_phase(torch, fn, dataset_dir, background=None) -> dict:
+    """[control_plane]: the port's serving control plane at the flagship's
+    full width, fused norm, on the tree in ``dataset_dir``: the promote loop
+    (``chaos_train.run_promote_chaos``: the trainer as a subprocess, two
+    in-process replicas behind the HTTP front door under load-test traffic,
+    the promotion daemon as its own process; the trainer killed mid-publish,
+    a corrupt candidate, the daemon SIGKILLed and restarted, a regressing
+    last candidate rolled back), with the autoscale loop
+    (``run_autoscale_chaos``: one replica, the autoscaler as its own process
+    killed with a scale-up journaled, thresholds from latencies probed
+    here, a replica killed under cache hits) run beside its first trainer
+    process, before its pool exists; then ``background`` (a callable) runs
+    on a thread to the phase's end, its result the phase's ``background``.
+    After each promotion and the rollback
+    the fleet's digest and answers are held to the staged file; the
+    launches to the engines' dispatches and probes; the daemons must hold
+    no CUDA context."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from howtotrainyourmamlpytorch_tpu_torch import chaos_train
+    from howtotrainyourmamlpytorch_tpu_torch.serve.resilience.promotion import PromotionJournal
+
+    out = {}
+    probe_eps = make_episodes(np.random.RandomState(31), CONTROL_PROBES)
+    fn.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_control_") as work:
+        journal = PromotionJournal(os.path.join(work, "fsync_probe.jsonl"))
+        t0 = time.perf_counter()
+        for i in range(20):
+            journal.append("probe", digest=f"{i:064x}")
+        out["journal_append_ms"] = (time.perf_counter() - t0) * 50.0
+        monitor = ControlMonitor(work, probe_eps)
+        def tails(*logs):
+            for log in logs:
+                path = os.path.join(work, log)
+                if os.path.exists(path):
+                    with open(path) as f:
+                        print(f"[control_plane] tail of {log}:\n" + f.read()[-6000:],
+                              flush=True)
+
+        def beside():
+            # Beside the promote loop's first trainer process, before its
+            # pool exists: the in-process faults of the two loops never meet.
+            with phase_timer("control_plane_autoscale"):
+                try:
+                    scale = chaos_train.run_autoscale_chaos(
+                        work, config=chaos_config(), serve_flags=FUSED_FLAG,
+                        query=CONTROL_QUERY, serve_config=CONTROL_SERVE, monitor=monitor)
+                except Exception as exc:
+                    tails("chaos_autoscaler_daemon.log")
+                    fail(f"[control_plane] autoscale loop: {type(exc).__name__}: {exc}")
+            if not scale["ok"]:
+                tails("chaos_autoscaler_daemon.log")
+                fail(f"[control_plane] autoscale loop {json.dumps(scale)}")
+            return scale, background and executor.submit(background)
+
+        executor = ThreadPoolExecutor(max_workers=1)
+        try:
+            with phase_timer("control_plane_promote"):
+                try:
+                    promote = chaos_train.run_promote_chaos(
+                        work, config=chaos_config(num_evaluation_tasks=CONTROL_EVAL_TASKS,
+                                                  watchdog=False),
+                        dataset_dir=dataset_dir, train_flags=FUSED_ARGV,
+                        serve_flags=FUSED_FLAG, query=CONTROL_QUERY,
+                        serve_config=CONTROL_SERVE, daemon=CONTROL_DAEMON, monitor=monitor,
+                        beside=beside)
+                except Exception as exc:
+                    tails("chaos_promote.log", "chaos_promotion_daemon.log")
+                    fail(f"[control_plane] promote loop: {type(exc).__name__}: {exc}")
+            if not promote["ok"]:
+                tails("chaos_promote.log", "chaos_promotion_daemon.log")
+                fail(f"[control_plane] promote loop {json.dumps(promote)}")
+            scale, later = promote.pop("beside")
+            out["background"] = later and later.result()
+        finally:
+            executor.shutdown(wait=True)
+            monitor.close()
+    launches = dict(fn.launch_counts)
+    misses = hits_only = probes = 0
+    for engine, count in monitor.engines:
+        m = engine.metrics
+        adapts = m.adapt_latency.snapshot()["count"]
+        misses += adapts
+        hits_only += m.batches_dispatched.value - adapts
+        probes += count[0]
+    want = {k: SERVE_LAUNCHES[k] * (misses + probes) + SERVE_HIT_LAUNCHES[k] * hits_only
+            for k in SERVE_LAUNCHES}
+    if launches != want:
+        fail(f"[control_plane] launches {launches} over {misses} cache-miss and "
+             f"{hits_only} cache-hit dispatches and {probes} warmup and canary probes, "
+             f"expected {want}")
+    promoted = [h for h in monitor.held if h["why"] == "promoted"]
+    compared = [h for h in monitor.held if "answers_bitwise_vs_fresh_engine" in h]
+    if (len(promoted) < 4 or not any(h["why"] == "rolled_back" for h in compared)
+            or len(compared) < 4):
+        fail(f"[control_plane] the fleet was held after {monitor.held}")
+    if not monitor.cuda_samples:
+        fail("[control_plane] the daemons were never sampled for a CUDA context")
+    holders = [s for s in monitor.cuda_samples
+               if any(v and (v[0] or v[1]) for k, v in s.items() if k != "self")]
+    if holders or not all(s["self"] and s["self"][0] for s in monitor.cuda_samples):
+        fail(f"[control_plane] a daemon held a CUDA context, or this process showed "
+             f"none: {holders or monitor.cuda_samples}")
+    out.update(promote=promote, autoscale=scale, held=monitor.held,
+               dispatches={"cache_miss": misses, "cache_hit": hits_only, "probes": probes},
+               cuda_samples=len(monitor.cuda_samples),
+               smi_lists_this_process=any(s["self"][1] for s in monitor.cuda_samples),
+               launches=launches)
+    return out
+
+
+def print_serve_cli(r) -> None:
+    print(f"[serve_cli] ready after {r['ready_s']:.1f} s (beside [control_plane]'s "
+          f"second trainer process), first episode {r['first_episode_ms']:.1f} ms, exit "
+          f"{r['exit_code']} on SIGTERM | {json.dumps(r)}", flush=True)
+
+
+def print_control_plane(r, smi) -> None:
+    """The control plane's lines, with the card's name and power limit
+    beside the times."""
+    p, a = r["promote"], r["autoscale"]
+    print(f"[control_plane] promote loop at bucket {p['bucket']}: {p['promotions']} clean "
+          f"promotions, corrupt rejected {p['corrupt_rejected']} ({p['rejected_reasons']}), "
+          f"trainer killed mid-publish {p.get('trainer_killed_mid_publish')}, daemon "
+          f"SIGKILLed and resumed {p.get('daemon_killed_mid_run')} (double promotes "
+          f"{p['double_promoted']}), rollback to the last-known-good {p['rollback_to_lkg']}"
+          f", terminal rows per digest {p['terminal_rows_per_digest']}; load test "
+          f"{p['loadtest_offered']} offered, {p['loadtest_failed']} failed", flush=True)
+    print(f"[control_plane] daemon settings {json.dumps(p['daemon_settings'])}; publish to "
+          f"promoted s {json.dumps(p['publish_to_promoted_s'])}; regression to rollback_start "
+          f"{p.get('regression_detect_s')} s, to rolled_back "
+          f"{p.get('regression_to_rolled_back_s')} s; fsync'd journal append "
+          f"{r['journal_append_ms']:.3f} ms | {smi}", flush=True)
+    print(f"[control_plane] held after each promotion and the rollback: "
+          f"{json.dumps(r['held'])}; launches {json.dumps(r['launches'])} over "
+          f"{json.dumps(r['dispatches'])} (24/20 a cache-miss dispatch or probe, 4/0 a hit); "
+          f"daemons with a CUDA context in {r['cuda_samples']} samples: none (nvidia-smi "
+          f"lists this process: {r['smi_lists_this_process']})", flush=True)
+    print(f"[control_plane] autoscale loop: probes {json.dumps(a['probes'])}; scale-ups "
+          f"{a['scale_ups']}, scale-downs {a['scale_downs']}, decided to settled s "
+          f"{json.dumps(a['decided_to_settled_s'])}; autoscaler SIGKILLed "
+          f"{a.get('daemon_sigkilled')} with the fleet untouched "
+          f"{a.get('fleet_untouched_at_kill')}, resumed {a['resumed_rows']}x; replicas "
+          f"built {a['replicas_built']} of {a['replicas_expected']}, the same target again "
+          f"spawned {a.get('second_resize_spawned')}; replica deaths "
+          f"{a.get('replica_deaths')}; requests {a['requests_offered']} offered, "
+          f"{a['requests_failed']} failed | {smi}", flush=True)
+    print(f"[control_plane] {PHASE_SECONDS['control_plane']:.1f} s (the promote loop "
+          f"{PHASE_SECONDS['control_plane_promote']:.1f}, the autoscale loop within it, "
+          f"beside its first trainer process, {PHASE_SECONDS['control_plane_autoscale']:.1f}) | "
+          f"{json.dumps(r, default=str)}", flush=True)
+
+
 def timing_reps(shape) -> int:
     """Fewer timed calls for the large north-star shapes."""
-    return 20 if np.prod(shape) >= 4_000_000 else 100
+    return 10 if np.prod(shape) >= 4_000_000 else 50
 
 
 def kernel_cells(res) -> str:
@@ -3888,11 +4216,8 @@ def main() -> int:
     with phase_timer("serve_http"):
         serve_http = serve_http_phase(torch, fn)
     print_serve("serve_http", serve_http)
-    with phase_timer("serve_cli"):
-        serve_cli = serve_cli_phase(torch)
-    print(f"[serve_cli] ready after {serve_cli['ready_s']:.1f} s, first episode "
-          f"{serve_cli['first_episode_ms']:.1f} ms, exit {serve_cli['exit_code']} on "
-          f"SIGTERM | {json.dumps(serve_cli)}", flush=True)
+    # [serve_cli] runs later, beside [control_plane]'s second trainer
+    # process.
     with phase_timer("serve_api_north_star"):
         serve_north = serve_api_north_star_phase(torch, fn)
     print_serve("serve_api_north_star", serve_north)
@@ -3924,67 +4249,82 @@ def main() -> int:
         options = backbone_options_phase(torch, fn)
     print(f"[backbone_options] {json.dumps(options)}", flush=True)
 
-    # 5-6. the training command line
+    # 5-6. the training command line. One Omniglot tree serves the
+    # flagship CLI, the zoo, ResNet-12, the compute options, [chaos] and
+    # [control_plane].
+    import tempfile
+
+    tree_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_tree_")
+    tree = tree_dir.name
+    with phase_timer("zoo_tree"):
+        write_omniglot_tree(os.path.join(tree, "omniglot_synth"))
     cli = {}
-    for name, phase in (("cli_flagship", cli_flagship_phase),
-                        ("cli_north_star", cli_north_star_phase)):
-        with phase_timer(name):
-            cli[name] = phase(torch, fn)
-        print_cli(name, cli[name])
+    with phase_timer("cli_flagship"):
+        cli["cli_flagship"] = cli_flagship_phase(torch, fn, tree)
+    print_cli("cli_flagship", cli["cli_flagship"])
+    with phase_timer("cli_north_star"):
+        cli["cli_north_star"] = cli_north_star_phase(torch, fn)
+    print_cli("cli_north_star", cli["cli_north_star"])
 
     # 7-8. the learner zoo: fused against plain, then each entry point
-    # on one shared Omniglot tree.
+    # on the shared tree.
     with phase_timer("zoo_plain"):
         zoo_plain = zoo_plain_phase(torch)
     print(f"[zoo_plain] first update, fused against plain-norm learners "
           f"{json.dumps(zoo_plain)}", flush=True)
-    import tempfile
+    for kind, *_ in ZOO:
+        name = f"cli_{kind}"
+        with phase_timer(name):
+            cli[name] = cli_zoo_phase(torch, fn, kind, tree)
+        print_cli(name, cli[name])
+    # 9. MAML++ on ResNet-12 through the same entry point.
+    with phase_timer("cli_resnet12"):
+        cli["cli_resnet12"] = cli_resnet12_phase(torch, fn, tree)
+    print_cli("cli_resnet12", cli["cli_resnet12"])
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_tree_") as tree:
-        with phase_timer("zoo_tree"):
-            write_omniglot_tree(os.path.join(tree, "omniglot_synth"))
-        for kind, *_ in ZOO:
-            name = f"cli_{kind}"
-            with phase_timer(name):
-                cli[name] = cli_zoo_phase(torch, fn, kind, tree)
-            print_cli(name, cli[name])
-        # 9. MAML++ on ResNet-12 through the same entry point.
-        with phase_timer("cli_resnet12"):
-            cli["cli_resnet12"] = cli_resnet12_phase(torch, fn, tree)
-        print_cli("cli_resnet12", cli["cli_resnet12"])
+    # 10. The MAML learner's compute options: bfloat16 (the step
+    # graph and the CLI), on-device augmentation, task chunks and
+    # lane padding.
+    with phase_timer("graph_bf16"):
+        graph_bf16 = graph_phase(torch, fn, [(
+            "flagship_bf16", BF16_CONFIG, train_batch, CLI_FLAGSHIP_TRAIN,
+            CLI_FLAGSHIP_TRAIN_FINAL, {"compute_dtype": "bfloat16"},
+        )])
+    print_graph("graph_bf16", "flagship_bf16", graph_bf16["flagship_bf16"])
+    with phase_timer("cli_bf16"):
+        cli["cli_bf16"], cli_bf16_f32 = cli_bf16_phase(torch, fn, tree)
+    print(f"[cli_bf16] losses against the float32 run, first 20 iterations: "
+          f"max gap {cli['cli_bf16']['loss_gap_vs_float32']['max']:.4f}, "
+          f"mean {cli['cli_bf16']['loss_gap_vs_float32']['mean']:.4f} (bar "
+          f"{BF16_LOSS_ATOL} + {BF16_LOSS_RTOL} x |float32|); float32 per "
+          f"step meta_iters_per_s {cli_bf16_f32['per_step']['meta_iters_per_s']:.3f}"
+          f" step_p50_ms {cli_bf16_f32['per_step']['step_p50_ms']:.2f} peak_mem_gb "
+          f"{cli_bf16_f32['peak_mem_gb']:.3f}", flush=True)
+    print_cli("cli_bf16", cli["cli_bf16"])
+    with phase_timer("device_augment"):
+        augmented = device_augment_phase(torch, fn, tree)
+    print(f"[device_augment] 3 replayed iterations and the checkpoint bitwise "
+          f"equal to the host-rotated run's: losses "
+          f"{augmented['device_augment']['train_losses']} | per step ms p50 "
+          f"{augmented['device_augment']['per_step']['step_p50_ms']:.2f} "
+          f"(host-rotated {augmented['device_augment_host']['per_step']['step_p50_ms']:.2f})"
+          f" | {PHASE_SECONDS['device_augment']:.1f} s | {json.dumps(augmented)}",
+          flush=True)
+    # 11. The operations plane on the same tree.
+    with phase_timer("chaos"):
+        chaos = chaos_phase(torch, fn, tree)
+    print_chaos(chaos, smi)
+    # 12. The serving control plane: the trainer's checkpoints promoted
+    # into a live pool, and the pool's size following its load.
+    def serve_cli():
+        with phase_timer("serve_cli"):
+            return serve_cli_phase(torch)
 
-        # 10. The MAML learner's compute options: bfloat16 (the step
-        # graph and the CLI), on-device augmentation, task chunks and
-        # lane padding.
-        with phase_timer("graph_bf16"):
-            graph_bf16 = graph_phase(torch, fn, [(
-                "flagship_bf16", BF16_CONFIG, train_batch, CLI_FLAGSHIP_TRAIN,
-                CLI_FLAGSHIP_TRAIN_FINAL, {"compute_dtype": "bfloat16"},
-            )])
-        print_graph("graph_bf16", "flagship_bf16", graph_bf16["flagship_bf16"])
-        with phase_timer("cli_bf16"):
-            cli["cli_bf16"], cli_bf16_f32 = cli_bf16_phase(torch, fn, tree)
-        print(f"[cli_bf16] losses against the float32 run, first 30 iterations: "
-              f"max gap {cli['cli_bf16']['loss_gap_vs_float32']['max']:.4f}, "
-              f"mean {cli['cli_bf16']['loss_gap_vs_float32']['mean']:.4f} (bar "
-              f"{BF16_LOSS_ATOL} + {BF16_LOSS_RTOL} x |float32|); float32 per "
-              f"step meta_iters_per_s {cli_bf16_f32['per_step']['meta_iters_per_s']:.3f}"
-              f" step_p50_ms {cli_bf16_f32['per_step']['step_p50_ms']:.2f} peak_mem_gb "
-              f"{cli_bf16_f32['peak_mem_gb']:.3f}", flush=True)
-        print_cli("cli_bf16", cli["cli_bf16"])
-        with phase_timer("device_augment"):
-            augmented = device_augment_phase(torch, fn, tree)
-        print(f"[device_augment] 3 replayed iterations and the checkpoint bitwise "
-              f"equal to the host-rotated run's: losses "
-              f"{augmented['device_augment']['train_losses']} | per step ms p50 "
-              f"{augmented['device_augment']['per_step']['step_p50_ms']:.2f} "
-              f"(host-rotated {augmented['device_augment_host']['per_step']['step_p50_ms']:.2f})"
-              f" | {PHASE_SECONDS['device_augment']:.1f} s | {json.dumps(augmented)}",
-              flush=True)
-        # 11. The operations plane on the same tree.
-        with phase_timer("chaos"):
-            chaos = chaos_phase(torch, fn, tree)
-        print_chaos(chaos, smi)
+    with phase_timer("control_plane"):
+        control = control_plane_phase(torch, fn, tree, serve_cli)
+    print_serve_cli(control.pop("background"))
+    print_control_plane(control, smi)
+    tree_dir.cleanup()
     with phase_timer("task_chunk"):
         chunked = task_chunk_phase(torch, fn)
     print("[task_chunk] " + " | ".join(
@@ -4046,7 +4386,8 @@ def main() -> int:
     # bytes of the float32 rows' (5, 256, 28, 28)), its largest error over
     # the bf16 shapes, and the bf16 CLI's launches.
     paths = [serve, resnet_serve, serve_http, serve_north, serve_pool, train, *cli.values(),
-             cli_bf16_f32, *augmented.values(), chaos["telemetry"], chunked, lane_pad]
+             cli_bf16_f32, *augmented.values(), chaos["telemetry"], control, chunked,
+             lane_pad]
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":

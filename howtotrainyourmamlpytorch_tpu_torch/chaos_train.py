@@ -44,9 +44,32 @@ schedules whose recovery replays the same trajectory (``sigterm``,
 ``summary_statistics.csv`` rows (their wall-clock columns aside) must
 equal the twin's bit for bit; with ``nan`` or ``producer`` the run must be
 finite and complete instead. ``--devices`` takes 1 only; a mesh is
-ROADMAP A10, and the promote/serve loop of the JAX harness is A11.
-The runs' output goes to ``<workdir>/chaos_{exp,baseline}.log``; the
-verdict JSON to stdout; the exit code is 0 iff it says ``ok``.
+ROADMAP A10. The runs' output goes to ``<workdir>/chaos_{exp,baseline}.log``;
+the verdict JSON to stdout; the exit code is 0 iff it says ``ok``.
+
+The serving control plane has two loops of its own, each run alone:
+
+* ``--schedule promote`` (``run_promote_chaos``): a real trainer publishes
+  epoch checkpoints while a two-replica in-process pool serves continuous
+  load-test traffic behind its HTTP front door and the promotion daemon
+  (its own process) promotes them. Faults: the trainer SIGKILLed between
+  an archive and its marker; the daemon's first staged candidate
+  truncated (``corrupt_candidate_at``, the daemon's ``MAML_FAULTS``); the
+  daemon SIGKILLed after its first ``promoted`` row and restarted; a last
+  candidate whose promotion turns the answers NaN
+  (``regress_after_promote``, armed in this process). It must show at
+  least 3 clean promotions, the corrupt candidate rejected, the rollback
+  to the last-known-good digest, no digest promoted twice and 0 failed
+  requests. (The JAX loop's replay-manifest check waits for the episode
+  miner, ROADMAP A12.5.)
+* ``--schedule autoscale`` (``run_autoscale_chaos``): a one-replica pool
+  and the autoscaler daemon (its own process, ``autoscaler_kill_at_phase=1``:
+  killed with a scale-up journaled and the fleet untouched, then
+  restarted) under an overload of distinct support sets, then cache hits
+  with ``replica_kill_at_request``; the thresholds come from latencies
+  probed on this machine. It must show a scale-up and a scale-down, each
+  decided and settled, one resume with no replica spawned twice, and 0
+  failed requests.
 """
 
 from __future__ import annotations
@@ -455,6 +478,748 @@ def run_chaos(workdir: str, schedule: list[str], *, config: dict | None = None,
     return verdict
 
 
+# ---------------------------------------------------------------------------
+# The serving control plane: the promote and autoscale loops
+# ---------------------------------------------------------------------------
+
+#: Wall budget of each control-plane loop.
+PROMOTE_TIMEOUT_S = 600
+AUTOSCALE_TIMEOUT_S = 600
+#: The promote loop's epochs: the first is lost to the trainer's kill and
+#: the next is the corrupt candidate, which leaves 3 to promote cleanly.
+PROMOTE_EPOCHS = 5
+
+#: The promotion daemon's settings in the promote loop (the JAX harness's):
+#: a 0.3 s scan, a 2 s SLO window sampled every 0.2 s, retries 0.3 s apart.
+PROMOTE_DAEMON = {"poll_interval_s": 0.3, "slo_watch_s": 2.0, "slo_poll_s": 0.2,
+                  "min_requests": 1, "promote_retries": 4, "promote_backoff_s": 0.3}
+#: What the regressing candidate's promotion turns NaN: the next K answers.
+REGRESS_ANSWERS = 8
+#: The promote loop's traffic: open-loop Poisson, in rounds of this length.
+#: At 8 requests/s a 1 s SLO window misses every answer with probability
+#: e^-8, so a regressing promotion is seen.
+PROMOTE_TRAFFIC_QPS, PROMOTE_TRAFFIC_ROUND_S = 8.0, 2.0
+#: The autoscaler's policy in the autoscale loop, bar the p99 thresholds,
+#: which come from latencies probed on the machine that runs it.
+AUTOSCALE_POLICY = {"min_replicas": 1, "max_replicas": 3, "step_up": 2, "step_down": 1,
+                    "cooldown_s": 1.0, "confirm_samples": 2, "poll_interval_s": 0.25,
+                    "settle_timeout_s": 120.0}
+#: The cache-hit request that kills its replica in the autoscale loop.
+AUTOSCALE_KILL_AT = 40
+#: Closed-loop clients of the idle phase's cache hits. One: with several,
+#: the interpreter lock shared by the clients and the replicas' batcher
+#: threads, not the fleet, sets the tail (on an H100 three clients held
+#: the p99 of 3.3 ms hits at 30-45 ms).
+AUTOSCALE_FLUSH_CLIENTS = 1
+
+
+class ControlPlaneMonitor:
+    """Hooks of the promote and autoscale loops (no-ops here): a caller that
+    checks more, such as ``chip_smoke.py``, overrides them. They run on the
+    loop's threads; an exception in ``journal_row`` fails the loop once it
+    has cleaned up."""
+
+    def replica_built(self, index: int, api) -> None:
+        """A replica's ``ServingAPI``, built, before its warmup."""
+
+    def daemon_started(self, proc, name: str) -> None:
+        """A daemon process (``promotion`` or ``autoscaler``) was started."""
+
+    def journal_row(self, row: dict, pool) -> None:
+        """Each row of the loop's journal, in order, soon after it lands."""
+
+
+class _JournalFollower:
+    """A thread that hands each new journal row to ``callback`` in order
+    and keeps the first exception it raised."""
+
+    def __init__(self, path: str, callback):
+        import threading
+
+        self.path, self.callback = path, callback
+        self.error: BaseException | None = None
+        self._stop = threading.Event()
+        self._seen = 0
+        self._thread = threading.Thread(target=self._run, name="journal-follower",
+                                        daemon=True)
+        self._thread.start()
+
+    def _drain(self) -> None:
+        rows = _journal(self.path)
+        for row in rows[self._seen:]:
+            self._seen += 1
+            if self.error is None:
+                try:
+                    self.callback(row)
+                except BaseException as exc:  # noqa: BLE001 - raised by close()
+                    self.error = exc
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.1):
+            self._drain()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=120)
+        self._drain()
+        if self.error is not None:
+            raise self.error
+
+
+def _journal(path: str) -> list[dict]:
+    from .serve.resilience.promotion import PromotionJournal
+
+    return PromotionJournal.load(path)
+
+
+def _daemon_env(dataset_dir: str, faults: str | None) -> dict:
+    env = _child_env(dataset_dir)
+    if faults:
+        env["MAML_FAULTS"] = faults
+    return env
+
+
+def _start_daemon(module: str, argv: list[str], env: dict, log_path: str, monitor,
+                  name: str):
+    with open(log_path, "a") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", f"{PACKAGE}.{module}", *argv],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT,
+        )
+    monitor.daemon_started(proc, name)
+    return proc
+
+
+def _stop_process(proc) -> None:
+    if proc is None or proc.poll() is not None:
+        return
+    proc.terminate()
+    try:
+        proc.wait(timeout=30)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10)
+
+
+def _local_pool(cfg_path: str, n: int, bucket, *, serve_config: dict, train_flags,
+                device, monitor, pool_config: dict):
+    """A ``ReplicaPool`` of ``n`` in-process replicas, each its own learner
+    and ``ServingAPI`` from seed 0, warmed at ``bucket``; returns the pool
+    and the list of replica indices the factory built, in order."""
+    import torch
+
+    from .serve import ServeConfig, ServingAPI
+    from .serve.pool import PoolConfig, ReplicaPool
+    from .serve.resilience.replica import LocalReplica
+    from .serve_maml import build_learner
+
+    built: list[int] = []
+
+    def factory(index: int) -> LocalReplica:
+        learner, dev = build_learner("maml", cfg_path, train_flags, device)
+        api = ServingAPI(
+            learner, learner.init_inference_state(torch.Generator().manual_seed(0), dev),
+            ServeConfig(**serve_config), device=dev,
+        )
+        monitor.replica_built(index, api)
+        api.warmup([bucket])
+        built.append(index)
+        return LocalReplica(api, replica_id=f"local-{index}")
+
+    pool = ReplicaPool(factory, PoolConfig(n_replicas=n, **pool_config))
+    return pool, built
+
+
+def _front_door(pool):
+    import threading
+
+    from .serve import make_http_server
+
+    server = make_http_server(pool, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return server, thread, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def _close_front_door(server, thread) -> None:
+    if server is not None:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+
+
+def _promotion_argv(exp_dir: str, url: str, settings: dict) -> list[str]:
+    argv = ["--watch", os.path.join(exp_dir, "saved_models"), "--target", url,
+            "--journal", os.path.join(exp_dir, "logs", "promotions.jsonl"),
+            "--staging", os.path.join(exp_dir, "promotion_staging"),
+            "--telemetry", os.path.join(exp_dir, "logs", "daemon_telemetry.jsonl")]
+    for key, value in settings.items():
+        argv += [f"--{key}", str(value)]
+    return argv
+
+
+def _marked_candidates(watch_dir: str) -> dict:
+    """``{digest: path}`` of the epoch checkpoints with a ``.ready`` marker."""
+    from .utils.checkpoint import read_done_marker
+
+    out = {}
+    try:
+        names = os.listdir(watch_dir)
+    except OSError:
+        return out
+    for name in names:
+        suffix = name[len("train_model_"):]
+        if name.startswith("train_model_") and suffix.isdigit():
+            path = os.path.join(watch_dir, name)
+            marker = read_done_marker(path)
+            if marker is not None:
+                out[str(marker["digest"])] = path
+    return out
+
+
+def _terminal_counts(rows: list[dict]) -> dict:
+    from .serve.resilience.promotion import TERMINAL_PHASES
+
+    counts: dict = {}
+    for row in rows:
+        digest = row.get("digest")
+        if digest and row["phase"] not in ("retired", "deduped"):
+            counts.setdefault(digest, 0)
+            if row["phase"] in TERMINAL_PHASES:
+                counts[digest] += 1
+    return counts
+
+
+def run_promote_chaos(workdir: str, *, config: dict | None = None,
+                      dataset_dir: str | None = None, device: str | None = None,
+                      train_flags=(), serve_flags=None, query: int | None = None,
+                      serve_config: dict | None = None, daemon: dict | None = None,
+                      monitor=None, beside=None, verbose: bool = True) -> dict:
+    """The continuous train-to-serve loop, unattended (see the module
+    docstring for its faults). ``config``: the experiment JSON without
+    ``experiment_name`` (the tiny config by default), run for
+    ``PROMOTE_EPOCHS`` epochs of one iteration; ``dataset_dir`` holds its tree (``workdir`` by
+    default); ``train_flags`` go to the trainer, ``serve_flags`` (by
+    default the same) to the serving learners, ``device`` to both;
+    ``query`` sets the traffic's bucket ``5x1xquery`` (the config's target
+    count by default); ``serve_config`` the replicas' ``ServeConfig``;
+    ``daemon`` the daemon's settings over ``PROMOTE_DAEMON``. The first
+    trainer run, the one killed mid-publish, starts before the pool and the
+    daemon; ``beside``, when given, is called while it runs, before the
+    pool is built, and its result is the verdict's ``beside``. Returns the
+    verdict."""
+    import threading
+
+    import torch
+
+    from .serve_loadtest import run_loadtest, synth_episodes
+    from .serve_maml import build_learner
+    from .utils import faultinject
+    from .utils.checkpoint import publish_done_marker
+
+    t0 = time.time()
+
+    def log(msg):
+        if verbose:
+            print(f"chaos: {time.time() - t0:.1f} s: {msg}", file=sys.stderr, flush=True)
+
+    monitor = monitor or ControlPlaneMonitor()
+    config = dict(config or tiny_config())
+    config.update(total_epochs=PROMOTE_EPOCHS, total_iter_per_epoch=1)
+    dataset_dir = dataset_dir or workdir
+    cfg_path = _write_config(workdir, config, "chaos_promote")
+    exp_dir = os.path.join(workdir, "chaos_promote")
+    os.makedirs(os.path.join(exp_dir, "logs"), exist_ok=True)
+    watch_dir = os.path.join(exp_dir, "saved_models")
+    journal_path = os.path.join(exp_dir, "logs", "promotions.jsonl")
+    test_csv = os.path.join(exp_dir, "logs", "test_summary.csv")
+    settings = {**PROMOTE_DAEMON, **(daemon or {})}
+    way = int(config["num_classes_per_set"])
+    query = int(query or config["num_target_samples"])
+    bucket = (way, 1, query)
+    device_argv = ["--device", device] if device else []
+    serve_argv = [*(train_flags if serve_flags is None else serve_flags), *device_argv]
+    trainer_argv = [sys.executable, "-u", "-m", f"{PACKAGE}.train_maml_system",
+                    "--name_of_args_json_file", cfg_path, *train_flags, *device_argv]
+    trainer_log = os.path.join(workdir, "chaos_promote.log")
+    previous_dataset_dir = os.environ.get("DATASET_DIR")
+    os.environ["DATASET_DIR"] = dataset_dir
+
+    verdict: dict = {"schedule": ["promote"], "ok": False, "bucket": "x".join(map(str, bucket)),
+                     "daemon_settings": settings}
+    log("trainer run 1 (kill_trainer_mid_publish=1)")
+    with open(trainer_log, "a") as out:
+        first_run = subprocess.Popen(
+            trainer_argv, env=_daemon_env(dataset_dir, "kill_trainer_mid_publish=1"),
+            stdout=out, stderr=subprocess.STDOUT)
+    pool = server = thread = follower = None
+    holder: dict = {"proc": None}
+    stop_traffic = threading.Event()
+    results: list[dict] = []
+    traffic = killer = None
+    try:
+        if beside is not None:
+            verdict["beside"] = beside()
+            log("the work beside the first trainer run is done")
+        pool, _ = _local_pool(
+            cfg_path, 2, bucket,
+            serve_config={"meta_batch_size": 2, "max_wait_ms": 0.0, **(serve_config or {})},
+            train_flags=serve_argv, device=device, monitor=monitor,
+            pool_config={"health_interval_s": 0.1, "restart_backoff_s": 0.2,
+                         "min_uptime_s": 0.0},
+        )
+        if not pool.wait_ready(timeout=300.0):
+            raise RuntimeError("the two-replica pool never became healthy")
+        server, thread, url = _front_door(pool)
+        follower = _JournalFollower(journal_path, lambda row: monitor.journal_row(row, pool))
+        log(f"pool front door on {url}")
+        learner, dev = build_learner("maml", cfg_path, serve_argv, device)
+        bb = learner.cfg.backbone
+        episodes = synth_episodes(16, way=way, shot=1, query=query,
+                                  image_shape=(bb.image_channels, bb.image_height,
+                                               bb.image_width), seed=3)
+
+        def offer_traffic():
+            while not stop_traffic.is_set():
+                results.append(run_loadtest(
+                    pool, episodes, rate_qps=PROMOTE_TRAFFIC_QPS,
+                    duration_s=PROMOTE_TRAFFIC_ROUND_S, p99_budget_ms=5_000.0,
+                    error_slo=0.0, timeout_s=30.0, seed=len(results),
+                    sample_health=False, tag_seed_base=50_000,
+                ))
+
+        traffic = threading.Thread(target=offer_traffic, daemon=True)
+        traffic.start()
+
+        daemon_log = os.path.join(workdir, "chaos_promotion_daemon.log")
+        argv = _promotion_argv(exp_dir, url, settings)
+        holder["proc"] = _start_daemon(
+            "promotion_daemon", argv, _daemon_env(dataset_dir, "corrupt_candidate_at=600"),
+            daemon_log, monitor, "promotion")
+        log("promotion daemon started (corrupt_candidate_at=600)")
+        deadline = time.time() + PROMOTE_TIMEOUT_S
+
+        def kill_and_restart():
+            while time.time() < deadline and not stop_traffic.is_set():
+                if any(r["phase"] == "promoted" for r in _journal(journal_path)):
+                    log("SIGKILL the daemon after its first promoted row")
+                    holder["proc"].kill()
+                    holder["proc"].wait(timeout=30)
+                    holder["proc"] = _start_daemon(
+                        "promotion_daemon", argv, _daemon_env(dataset_dir, None),
+                        daemon_log, monitor, "promotion")
+                    verdict["daemon_killed_mid_run"] = True
+                    return
+                time.sleep(0.1)
+
+        killer = threading.Thread(target=kill_and_restart, daemon=True)
+        killer.start()
+
+        runs = 1
+        rc = first_run.wait(timeout=RUN_TIMEOUT_S)
+        verdict["trainer_killed_mid_publish"] = rc in (-9, 137)
+        while not os.path.exists(test_csv) and runs < 4:
+            runs += 1
+            log(f"trainer run {runs}")
+            with open(trainer_log, "a") as out:
+                subprocess.run(trainer_argv, env=_daemon_env(dataset_dir, None),
+                               check=False, timeout=RUN_TIMEOUT_S, stdout=out,
+                               stderr=subprocess.STDOUT)
+        verdict["trainer_runs"] = runs
+        verdict["trainer_completed"] = os.path.exists(test_csv)
+        if not verdict["trainer_completed"]:
+            raise RuntimeError(f"the trainer did not complete in {runs} runs (its "
+                               f"output: {os.path.join(workdir, 'chaos_promote.log')})")
+
+        # Every marked trainer candidate resolved, and the daemon restarted.
+        killer.join(timeout=max(1.0, deadline - time.time()))
+        while time.time() < deadline:
+            terminal = {d for d, n in _terminal_counts(_journal(journal_path)).items() if n}
+            if set(_marked_candidates(watch_dir)) <= terminal:
+                break
+            time.sleep(0.2)
+
+        # The regression: armed here (the serving process) before the last
+        # candidate exists; its promotion turns the next answers NaN.
+        log(f"arming regress_after_promote={REGRESS_ANSWERS}, dropping the last candidate")
+        faultinject.activate(faultinject.FaultPlan(regress_after_promote=REGRESS_ANSWERS))
+        bad_path = os.path.join(watch_dir, f"train_model_{PROMOTE_EPOCHS + 40}")
+        learner.save_model(
+            bad_path, learner.init_state(torch.Generator().manual_seed(7), dev),
+            {"current_iter": 999, "best_val_acc": 0.9,
+             "per_epoch_statistics": {"val_accuracy_mean": [0.9]}},
+        )
+        publish_done_marker(bad_path)
+        verdict["bad_candidate"] = os.path.basename(bad_path)
+        rollback_seen = False
+        while time.time() < deadline:
+            if any(r["phase"] == "rolled_back" for r in _journal(journal_path)):
+                rollback_seen = True
+                break
+            time.sleep(0.2)
+        verdict["rollback_seen"] = rollback_seen
+    finally:
+        stop_traffic.set()
+        faultinject.deactivate()
+        _stop_process(first_run)
+        _stop_process(holder["proc"])
+        if traffic is not None:
+            traffic.join(timeout=120)
+        _close_front_door(server, thread)
+        if pool is not None:
+            pool.close()
+        if previous_dataset_dir is None:
+            os.environ.pop("DATASET_DIR", None)
+        else:
+            os.environ["DATASET_DIR"] = previous_dataset_dir
+        if follower is not None:
+            follower.close()
+    verdict["wall_s"] = round(time.time() - t0, 3)
+
+    rows = _journal(journal_path)
+    start = {r["digest"]: r for r in rows if r["phase"] == "start"}
+    promoted = [r for r in rows if r["phase"] == "promoted"]
+    clean = [r["digest"] for r in rows if r["phase"] == "slo_ok"]
+    rejected = [r for r in rows if r["phase"] == "rejected"]
+    rolled = [r for r in rows if r["phase"] == "rolled_back"]
+    counts: dict = {}
+    for r in promoted:
+        counts[r["digest"]] = counts.get(r["digest"], 0) + 1
+    double = [d for d, n in counts.items() if n > 1 and not any(
+        r.get("resumed") for r in promoted if r["digest"] == d)]
+    terminal = _terminal_counts(rows)
+    offered = sum(r["offered"] for r in results)
+    answered = sum(r["completed_ok"] for r in results)
+    corrupt = [r for r in rejected if r["reason"] in ("corrupt", "digest_mismatch")]
+    publish_s = {}
+    for r in promoted:
+        path = start.get(r["digest"], {}).get("path")
+        if path and os.path.exists(path + ".ready"):
+            publish_s[os.path.basename(path)] = round(
+                r["t"] - os.path.getmtime(path + ".ready"), 3)
+    bad_digest = next((d for d, s in start.items()
+                       if os.path.basename(str(s.get("path"))) == verdict.get("bad_candidate")),
+                      None)
+    bad_promoted = next((r["t"] for r in promoted if r["digest"] == bad_digest), None)
+    bad_rollback = next((r for r in rows if r["phase"] == "rollback_start"
+                         and r["digest"] == bad_digest), None)
+    if bad_promoted is not None and rolled:
+        verdict["regression_detect_s"] = round(bad_rollback["t"] - bad_promoted, 3)
+        verdict["regression_to_rolled_back_s"] = round(rolled[-1]["t"] - bad_promoted, 3)
+    verdict.update({
+        "promotions": len(clean),
+        "promoted_digests": sorted({r["digest"] for r in promoted}),
+        "corrupt_rejected": len(corrupt),
+        "rejected_reasons": sorted(r["reason"] for r in rejected),
+        "rollback_to_lkg": bool(rolled and clean and rolled[-1].get("to") == clean[-1]
+                                and rolled[-1]["digest"] == bad_digest),
+        "double_promoted": double,
+        "resumed_rows": sum(1 for r in rows if r["phase"] == "resumed"),
+        "terminal_rows_per_digest": sorted(set(terminal.values())),
+        "publish_to_promoted_s": publish_s,
+        "loadtest_offered": offered,
+        "loadtest_ok": answered,
+        "loadtest_failed": offered - answered,
+        "loadtest_slo_pass": bool(results) and all(r["slo_pass"] for r in results),
+    })
+    verdict["ok"] = bool(
+        verdict.get("trainer_completed")
+        and verdict.get("trainer_killed_mid_publish")
+        and verdict.get("daemon_killed_mid_run")
+        and len(clean) >= 3
+        and corrupt
+        and verdict.get("rollback_seen")
+        and verdict["rollback_to_lkg"]
+        and not double
+        and verdict["terminal_rows_per_digest"] == [1]
+        and verdict["loadtest_slo_pass"]
+        and offered > 0
+        and offered == answered
+    )
+    if not verdict["ok"]:
+        log(f"verdict: {json.dumps(verdict, indent=1)}")
+    return verdict
+
+
+def _autoscaler_argv(journal_path: str, url: str, up_p99_ms: float, down_p99_ms: float,
+                     telemetry: str) -> list[str]:
+    p = AUTOSCALE_POLICY
+    return ["--target", url, "--journal", journal_path, "--telemetry", telemetry,
+            "--min-replicas", str(p["min_replicas"]), "--max-replicas", str(p["max_replicas"]),
+            "--step-up", str(p["step_up"]), "--step-down", str(p["step_down"]),
+            "--up-p99-ms", f"{up_p99_ms:.3f}", "--down-p99-ms", f"{down_p99_ms:.3f}",
+            "--cooldown-s", str(p["cooldown_s"]), "--confirm-samples", str(p["confirm_samples"]),
+            "--poll-interval-s", str(p["poll_interval_s"]),
+            "--settle-timeout-s", str(p["settle_timeout_s"])]
+
+
+def run_autoscale_chaos(workdir: str, *, config: dict | None = None,
+                        device: str | None = None, serve_flags=(),
+                        query: int | None = None, serve_config: dict | None = None,
+                        down_floor_ms: float = 0.0, monitor=None,
+                        verbose: bool = True) -> dict:
+    """The self-driving fleet, unattended (see the module docstring for its
+    faults). ``config``, ``serve_flags``, ``device``, ``query`` and
+    ``serve_config`` as ``run_promote_chaos``'s; ``down_floor_ms`` puts a
+    floor under the scale-down threshold (a slow CPU's jitter). Returns the
+    verdict."""
+    import math
+    import threading
+
+    from .serve.resilience.promotion import parse_prometheus
+    from .serve_loadtest import run_loadtest, synth_episodes
+    from .utils import faultinject
+
+    t0 = time.time()
+
+    def log(msg):
+        if verbose:
+            print(f"chaos: {time.time() - t0:.1f} s: {msg}", file=sys.stderr, flush=True)
+
+    monitor = monitor or ControlPlaneMonitor()
+    config = dict(config or tiny_config())
+    cfg_path = _write_config(workdir, config, "chaos_autoscale")
+    exp_dir = os.path.join(workdir, "chaos_autoscale")
+    os.makedirs(os.path.join(exp_dir, "logs"), exist_ok=True)
+    journal_path = os.path.join(exp_dir, "logs", "autoscale.jsonl")
+    way = int(config["num_classes_per_set"])
+    query = int(query or config["num_target_samples"])
+    bucket = (way, 1, query)
+    device_argv = ["--device", device] if device else []
+    # The overload queues adapts on purpose: no soft shedding and no age
+    # trip-wire (the hard depth limit stays), so the p99 rises with no
+    # failed request.
+    serve = {"meta_batch_size": 2, "max_wait_ms": 0.0, "degrade_queue_depth": 0,
+             "max_queue_age_ms": 60_000.0, **(serve_config or {})}
+    previous_dataset_dir = os.environ.get("DATASET_DIR")
+    os.environ.setdefault("DATASET_DIR", workdir)
+    pool, built = _local_pool(
+        cfg_path, 1, bucket, serve_config=serve, train_flags=[*serve_flags, *device_argv],
+        device=device, monitor=monitor,
+        pool_config={"health_interval_s": 0.1, "restart_backoff_s": 0.2,
+                     "min_uptime_s": 0.0, "dispatch_timeout_s": 60.0},
+    )
+
+    def deaths() -> float:
+        return parse_prometheus(pool.metrics_text()).get(
+            "maml_serve_pool_replica_deaths_total", 0.0)
+
+    verdict: dict = {"schedule": ["autoscale"], "ok": False,
+                     "bucket": "x".join(map(str, bucket))}
+    server = thread = follower = None
+    holder: dict = {"proc": None}
+    flush_stop = threading.Event()
+    flush_lock = threading.Lock()
+    flush_counts = {"ok": 0, "err": 0}
+    flushers: list = []
+    overload: list[dict] = []
+    try:
+        if not pool.wait_ready(timeout=300.0):
+            raise RuntimeError("the seed replica never became healthy")
+        server, thread, url = _front_door(pool)
+        follower = _JournalFollower(journal_path, lambda row: monitor.journal_row(row, pool))
+        log(f"pool front door on {url} (1 replica)")
+        image_shape = (int(config["image_channels"]), int(config["image_height"]),
+                       int(config["image_width"]))
+        flush_eps = synth_episodes(6, way=way, shot=1, query=query,
+                                   image_shape=image_shape, seed=11)
+
+        def timed(episode) -> float:
+            t = time.perf_counter()
+            pool.classify(*episode, timeout=120.0)
+            return (time.perf_counter() - t) * 1e3
+
+        adapts = [timed(ep) for ep in synth_episodes(
+            6, way=way, shot=1, query=query, image_shape=image_shape, seed=5)][1:]
+        timed(flush_eps[0])
+        hits = [timed(flush_eps[0]) for _ in range(12)]
+        adapt_ms, hit_ms = float(np.median(adapts)), float(np.median(hits))
+        # As the JAX harness derives them: down at 6 cache hits, up at 2.2
+        # times that or 1.5 adapts.
+        down_p99 = max(down_floor_ms, 6.0 * hit_ms)
+        up_p99 = max(2.2 * down_p99, 1.5 * adapt_ms)
+        batch = int(serve["meta_batch_size"])
+        # In flight, enough for the queue alone to hold the p99 at 2.5x the
+        # scale-up threshold; arrivals at 1.5x one replica's capacity.
+        in_flight = int(min(48, max(8, math.ceil(2.5 * up_p99 * batch / adapt_ms))))
+        rate = 1.5 * batch * 1e3 / adapt_ms
+        verdict["probes"] = {"adapt_ms": adapt_ms, "hit_ms": hit_ms, "up_p99_ms": up_p99,
+                             "down_p99_ms": down_p99, "overload_in_flight": in_flight,
+                             "overload_qps": rate, "policy": AUTOSCALE_POLICY}
+        log(f"probes: adapt {adapt_ms:.1f} ms, cache hit {hit_ms:.1f} ms -> up above "
+            f"{up_p99:.1f} ms, down below {down_p99:.1f} ms")
+
+        daemon_log = os.path.join(workdir, "chaos_autoscaler_daemon.log")
+        argv = _autoscaler_argv(journal_path, url, up_p99, down_p99,
+                                os.path.join(exp_dir, "logs", "daemon_telemetry.jsonl"))
+        holder["proc"] = _start_daemon(
+            "autoscaler_daemon", argv, _daemon_env(workdir, "autoscaler_kill_at_phase=1"),
+            daemon_log, monitor, "autoscaler")
+        log("autoscaler started (autoscaler_kill_at_phase=1)")
+        deadline = time.time() + AUTOSCALE_TIMEOUT_S
+
+        # The overload: distinct support sets, so every request adapts.
+        burst = 0
+        while time.time() < deadline:
+            burst += 1
+            eps = synth_episodes(48, way=way, shot=1, query=query,
+                                 image_shape=image_shape, seed=100 + burst)
+            overload.append(run_loadtest(
+                pool, eps, rate_qps=rate, duration_s=2.0, p99_budget_ms=1e9,
+                error_slo=0.0, timeout_s=120.0, seed=burst, max_workers=in_flight,
+                sample_health=False,
+            ))
+            if any(r["phase"] == "decided" for r in _journal(journal_path)):
+                break
+        if not any(r["phase"] == "decided" for r in _journal(journal_path)):
+            raise RuntimeError("the overload never produced a journaled scale-up")
+        try:
+            rc = holder["proc"].wait(timeout=60)
+        except subprocess.TimeoutExpired as exc:
+            raise RuntimeError("the autoscaler outlived its armed kill point") from exc
+        verdict["daemon_sigkilled"] = rc in (-9, 137)
+        verdict["fleet_untouched_at_kill"] = pool.healthz()["pool_size"] == 1
+        log(f"autoscaler killed (rc {rc}) with its decision journaled; pool size "
+            f"{pool.healthz()['pool_size']}")
+
+        holder["proc"] = _start_daemon("autoscaler_daemon", argv, _daemon_env(workdir, None),
+                                       daemon_log, monitor, "autoscaler")
+        settled_up = None
+        while time.time() < deadline and settled_up is None:
+            settled_up = next((r for r in _journal(journal_path)
+                               if r["phase"] == "settled"), None)
+            time.sleep(0.2)
+        if settled_up is None:
+            raise RuntimeError("the resumed scale-up never settled")
+        verdict["resumed_settled_healthy"] = bool(settled_up.get("healthy"))
+        after_up = pool.healthz()
+        verdict["pool_size_after_up"] = after_up["pool_size"]
+        spawned = len(built)
+        again = pool.resize(after_up["pool_size"])  # the same target again
+        time.sleep(0.5)
+        verdict["second_resize_added"] = again["added"]
+        verdict["second_resize_spawned"] = len(built) - spawned
+        verdict["scale_up_settled_at_s"] = round(time.time() - t0, 3)
+        log(f"scale-up settled: {after_up['pool_size']} replicas, "
+            f"{after_up['healthy_replicas']} healthy; the same target again added "
+            f"{again['added']}")
+
+        # Cache hits, one replica killed: the p99 falls once fast samples
+        # displace the overload's in the pool's window.
+        deaths_before = deaths()
+        faultinject.activate(faultinject.FaultPlan(replica_kill_at_request=AUTOSCALE_KILL_AT))
+
+        def flush(start: int) -> None:
+            i = start
+            while not flush_stop.is_set():
+                try:
+                    pool.classify(*flush_eps[i % len(flush_eps)], timeout=60.0)
+                    key = "ok"
+                except Exception:  # noqa: BLE001 - any failure fails the verdict
+                    key = "err"
+                i += 1
+                with flush_lock:
+                    flush_counts[key] += 1
+
+        flushers = [threading.Thread(target=flush, args=(w,), daemon=True)
+                    for w in range(AUTOSCALE_FLUSH_CLIENTS)]
+        for t in flushers:
+            t.start()
+        down_settled = None
+        next_note = time.time() + 5.0
+        while time.time() < deadline and down_settled is None:
+            rows = _journal(journal_path)
+            downs = {r["decision_id"] for r in rows if r["phase"] == "decided"
+                     and r.get("to_size", 0) < r.get("from_size", 0)}
+            down_settled = next((r for r in rows if r["phase"] == "settled"
+                                 and r["decision_id"] in downs), None)
+            if time.time() > next_note:
+                next_note += 5.0
+                health = pool.healthz()
+                log(f"waiting for a scale-down: {health['healthy_replicas']} of "
+                    f"{health['pool_size']} healthy, p99 "
+                    f"{pool.metrics.request_latency.percentile(99):.1f} ms, {flush_counts}")
+            time.sleep(0.2)
+        flush_stop.set()
+        for t in flushers:
+            t.join(timeout=60)
+        faultinject.deactivate()
+        if down_settled is None:
+            raise RuntimeError("the cache-hit traffic never produced a settled scale-down")
+        verdict["replica_deaths"] = int(deaths() - deaths_before)
+        log(f"scale-down settled ({down_settled['decision_id']} -> "
+            f"{down_settled['to_size']}); flush {flush_counts}")
+    finally:
+        flush_stop.set()
+        faultinject.deactivate()
+        _stop_process(holder["proc"])
+        for t in flushers:
+            t.join(timeout=10)
+        _close_front_door(server, thread)
+        pool.close()
+        if previous_dataset_dir is None:
+            os.environ.pop("DATASET_DIR", None)
+        else:
+            os.environ["DATASET_DIR"] = previous_dataset_dir
+        if follower is not None:
+            follower.close()
+    verdict["wall_s"] = round(time.time() - t0, 3)
+
+    rows = _journal(journal_path)
+    decided = [r for r in rows if r["phase"] == "decided"]
+    ups = [r for r in decided if r["to_size"] > r["from_size"]]
+    downs = [r for r in decided if r["to_size"] < r["from_size"]]
+    by_id: dict = {}
+    for r in rows:
+        if r.get("decision_id"):
+            by_id.setdefault(r["decision_id"], []).append(r)
+    double = []
+    settle_s = {}
+    for did, drows in by_id.items():
+        n_settled = sum(1 for r in drows if r["phase"] == "settled")
+        applied = [r for r in drows if r["phase"] == "applied"]
+        if n_settled > 1 or (len(applied) > 1 and not any(r.get("resumed") for r in applied)):
+            double.append(did)
+        t_dec = next((r["t"] for r in drows if r["phase"] == "decided"), None)
+        t_set = next((r["t"] for r in drows if r["phase"] == "settled"), None)
+        if t_dec is not None and t_set is not None:
+            settle_s[did] = round(t_set - t_dec, 3)
+    offered = sum(r["offered"] for r in overload) + sum(flush_counts.values())
+    answered = sum(r["completed_ok"] for r in overload) + flush_counts["ok"]
+    # Replicas built: the seed, the scale-up's new slots, one for each death.
+    up_added = ups[0]["to_size"] - ups[0]["from_size"] if ups else 0
+    verdict.update({
+        "scale_ups": len(ups),
+        "scale_downs": len(downs),
+        "resumed_rows": sum(1 for r in rows if r["phase"] == "resumed"),
+        "settled_rows": sum(1 for r in rows if r["phase"] == "settled"),
+        "decided_to_settled_s": settle_s,
+        "double_driven": double,
+        "replicas_built": len(built),
+        "replicas_expected": 1 + up_added + verdict.get("replica_deaths", 0),
+        "requests_offered": offered,
+        "requests_ok": answered,
+        "requests_failed": offered - answered,
+    })
+    verdict["ok"] = bool(
+        verdict.get("daemon_sigkilled")
+        and verdict.get("fleet_untouched_at_kill")
+        and ups and downs
+        and verdict["resumed_rows"] == 1
+        and verdict.get("resumed_settled_healthy")
+        and verdict.get("pool_size_after_up") == 1 + up_added
+        and verdict.get("second_resize_added") == 0
+        and verdict.get("second_resize_spawned") == 0
+        and verdict["replicas_built"] == verdict["replicas_expected"]
+        and not double
+        and verdict.get("replica_deaths", 0) >= 1
+        and offered > 0 and offered == answered
+    )
+    if not verdict["ok"]:
+        log(f"verdict: {json.dumps(verdict, indent=1)}")
+    return verdict
+
+
 def measure_recovery(seed: int = 0, device: str | None = None,
                      schedule=("sigterm", "kill", "hang")) -> dict:
     """``train_recovery_s`` per stopping class, from one supervised tiny
@@ -475,8 +1240,12 @@ def main(argv=None) -> int:
                         help="write the tiny dataset and config into the workdir")
     parser.add_argument("--schedule", default="auto",
                         help=f"comma-separated classes of {FAULT_CLASSES + TERMINAL} "
-                             "(oom last), or 'auto': the six recoverable classes "
-                             "shuffled by --seed")
+                             "(oom last), 'auto': the six recoverable classes "
+                             "shuffled by --seed; or, alone, 'promote' (the "
+                             "train-to-serve loop: trainer, promotion daemon, "
+                             "two-replica pool, load test) or 'autoscale' (the "
+                             "autoscaler over a one-replica pool under a load "
+                             "swing)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--devices", type=int, default=1,
                         help="1 only (a mesh is ROADMAP A10)")
@@ -503,8 +1272,15 @@ def main(argv=None) -> int:
         dataset = os.path.join(workdir, "omniglot_mini")
         if not os.path.isdir(dataset):
             make_tiny_dataset(dataset, seed=args.seed)
-        verdict = run_chaos(workdir, schedule, baseline=args.baseline,
-                            device=args.device, verbose=not args.json)
+        loops = {"promote": run_promote_chaos, "autoscale": run_autoscale_chaos}
+        if len(schedule) == 1 and schedule[0] in loops:
+            verdict = loops[schedule[0]](workdir, device=args.device,
+                                         verbose=not args.json)
+        elif set(schedule) & set(loops):
+            parser.error("promote and autoscale each run alone")
+        else:
+            verdict = run_chaos(workdir, schedule, baseline=args.baseline,
+                                device=args.device, verbose=not args.json)
         print(json.dumps(verdict))
         return 0 if verdict["ok"] else 2
     finally:

@@ -10,8 +10,9 @@ a request's support set, answer its queries, on the card.
 * ``geometry``   - coarsening mixed episode shapes onto a bucket lattice;
 * ``metrics``    - latency quantiles, counters, Prometheus text;
 * ``errors``     - the typed failures;
-* ``resilience`` - admission control, the safe hot swap and the replica
-  flavours the pool supervises;
+* ``resilience`` - admission control, the safe hot swap, the replica
+  flavours the pool supervises, and the control plane's promotion daemon
+  and autoscaler;
 * ``pool``       - N replicas behind one front door: health-probed,
   restarted with backoff and a circuit breaker, re-dispatch on a death,
   routing by digest on a consistent-hash ring;
@@ -21,45 +22,49 @@ a request's support set, answer its queries, on the card.
   or a pool.
 
 Entry points: ``python3 -m howtotrainyourmamlpytorch_tpu_torch.serve_maml``
-(``--replicas N`` for a supervised pool) and ``python3 -m
+(``--replicas N`` for a supervised pool), ``python3 -m
 howtotrainyourmamlpytorch_tpu_torch.serve_loadtest`` (the open-loop SLO
-verdict). The promotion and autoscaler daemons are ROADMAP A11.
+verdict), and the control plane over a front door: ``python3 -m
+howtotrainyourmamlpytorch_tpu_torch.promotion_daemon`` (the trainer's
+checkpoints promoted, watched and rolled back) and ``python3 -m
+howtotrainyourmamlpytorch_tpu_torch.autoscaler_daemon`` (the pool's size
+from its load), both in ``resilience``.
 """
 
-from .api import ServingAPI, make_http_server
-from .batcher import MicroBatcher
-from .cache import AdaptedParamsCache, routing_digest, support_digest
-from .engine import EpisodeRequest, ServeConfig, ServingEngine
-from .errors import (
-    DeadlineExceededError,
-    DispatchFailedError,
-    NoHealthyReplicaError,
-    OverloadedError,
-    ReplicaDeadError,
-    ServeError,
-    SwapRejectedError,
-)
-from .metrics import ServeMetrics
-from .pool import PoolConfig, ReplicaPool
+import importlib
 
-__all__ = [
-    "ServingAPI",
-    "make_http_server",
-    "MicroBatcher",
-    "AdaptedParamsCache",
-    "routing_digest",
-    "support_digest",
-    "EpisodeRequest",
-    "ServeConfig",
-    "ServingEngine",
-    "ServeMetrics",
-    "ServeError",
-    "OverloadedError",
-    "NoHealthyReplicaError",
-    "DeadlineExceededError",
-    "DispatchFailedError",
-    "ReplicaDeadError",
-    "SwapRejectedError",
-    "PoolConfig",
-    "ReplicaPool",
-]
+#: Each public name and the submodule that defines it. The submodules load
+#: on first use, so that the control plane's daemons, which need only
+#: ``resilience.promotion``, ``resilience.autoscaler`` and ``errors``,
+#: never import torch.
+_EXPORTS = {
+    "ServingAPI": "api",
+    "make_http_server": "api",
+    "MicroBatcher": "batcher",
+    "AdaptedParamsCache": "cache",
+    "routing_digest": "cache",
+    "support_digest": "cache",
+    "EpisodeRequest": "engine",
+    "ServeConfig": "engine",
+    "ServingEngine": "engine",
+    "ServeMetrics": "metrics",
+    "ServeError": "errors",
+    "OverloadedError": "errors",
+    "NoHealthyReplicaError": "errors",
+    "DeadlineExceededError": "errors",
+    "DispatchFailedError": "errors",
+    "ReplicaDeadError": "errors",
+    "SwapRejectedError": "errors",
+    "PoolConfig": "pool",
+    "ReplicaPool": "pool",
+}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)
+    globals()[name] = value
+    return value

@@ -152,6 +152,8 @@ class ServingAPI:
             work = lambda: promote_state(  # noqa: E731
                 self.engine, state, buckets=buckets)
         result = self.batcher.call(work).result()
+        # The publish landed (a pool's front door fires its own).
+        faultinject.promotion_applied()
         return {
             "state_version": result.version,
             "buckets_canaried": len(result.buckets_canaried),

@@ -42,6 +42,7 @@ import time
 import numpy as np
 
 from ..telemetry import events as telemetry_events
+from ..utils import faultinject
 from ..utils.checkpoint import (
     CheckpointError,
     checkpoint_digest,
@@ -549,8 +550,8 @@ class ReplicaPool:
         """Grows or shrinks the fleet to ``n`` supervised slots.
 
         Idempotent by construction — ``resize(pool_size)`` is a no-op —
-        so an autoscaler (``/admin/scale``; the daemon is ROADMAP A11) can
-        resume a decision by re-issuing it: the target size, not a delta.
+        so the autoscaler (``/admin/scale``, ``serve/resilience/autoscaler.py``)
+        resumes a decision by re-issuing it: the target size, not a delta.
 
         Grow appends fresh RETIRED slots due immediately; the supervisor
         starts them on its next round (the factory runs on the supervisor
@@ -706,6 +707,9 @@ class ReplicaPool:
         telemetry_events.emit(
             "pool_swap_promoted", source=checkpoint_path, replicas=promoted,
         )
+        # The publish landed: an injected live regression starts with the
+        # very next answer (``regress_after_promote``).
+        faultinject.promotion_applied()
         return {
             "promoted_replicas": promoted,
             "state_version": result.get("state_version"),

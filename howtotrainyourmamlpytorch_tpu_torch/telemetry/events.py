@@ -174,6 +174,11 @@ def install(log: EventLog | None) -> EventLog | None:
     return previous
 
 
+def active() -> EventLog | None:
+    """The installed sink, or ``None``."""
+    return _active
+
+
 def emit(event_type: str, **fields) -> None:
     """Publishes to the installed sink; nothing without one."""
     if _active is not None:

@@ -509,6 +509,25 @@ def publish_done_marker(
     return marker
 
 
+def read_done_marker(filepath: str) -> dict | None:
+    """The watcher's side of the marker protocol: the ``.ready`` payload of
+    ``filepath``, or ``None`` when the marker is missing, torn, digestless
+    or from a newer schema (each means "not published yet"; a daemon's
+    poll never raises on a marker mid-write)."""
+    try:
+        with open(filepath + READY_MARKER_SUFFIX) as f:
+            payload = json.loads(f.read())
+    except (OSError, ValueError):
+        return None
+    if not isinstance(payload, dict):
+        return None
+    if int(payload.get("schema", -1)) > MARKER_SCHEMA_VERSION:
+        return None
+    if not payload.get("digest"):
+        return None
+    return payload
+
+
 def _read_archive(filepath: str):
     """``(leaves, exp_bytes, manifest or None)``, every member read (so the
     zip layer's own CRC checks run)."""

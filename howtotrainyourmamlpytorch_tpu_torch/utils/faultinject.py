@@ -41,6 +41,19 @@ Serve-path faults (``serve/pool.py``, ``serve/resilience``):
 * ``nan_next_logits`` - the next K classify outputs (canaries included)
   are all NaN at the engine's logits boundary.
 
+Control-plane faults (``serve/resilience/{promotion,autoscaler}.py``):
+
+* ``corrupt_candidate_at`` - truncate the promotion daemon's staged copy
+  of the next candidate at byte N, right before it is verified (the
+  trainer's own file is untouched);
+* ``daemon_kill_at_phase`` - SIGKILL the promotion daemon at journal
+  boundary N (``promotion.KILL_*``);
+* ``autoscaler_kill_at_phase`` - the same for the autoscaler
+  (``autoscaler.KILL_*``);
+* ``regress_after_promote`` - the moment a promotion publishes (the pool's
+  or ``ServingAPI``'s), arm ``nan_next_logits=K``: the promoted state
+  answers NaN on the very next K answers.
+
 Durable-tier faults (``serve/tier/``):
 
 * ``torn_spill_write_at`` - the Kth durable publish lands torn (half its
@@ -52,11 +65,10 @@ Durable-tier faults (``serve/tier/``):
 
 The plan comes from ``activate(FaultPlan(...))`` or from the environment,
 ``MAML_FAULTS="nan_at_iter=40,sigterm_at_iter=120"`` (comma or semicolon
-separated ``key=int``), read once on first use. Every ``FaultPlan`` field
-of the JAX package parses; a control-plane fault (the promotion and
-autoscaler daemons') set to anything but its idle value raises
-``NotImplementedError`` (ROADMAP A11). Fired faults are appended to
-``events``. With no plan each hook is one ``None`` check.
+separated ``key=int``), read once on first use, so each fault is armed in
+the process that fires it. Every ``FaultPlan`` field of the JAX package
+parses and fires. Fired faults are appended to ``events``. With no plan
+each hook is one ``None`` check.
 """
 
 from __future__ import annotations
@@ -112,8 +124,8 @@ SERVE_KEYS = (
     "stale_exec_cache_at",
 )
 
-#: Faults of the promotion and autoscaler daemons: ROADMAP A11 in the port.
-NOT_PORTED = (
+#: Faults of the promotion and autoscaler daemons.
+CONTROL_PLANE_KEYS = (
     "corrupt_candidate_at", "daemon_kill_at_phase", "autoscaler_kill_at_phase",
     "regress_after_promote",
 )
@@ -124,17 +136,6 @@ _serve_requests = 0  # classify requests since activation (serve faults)
 _tier_writes = 0  # durable-tier publishes since activation
 _tier_reads = 0  # spill-entry reads since activation
 _exec_loads = 0  # executable-cache loads since activation
-
-
-def _refuse_unported(plan: FaultPlan) -> FaultPlan:
-    idle = FaultPlan()
-    set_ = [name for name in NOT_PORTED
-            if getattr(plan, name) != getattr(idle, name)]
-    if set_:
-        raise NotImplementedError(
-            f"control-plane faults {set_} are ROADMAP item A11"
-        )
-    return plan
 
 
 def parse_plan(spec: str) -> FaultPlan | None:
@@ -157,7 +158,7 @@ def parse_plan(spec: str) -> FaultPlan | None:
                 f"key in {sorted(fields)}"
             )
         setattr(plan, key, int(value))
-    return _refuse_unported(plan)
+    return plan
 
 
 def _active() -> FaultPlan | None:
@@ -177,7 +178,7 @@ def activate(plan: FaultPlan) -> FaultPlan:
     restarts the request and tier counters (a serve fault fires at "the
     Kth request after activation")."""
     global _plan
-    _plan = _refuse_unported(plan)
+    _plan = plan
     _reset_counters()
     events.clear()
     return plan
@@ -398,6 +399,64 @@ def poison_logits(logits: np.ndarray) -> np.ndarray:
     plan.nan_next_logits -= 1
     events.append(f"nan-logits:{plan.nan_next_logits}")
     return np.full_like(np.asarray(logits, dtype=np.float32), np.nan)
+
+
+# ---------------------------------------------------------------------------
+# Control-plane failure points (serve/resilience/promotion.py, autoscaler.py)
+# ---------------------------------------------------------------------------
+
+
+def candidate_checkpoint_loading(filepath: str) -> None:
+    """Right before the promotion daemon verifies a staged candidate copy:
+    the one-shot ``corrupt_candidate_at`` truncation of that copy."""
+    plan = _active()
+    if plan is None or plan.corrupt_candidate_at is None:
+        return
+    n = plan.corrupt_candidate_at
+    plan.corrupt_candidate_at = None
+    with open(filepath, "r+b") as f:
+        f.truncate(n)
+    events.append(f"corrupt-candidate:{os.path.basename(filepath)}@{n}")
+
+
+def daemon_phase(phase: int) -> None:
+    """At each journal boundary of the promotion daemon: SIGKILL when
+    ``daemon_kill_at_phase`` names ``phase`` (one-shot)."""
+    plan = _active()
+    if plan is None or plan.daemon_kill_at_phase is None:
+        return
+    if int(plan.daemon_kill_at_phase) != int(phase):
+        return
+    plan.daemon_kill_at_phase = None
+    events.append(f"daemon-kill:phase{phase}")
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def autoscaler_phase(phase: int) -> None:
+    """At each journal boundary of the autoscaler: SIGKILL when
+    ``autoscaler_kill_at_phase`` names ``phase`` (one-shot)."""
+    plan = _active()
+    if plan is None or plan.autoscaler_kill_at_phase is None:
+        return
+    if int(plan.autoscaler_kill_at_phase) != int(phase):
+        return
+    plan.autoscaler_kill_at_phase = None
+    events.append(f"autoscaler-kill:phase{phase}")
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def promotion_applied() -> None:
+    """The moment a promotion publishes (the pool's or ``ServingAPI``'s):
+    an armed ``regress_after_promote=K`` becomes ``nan_next_logits=K``
+    (one-shot), so the promoted state regresses the very next answers, the
+    class a pre-publish canary cannot see."""
+    plan = _active()
+    if plan is None or plan.regress_after_promote <= 0:
+        return
+    k = plan.regress_after_promote
+    plan.regress_after_promote = 0
+    plan.nan_next_logits = k
+    events.append(f"regress-after-promote:{k}")
 
 
 def torn_spill_write(data: bytes) -> bytes:

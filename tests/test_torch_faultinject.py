@@ -50,13 +50,14 @@ def test_fault_plan_fields_are_the_jax_plans():
     assert ([f.name for f in dataclasses.fields(faultinject.FaultPlan)]
             == [f.name for f in dataclasses.fields(jfi.FaultPlan)])
     assert set(TRAINING_KEYS) | set(faultinject.SERVE_KEYS) | set(
-        faultinject.NOT_PORTED) == {f.name for f in dataclasses.fields(jfi.FaultPlan)}
-    assert len(faultinject.NOT_PORTED) == 4
+        faultinject.CONTROL_PLANE_KEYS) == {f.name for f in dataclasses.fields(jfi.FaultPlan)}
+    assert len(faultinject.CONTROL_PLANE_KEYS) == 4
+    assert not hasattr(faultinject, "NOT_PORTED")
 
 
 @pytest.mark.parametrize("spec", [
-    *(f"{key}={v}" for v, key in enumerate(TRAINING_KEYS + faultinject.SERVE_KEYS,
-                                           start=3)),
+    *(f"{key}={v}" for v, key in enumerate(
+        TRAINING_KEYS + faultinject.SERVE_KEYS + faultinject.CONTROL_PLANE_KEYS, start=3)),
     "nan_at_iter=5; fail_next_writes=2",
     " sigterm_at_iter = 7 ,hang_at_iter=9,",
     "",
@@ -83,16 +84,74 @@ def test_bad_specs_raise_as_in_jax(monkeypatch, spec):
     assert str(got.value) == str(want.value)
 
 
-@pytest.mark.parametrize("key", faultinject.NOT_PORTED)
-def test_serve_and_control_plane_faults_raise_naming_a11(monkeypatch, key):
-    """The control plane's faults (the promotion and autoscaler daemons)
-    still raise; the serve and tier faults run (below)."""
+def _fire_control(module, key, tmp_path):
+    """Drives ``key``'s hook of ``module`` in this process: what each of
+    three calls gave or left on disk, and the plan after."""
+    if key == "regress_after_promote":
+        out = []
+        for _ in range(3):
+            module.promotion_applied()
+            out.append(module.current_plan().nan_next_logits)
+        out.append([bool(np.isnan(module.poison_logits(np.ones((2, 3), np.float32))).all())
+                    for _ in range(3)])
+        return out
+    root = tmp_path / module.__name__.split(".")[0]
+    root.mkdir()
+    out = []
+    for i in range(3):
+        path = root / f"staged_{i}"
+        path.write_bytes(bytes(range(64)))
+        module.candidate_checkpoint_loading(str(path))
+        out.append(path.read_bytes())
+    return out
+
+
+@pytest.mark.parametrize("key", ["corrupt_candidate_at", "regress_after_promote"])
+def test_control_plane_faults_fire_as_in_jax(monkeypatch, tmp_path, key):
+    """``corrupt_candidate_at`` truncates the staged copy the daemon is
+    about to verify, once; ``regress_after_promote`` becomes
+    ``nan_next_logits`` at the first published promotion, once, and the
+    next answers are NaN: the same effects and events as the JAX hooks."""
     monkeypatch.setenv("MAML_FAULTS", f"{key}=2")
     faultinject.reset()
-    with pytest.raises(NotImplementedError, match="A11"):
-        faultinject.current_plan()
-    with pytest.raises(NotImplementedError, match="A11"):
-        faultinject.activate(faultinject.FaultPlan(**{key: 2}))
+    jfi.reset()
+    assert dataclasses.asdict(faultinject.current_plan()) == dataclasses.asdict(
+        jfi.current_plan())
+    got, want = _fire_control(faultinject, key, tmp_path), _fire_control(jfi, key, tmp_path)
+    assert got == want
+    assert faultinject.events == jfi.events and len(faultinject.events) >= 1
+
+
+_KILL_HOOK = """
+import os, sys
+from {package}.utils import faultinject
+hook = getattr(faultinject, sys.argv[1])
+for phase in (1, 2, 3, 4, 5):
+    print(phase, flush=True)
+    hook(phase)
+print("survived", flush=True)
+"""
+
+
+@pytest.mark.parametrize("hook,key", [("daemon_phase", "daemon_kill_at_phase"),
+                                      ("autoscaler_phase", "autoscaler_kill_at_phase")])
+@pytest.mark.parametrize("package", ["howtotrainyourmamlpytorch_tpu_torch",
+                                     "howtotrainyourmamlpytorch_tpu"])
+def test_kill_hooks_sigkill_the_process_at_their_phase(package, hook, key):
+    """A daemon's process armed through ``MAML_FAULTS`` dies by SIGKILL at
+    the journal boundary its key names and not before, in the port as in
+    the JAX package (each run in a subprocess)."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "MAML_FAULTS": f"{key}=3",
+           "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""),
+           "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", _KILL_HOOK.format(package=package), hook],
+                          capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == -signal.SIGKILL, proc.stderr
+    assert proc.stdout.split() == ["1", "2", "3"]
 
 
 def _fire(module, key, tmp_path):

@@ -172,3 +172,54 @@ def test_replica_pool_and_tier_modules_are_in_the_import_check():
             "ReplicaDeadError"} <= set(serve.__all__)
     assert {"Replica", "LocalReplica", "HttpReplica",
             "SubprocessReplica"} <= set(resilience.__all__)
+
+
+def test_control_plane_modules_are_in_the_import_check_and_stay_off_the_card():
+    """The promotion daemon, the autoscaler and their command lines are
+    among the modules the import check walks (no JAX, nothing of the JAX
+    package), with the JAX package's public names; importing them and
+    building a daemon imports no torch (the serve package loads its
+    submodules on first use), so no CUDA is initialised."""
+    from howtotrainyourmamlpytorch_tpu.serve.resilience import promotion as jpromo
+    from howtotrainyourmamlpytorch_tpu_torch.serve import resilience
+    from howtotrainyourmamlpytorch_tpu_torch.serve.resilience import (
+        autoscaler,
+        promotion,
+    )
+
+    modules = _port_modules()
+    for name in ("serve.resilience.promotion", "serve.resilience.autoscaler",
+                 "promotion_daemon", "autoscaler_daemon"):
+        assert f"{port.__name__}.{name}" in modules
+    assert {"PromotionConfig", "PromotionDaemon", "PromotionJournal", "SloWatch",
+            "AutoscalerDaemon", "AutoscalerPolicy", "decide"} <= set(resilience.__all__)
+    for name in ("PHASE_START", "PHASE_VERIFIED", "PHASE_PROMOTED", "PHASE_SLO_OK",
+                 "PHASE_REJECTED", "PHASE_ROLLBACK_START", "PHASE_ROLLED_BACK",
+                 "PHASE_DEDUPED", "PHASE_RESUMED", "PHASE_RETIRED", "TERMINAL_PHASES",
+                 "KILL_PRE_VERIFY", "KILL_PRE_PUBLISH", "KILL_POST_PUBLISH",
+                 "KILL_PRE_RESOLVE", "KILL_MID_GC"):
+        assert getattr(promotion, name) == getattr(jpromo, name), name
+    assert autoscaler.TERMINAL_PHASES == ("settled", "aborted")
+    code = (
+        "import sys\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import promotion_daemon, autoscaler_daemon\n"
+        "d = promotion_daemon.build_daemon(promotion_daemon.get_parser().parse_args(\n"
+        "    ['--watch', sys.argv[1] + '/saved_models', '--target', 'http://127.0.0.1:9']))\n"
+        "a = autoscaler_daemon.build_daemon(autoscaler_daemon.get_parser().parse_args(\n"
+        "    ['--target', 'http://127.0.0.1:9', '--journal', sys.argv[1] + '/a.jsonl']))\n"
+        "print('TORCH', 'torch' in sys.modules)\n"
+        "import torch\n"
+        "print('CUDA', torch.cuda.is_initialized())\n"
+        "print('JAX', sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "      ('jax', 'jaxlib', 'howtotrainyourmamlpytorch_tpu')))\n"
+    )
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-c", code, tmp], capture_output=True, text=True,
+            env=_env(), cwd=REPO, timeout=120,
+        )
+    assert proc.returncode == 0, proc.stderr
+    assert "TORCH False" in proc.stdout, proc.stdout
+    assert "CUDA False" in proc.stdout and "JAX []" in proc.stdout, proc.stdout

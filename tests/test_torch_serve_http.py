@@ -439,7 +439,8 @@ def test_cli_warmup_spec_parsing():
 def test_cli_pool_mode_raises_naming_a11(cli_config, capsys):
     """``--replicas`` runs a supervised pool (tests/test_torch_serve_pool.py)
     and refuses to start without ``--warmup``: a worker that never warms
-    would never become routable. The control-plane daemons are still A11."""
+    would never become routable. The control-plane daemons run beside it,
+    over its front door (tests/test_torch_promotion.py)."""
     with pytest.raises(SystemExit) as exit_info:
         serve_maml.main(["--config", cli_config, "--init_from_scratch",
                          "--replicas", "2"], device="cpu")
