@@ -307,7 +307,28 @@ Phases, in order; any failure exits non-zero before the result lines:
              names the staged file and 4 answers equal a fresh engine's on
              it bit for bit; launches equal 24/20 per cache-miss dispatch,
              warmup or canary and 4/0 per hit; neither daemon holds
-             ``/dev/nvidia*`` open.
+             ``/dev/nvidia*`` open; the promote loop mines at least one hard
+             episode from its serving telemetry.
+   feedback - the hard-episode loop and the operations toolkit: the
+             promote loop's serving telemetry mined into a replay manifest
+             (``python3 -m howtotrainyourmamlpytorch_tpu_torch.episode_miner
+             --max-margin 1.0 --top 64``); in this process, on the host, the
+             first 3 train batches of the spawned ``process`` loader bitwise
+             equal to the thread loader's on that manifest, every replay
+             slot's episode ``get_set(seed=<mined seed>)``'s; the flagship
+             CLI (CHAOS_CONFIG, fused) on the manifest with the process
+             backend and telemetry on, 1 epoch of 6 iterations and 8
+             validation tasks, launches per train and eval iteration held as
+             in cli flagship, losses finite; ``telemetry_report`` on the run
+             (text and ``--json``: its step samples, the config fingerprint
+             on every step event and in status.json, the captured train
+             programs in the device section); the overhead bench at
+             flagship width (``--overhead-bench --budget-s 2 --windows 3``,
+             in this process), its ``telemetry_overhead_pct`` printed
+             beside the card's name and power limit. Also: serve pool's in-process part runs under the
+             port's lock sanitizer (no cycle, every serve hold under 2.0 s),
+             and serve http's ``/metrics`` holds a ``maml_serve_program_flops``
+             row above 0 for each warmed bucket's adapt and classify.
 12. result - a [replay] line with each captured graph's kernel nodes, each
              phase's seconds, one JSON line listing the kernels (with their
              bfloat16 ms, bound, largest error and ulps, and launches in
@@ -1227,6 +1248,14 @@ def serve_http_phase(torch, fn) -> dict:
         quantiles = scrape_quantiles(text)
         if 'maml_serve_program_compiles{program="adapt:4x5"} 1' not in text:
             fail("[serve_http] /metrics lacks the adapt:4x5 signature")
+        ledger = program_ledger_rows(text)
+        for bucket in api.engine.warmed_buckets():
+            label = "x".join(map(str, bucket))
+            rows = {k: v for k, v in ledger.items() if k[2] == label}
+            if (sorted(k[1].split(":")[0] for k in rows if k[0] == "flops")
+                    != ["adapt", "classify"]
+                    or not all(v > 0 for k, v in rows.items())):
+                fail(f"[serve_http] /metrics program ledger rows for {label}: {rows}")
 
         with tempfile.TemporaryDirectory(prefix="chip_smoke_promote_") as tmp:
             ckpt, bad = os.path.join(tmp, "train_model_7"), os.path.join(tmp, "corrupt")
@@ -1275,8 +1304,25 @@ def serve_http_phase(torch, fn) -> dict:
         "promote": {"state_version": promoted["state_version"],
                     "buckets_canaried": promoted["buckets_canaried"],
                     "corrupt_copy": 409, "logits_unmoved": True},
+        "program_ledger": {f"{k[0]}:{k[1]}@{k[2]}": v for k, v in ledger.items()},
         "launches": launches,
     }
+
+
+def program_ledger_rows(text: str) -> dict:
+    """``{(field, program, bucket): value}`` of the ``/metrics`` program
+    ledger gauges (``maml_serve_program_flops``, ``_hbm_peak_bytes``)."""
+    import re
+
+    rows = {}
+    for field in ("flops", "hbm_peak_bytes"):
+        pattern = re.compile(rf'^maml_serve_program_{field}\{{program="([^"]+)",'
+                             rf'bucket="([^"]*)"\}} (\S+)$')
+        for line in text.splitlines():
+            match = pattern.match(line)
+            if match:
+                rows[field, match[1], match[2]] = float(match[3])
+    return rows
 
 
 def serve_cli_phase(torch) -> dict:
@@ -2076,7 +2122,7 @@ def run_cli(main, argv) -> dict:
 
 
 def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train,
-              want_train_final, want_eval, main=None, dataset_dir=None):
+              want_train_final, want_eval, main=None, dataset_dir=None, inspect=None):
     """Writes the tree (unless ``dataset_dir`` already holds it) and a
     derived JSON under a temporary directory and drives the entry point's
     ``main`` (``train_maml_system.main`` by default) once per entry of
@@ -2084,7 +2130,9 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
     after each learner call, K, ``--device_prefetch``); after each, holds
     each graph it captured to its kernel nodes (``check_replay``). Returns the
     phase's measurements, each meta-update's train loss and the last
-    checkpoint's arrays. The directory is removed at the end."""
+    checkpoint's arrays, and ``inspect(experiment_dir, argv)``'s result
+    (the last call's argv) under ``inspected``. The directory is removed at
+    the end."""
     import tempfile
 
     from howtotrainyourmamlpytorch_tpu_torch.data.fast_synth import native_available
@@ -2116,9 +2164,10 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
                 with open(path, "w") as f:
                     json.dump({**base, **extra_json}, f)
                 start = len(probe.train)
-                test = run_cli(main, ["--name_of_args_json_file", path, *FUSED_ARGV,
-                                      "--iters_per_dispatch", str(k),
-                                      "--device_prefetch", str(prefetch), *extra_argv])
+                argv = ["--name_of_args_json_file", path, *FUSED_ARGV,
+                        "--iters_per_dispatch", str(k),
+                        "--device_prefetch", str(prefetch), *extra_argv]
+                test = run_cli(main, argv)
                 results.append({"test": {k: float(v) for k, v in test.items()},
                                 "start": start, "k": k, "device_prefetch": prefetch,
                                 "first_iteration": probe.train[start]["iteration"]})
@@ -2177,6 +2226,7 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
                 fail(f"{name}: test accuracy {r['test']}")
         per_epoch = int(base["total_iter_per_epoch"])
         eval_ms = [(r["t1"] - r["t0"]) * 1e3 for r in probe.eval if r["synchronized"]]
+        inspected = inspect(os.path.join(tmp, "experiment"), argv) if inspect else None
         return {
             "native_episode_assembly": native_available(),
             "eval_ms_per_iter_p50": float(np.median(eval_ms)),
@@ -2201,6 +2251,7 @@ def cli_phase(torch, fn, name, config, tree_writer, overrides, calls, want_train
             "launches_per_eval_iter": want_eval,
             "train_losses": train_losses.cpu().tolist(),
             "archive": archive,
+            "inspected": inspected,
         }
 
 
@@ -3622,12 +3673,36 @@ def serve_pool_in_process(fn, work) -> dict:
     return out
 
 
+def lock_verdict(san) -> dict:
+    """The sanitizer's verdict on a serve run: no cycle in the observed
+    acquisition order and every lock created under the port's ``serve/``
+    held under the 2.0 s budget, else the run fails; the cycle count and
+    the longest serve hold with its site."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils import locksan
+
+    cycles = san.cycles()
+    over = san.over_budget(locksan.SERVE_HOLD_BUDGET_S, locksan.SERVE_MATCH)
+    site, hold = locksan.longest_hold(san, locksan.SERVE_MATCH)
+    report = san.report()
+    if cycles or over or site is None:
+        fail(f"[serve_pool] lock sanitizer: cycles {cycles}, serve holds over "
+             f"{locksan.SERVE_HOLD_BUDGET_S} s {over}, serve sites seen {site is not None}")
+    return {"cycles": len(cycles), "longest_serve_hold_s": hold,
+            "longest_serve_hold_site": os.path.relpath(site.rsplit(":", 1)[0], REPO)
+            + ":" + site.rsplit(":", 1)[1],
+            "sites": report["sites"], "acquisitions": report["acquisitions"],
+            "edges": len(report["edges"]),
+            "budget_s": locksan.SERVE_HOLD_BUDGET_S}
+
+
 def serve_pool_phase(torch, fn) -> dict:
     """[serve_pool]: Part 1 (worker processes, then the command line) and
-    Part 2 (in process), at the flagship's full width."""
+    Part 2 (in process, under the port's lock sanitizer), at the flagship's
+    full width."""
     import tempfile
 
     from howtotrainyourmamlpytorch_tpu_torch import serve_maml
+    from howtotrainyourmamlpytorch_tpu_torch.utils import locksan
 
     opts, flags = serve_maml.get_parser().parse_known_args(
         ["--config", FLAGSHIP, "--init_from_scratch", "--warmup", POOL_WARMUP, *FUSED_FLAG])
@@ -3644,7 +3719,11 @@ def serve_pool_phase(torch, fn) -> dict:
             cli = PoolCli(work)  # boots beside Part 2; Part 1's times stay clean
             try:
                 with phase_timer("serve_pool_in_process"):
-                    out["in_process"] = serve_pool_in_process(fn, work)
+                    # Every lock Part 2 creates is instrumented: the pool,
+                    # the batchers, the engines, the caches and the tiers.
+                    with locksan.LockSanitizer() as san:
+                        out["in_process"] = serve_pool_in_process(fn, work)
+                    out["in_process"]["locksan"] = lock_verdict(san)
                 with phase_timer("serve_pool_cli"):
                     out["cli"] = cli.finish()
             finally:
@@ -3799,7 +3878,8 @@ class ControlMonitor:
         self._sampler.join(timeout=60)
 
 
-def control_plane_phase(torch, fn, dataset_dir, background=None) -> dict:
+def control_plane_phase(torch, fn, dataset_dir, background=None,
+                        keep_telemetry=None) -> dict:
     """[control_plane]: the port's serving control plane at the flagship's
     full width, fused norm, on the tree in ``dataset_dir``: the promote loop
     (``chaos_train.run_promote_chaos``: the trainer as a subprocess, two
@@ -3812,10 +3892,14 @@ def control_plane_phase(torch, fn, dataset_dir, background=None) -> dict:
     here, a replica killed under cache hits) run beside its first trainer
     process, before its pool exists; then ``background`` (a callable) runs
     on a thread to the phase's end, its result the phase's ``background``.
+    The promote loop's telemetry (its serving events among the trainer's)
+    is copied to ``keep_telemetry``; the loop's verdict requires hard
+    episodes mined from it.
     After each promotion and the rollback
     the fleet's digest and answers are held to the staged file; the
     launches to the engines' dispatches and probes; the daemons must hold
     no CUDA context."""
+    import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3873,6 +3957,8 @@ def control_plane_phase(torch, fn, dataset_dir, background=None) -> dict:
             if not promote["ok"]:
                 tails("chaos_promote.log", "chaos_promotion_daemon.log")
                 fail(f"[control_plane] promote loop {json.dumps(promote)}")
+            if keep_telemetry is not None:
+                shutil.copyfile(promote["telemetry"], keep_telemetry)
             scale, later = promote.pop("beside")
             out["background"] = later and later.result()
         finally:
@@ -3912,6 +3998,220 @@ def control_plane_phase(torch, fn, dataset_dir, background=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [feedback]: the hard-episode loop and the operations toolkit
+# ---------------------------------------------------------------------------
+
+#: The feedback run: the flagship JSON, fused, 1 epoch of 6 iterations and
+#: 8 validation tasks (500 and 600), a mined episode every 2nd train slot,
+#: the spawned loader with 2 workers.
+FEEDBACK_ITERS, FEEDBACK_EVAL_TASKS, FEEDBACK_REPLAY_EVERY = 6, 8, 2
+#: Train batches the smoke process holds, spawned against threads.
+FEEDBACK_LOADER_BATCHES = 3
+#: The overhead bench's budget and windows (the JAX protocol's 6 s, 3).
+OVERHEAD_BUDGET_S, OVERHEAD_WINDOWS = 2.0, 3
+
+
+def port_module(module, *argv, timeout=600) -> subprocess.CompletedProcess:
+    """``python3 -m howtotrainyourmamlpytorch_tpu_torch.<module> argv``."""
+    return subprocess.run(
+        [sys.executable, "-m", f"howtotrainyourmamlpytorch_tpu_torch.{module}", *argv],
+        capture_output=True, text=True, cwd=REPO, timeout=timeout)
+
+
+def feedback_loaders(config_path, argv) -> dict:
+    """In this process, on the host: the first train batches of the
+    spawned backend against the thread backend's on the same tree and
+    manifest, bit for bit, and each replay slot's episode against the
+    dataset's ``get_set("train", seed=<mined seed>)``."""
+    from howtotrainyourmamlpytorch_tpu_torch.data import MetaLearningSystemDataLoader
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import get_args
+
+    args, _ = get_args(["--name_of_args_json_file", config_path, *argv])
+    batches, startup, mined, dataset = {}, None, None, None
+    for backend in ("thread", "process"):
+        args.dataprovider_backend = backend
+        loader = MetaLearningSystemDataLoader(args)
+        try:
+            if backend == "process":
+                startup = loader.worker_startup_s
+            gen = loader.get_train_batches(total_batches=FEEDBACK_LOADER_BATCHES)
+            batches[backend] = [next(gen) for _ in range(FEEDBACK_LOADER_BATCHES)]
+            gen.close()
+            if backend == "thread":
+                dataset, mined = loader.dataset, set(loader.replay_seeds)
+        finally:
+            loader.close()
+    for a, b in zip(batches["thread"], batches["process"]):
+        if len(a) != len(b) or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            fail("[feedback] the spawned backend's train batches differ from the "
+                 "thread backend's")
+    replays = 0
+    for b, batch in enumerate(batches["thread"]):
+        for j, seed in enumerate(batch[4]):
+            slot = b * len(batch[4]) + j
+            if (slot + 1) % FEEDBACK_REPLAY_EVERY:
+                continue
+            if int(seed) not in mined:
+                fail(f"[feedback] replay slot {slot} drew seed {seed}, not a mined one")
+            episode = dataset.get_set("train", seed=int(seed))
+            if not all(np.array_equal(batch[f][j], episode[f]) for f in range(4)):
+                fail(f"[feedback] replay slot {slot} is not get_set(seed={seed})'s episode")
+            replays += 1
+    return {"batches": FEEDBACK_LOADER_BATCHES, "replay_slots_checked": replays,
+            "worker_startup_s": startup, "spawned_bitwise_vs_threads": True}
+
+
+def feedback_report(exp_dir, argv) -> dict:
+    """``telemetry_report`` on the run, as text and as ``--json``: the step
+    count, the fingerprint on every ``step`` event and in ``status.json``,
+    the captured train programs in the device section."""
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry.events import read_events
+    from howtotrainyourmamlpytorch_tpu_torch.tune.space import fingerprint_from_args
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import get_args
+
+    text = port_module("telemetry_report", exp_dir, timeout=120)
+    as_json = port_module("telemetry_report", exp_dir, "--json", timeout=120)
+    if text.returncode or as_json.returncode:
+        fail(f"[feedback] telemetry_report: {text.stderr[-2000:]}{as_json.stderr[-2000:]}")
+    summary = json.loads(as_json.stdout)
+    args, _ = get_args(argv)
+    want = fingerprint_from_args(args)
+    stream = read_events(os.path.join(exp_dir, "logs", "telemetry.jsonl"))
+    steps = [e for e in stream if e["type"] == "step"]
+    with open(os.path.join(exp_dir, "logs", "status.json")) as f:
+        status = json.load(f)
+    stamped = {e.get("config_fingerprint") for e in steps}
+    if not steps or stamped != {want} or status.get("config_fingerprint") != want:
+        fail(f"[feedback] fingerprints on steps {stamped}, in status.json "
+             f"{status.get('config_fingerprint')}, expected {want}")
+    # The first dispatch of an epoch only anchors the step clock (both
+    # packages): one epoch of N iterations gives N - 1 step samples.
+    if summary["iters"] != FEEDBACK_ITERS - 1 or steps[-1]["iter"] != FEEDBACK_ITERS:
+        fail(f"[feedback] the report counts {summary['iters']} steps up to iteration "
+             f"{steps[-1]['iter']}, expected {FEEDBACK_ITERS - 1} up to {FEEDBACK_ITERS}")
+    captured = sorted({c["name"] for c in summary["compiles"] if c["kind"] == "capture"})
+    programs = sorted({p["name"] for p in (summary["device"] or {}).get("programs", [])
+                       if p["role"] == "train"})
+    if not captured or programs != captured:
+        fail(f"[feedback] the device section lists {programs}, the run captured {captured}")
+    flops = [p["flops"] for p in summary["device"]["programs"] if p["role"] == "train"]
+    if not all(f and f > 0 for f in flops):
+        fail(f"[feedback] train programs without FLOPs: {summary['device']}")
+    return {"fingerprint": want, "report_steps": summary["iters"],
+            "captured_programs": captured, "train_program_flops": flops,
+            "mfu_pct": summary["device"].get("mfu_pct"),
+            "report_text_lines": len(text.stdout.splitlines()),
+            "event_counts": summary["event_counts"]}
+
+
+def feedback_phase(torch, fn, dataset_dir, serve_telemetry) -> dict:
+    """[feedback]: the promote loop's serving telemetry mined into a
+    replay manifest (``episode_miner``, margin 1.0, top 64); the spawned
+    loader held to the thread loader on that manifest in this process (on
+    a thread, host only, beside the CLI run); the flagship trained on it
+    through the CLI (fused, the ``process`` backend, telemetry on; launches
+    per train and eval iteration held as [cli_flagship] holds them, losses
+    finite); ``telemetry_report`` on the run; then the overhead bench at
+    flagship width through ``telemetry_report``'s command line, in this
+    process (its learner runs no fused kernel)."""
+    import contextlib
+    import io
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from howtotrainyourmamlpytorch_tpu_torch import telemetry_report
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_feedback_") as work:
+        manifest = os.path.join(work, "replay_manifest.json")
+        mined = port_module("episode_miner", "--telemetry", serve_telemetry, "--out",
+                            manifest, "--max-margin", "1.0", "--top", "64", "--json",
+                            timeout=120)
+        if mined.returncode:
+            fail(f"[feedback] episode_miner exited {mined.returncode}: "
+                 f"{mined.stdout[-2000:]}{mined.stderr[-2000:]}")
+        out["miner"] = json.loads(mined.stdout)
+        if not out["miner"]["mined"]:
+            fail(f"[feedback] nothing mined: {out['miner']}")
+        replay_argv = ["--replay_manifest", manifest,
+                       "--replay_every", str(FEEDBACK_REPLAY_EVERY),
+                       "--dataprovider_backend", "process",
+                       "--num_dataprovider_workers", "2"]
+        with open(CHAOS_CONFIG) as f:
+            base = json.load(f)
+        base.update(dataset_name="omniglot_synth", dataset_path="omniglot_synth",
+                    total_epochs=1, total_iter_per_epoch=FEEDBACK_ITERS,
+                    num_evaluation_tasks=FEEDBACK_EVAL_TASKS, telemetry=True,
+                    experiment_name=os.path.join(work, "loaders"))
+        config_path = os.path.join(work, "loaders.json")
+        with open(config_path, "w") as f:
+            json.dump(base, f)
+        os.environ["DATASET_DIR"] = dataset_dir
+
+        def loaders():
+            with phase_timer("feedback_loaders"):
+                return feedback_loaders(config_path, replay_argv)
+
+        with ThreadPoolExecutor(max_workers=1) as beside:
+            checked = beside.submit(loaders)
+            with phase_timer("feedback_cli"):
+                out["cli"] = cli_phase(
+                    torch, fn, "feedback", CHAOS_CONFIG, write_omniglot_tree,
+                    {"dataset_name": "omniglot_synth", "total_epochs": 1,
+                     "total_iter_per_epoch": FEEDBACK_ITERS,
+                     "num_evaluation_tasks": FEEDBACK_EVAL_TASKS, "telemetry": True},
+                    [({}, replay_argv, True, 1, -1)],
+                    CLI_FLAGSHIP_TRAIN, CLI_FLAGSHIP_TRAIN_FINAL, CLI_FLAGSHIP_EVAL,
+                    dataset_dir=dataset_dir, inspect=feedback_report)
+            out["loaders"] = checked.result()
+        cli = out["cli"]
+        if cli["train_iterations"] != FEEDBACK_ITERS or cli["epochs"] != 1:
+            fail(f"[feedback] {cli['train_iterations']} train iterations over "
+                 f"{cli['epochs']} epochs, expected {FEEDBACK_ITERS} over 1")
+        if not np.isfinite(cli["train_losses"]).all():
+            fail(f"[feedback] non-finite train losses {cli['train_losses']}")
+    printed = io.StringIO()
+    with phase_timer("feedback_overhead"), contextlib.redirect_stdout(printed):
+        code = telemetry_report.main([
+            "--overhead-bench", "--budget-s", str(OVERHEAD_BUDGET_S),
+            "--windows", str(OVERHEAD_WINDOWS)])
+    lines = printed.getvalue().splitlines()
+    if code or not lines:
+        fail(f"[feedback] the overhead bench returned {code}: {lines[-40:]}")
+    out["overhead"] = json.loads(lines[-1])
+    out["launches"] = out["cli"]["launches"]
+    return out
+
+
+def print_feedback(r, smi) -> None:
+    """The feedback phase's lines, with the card's name and power limit
+    beside the times."""
+    m, lo, cli, o = r["miner"], r["loaders"], r["cli"], r["overhead"]
+    rep = cli["inspected"]
+    print(f"[feedback] mined {m['mined']} hard episodes of {m['tagged_episodes']} tagged "
+          f"(min margin {m['min_margin']}) from the promote loop's serving telemetry; "
+          f"spawned loader bitwise equal to threads over {lo['batches']} train batches, "
+          f"{lo['replay_slots_checked']} replay slots equal to get_set(seed), workers "
+          f"started in {lo['worker_startup_s']:.3f} s | {smi}", flush=True)
+    print(f"[feedback] CLI on the manifest (process backend): {cli['train_iterations']} "
+          f"train and {cli['eval_iterations']} eval iterations, launches per train "
+          f"iteration {json.dumps(cli['launches_per_train_iter']['msl'])}, per eval "
+          f"iteration {json.dumps(cli['launches_per_eval_iter'])}, losses "
+          f"{cli['train_loss']}; per step meta_iters_per_s "
+          f"{cli['per_step']['meta_iters_per_s']:.3f} | {smi}", flush=True)
+    print(f"[feedback] telemetry_report: {rep['report_steps']} step samples, fingerprint "
+          f"{rep['fingerprint']} on every step and in status.json, captured "
+          f"{rep['captured_programs']} (FLOPs per iteration {rep['train_program_flops']}, "
+          f"MFU {rep['mfu_pct']}%) | telemetry_overhead_pct {o['value']} (plain "
+          f"{o['plain_iters_per_s']} / telemetry {o['telemetry_iters_per_s']} "
+          f"meta-iters/s, pairs {o['pair_overheads_pct']}) | {smi}",
+          flush=True)
+    print(f"[feedback] {PHASE_SECONDS['feedback']:.1f} s | "
+          f"{json.dumps({k: v for k, v in r.items() if k != 'cli'}, default=str)}",
+          flush=True)
+
+
 def print_serve_cli(r) -> None:
     print(f"[serve_cli] ready after {r['ready_s']:.1f} s (beside [control_plane]'s "
           f"second trainer process), first episode {r['first_episode_ms']:.1f} ms, exit "
@@ -3928,7 +4228,8 @@ def print_control_plane(r, smi) -> None:
           f"SIGKILLed and resumed {p.get('daemon_killed_mid_run')} (double promotes "
           f"{p['double_promoted']}), rollback to the last-known-good {p['rollback_to_lkg']}"
           f", terminal rows per digest {p['terminal_rows_per_digest']}; load test "
-          f"{p['loadtest_offered']} offered, {p['loadtest_failed']} failed", flush=True)
+          f"{p['loadtest_offered']} offered, {p['loadtest_failed']} failed; hard "
+          f"episodes mined from its telemetry {p['mined_episodes']}", flush=True)
     print(f"[control_plane] daemon settings {json.dumps(p['daemon_settings'])}; publish to "
           f"promoted s {json.dumps(p['publish_to_promoted_s'])}; regression to rollback_start "
           f"{p.get('regression_detect_s')} s, to rolled_back "
@@ -4118,6 +4419,11 @@ def print_serve_pool(r, smi) -> None:
           f"serve_loadtest_p99_ms {lt['serve_loadtest_p99_ms']} serve_error_rate "
           f"{lt['serve_error_rate']} serve_recovery_s {lt['serve_recovery_s']}; stale fence "
           f"{json.dumps(p['stale_fence'])} | {smi}", flush=True)
+    ls = p["locksan"]
+    print(f"[serve_pool] in process under the lock sanitizer: {ls['cycles']} cycles over "
+          f"{ls['edges']} edges of {ls['sites']} sites ({ls['acquisitions']} "
+          f"acquisitions); longest serve hold {ls['longest_serve_hold_s']:.6f} s at "
+          f"{ls['longest_serve_hold_site']} (budget {ls['budget_s']} s) | {smi}", flush=True)
     print(f"[serve_pool] {PHASE_SECONDS['serve_pool']:.1f} s (workers "
           f"{PHASE_SECONDS['serve_pool_workers']:.1f}, cli {PHASE_SECONDS['serve_pool_cli']:.1f}"
           f", in process {PHASE_SECONDS['serve_pool_in_process']:.1f}) | "
@@ -4320,10 +4626,17 @@ def main() -> int:
         with phase_timer("serve_cli"):
             return serve_cli_phase(torch)
 
+    serve_telemetry = os.path.join(tree, "promote_telemetry.jsonl")
     with phase_timer("control_plane"):
-        control = control_plane_phase(torch, fn, tree, serve_cli)
+        control = control_plane_phase(torch, fn, tree, serve_cli,
+                                      keep_telemetry=serve_telemetry)
     print_serve_cli(control.pop("background"))
     print_control_plane(control, smi)
+    # 13. The hard-episode loop: the promote loop's serving telemetry mined,
+    # the flagship trained on the manifest, its telemetry reported.
+    with phase_timer("feedback"):
+        feedback = feedback_phase(torch, fn, tree, serve_telemetry)
+    print_feedback(feedback, smi)
     tree_dir.cleanup()
     with phase_timer("task_chunk"):
         chunked = task_chunk_phase(torch, fn)
@@ -4386,8 +4699,8 @@ def main() -> int:
     # bytes of the float32 rows' (5, 256, 28, 28)), its largest error over
     # the bf16 shapes, and the bf16 CLI's launches.
     paths = [serve, resnet_serve, serve_http, serve_north, serve_pool, train, *cli.values(),
-             cli_bf16_f32, *augmented.values(), chaos["telemetry"], control, chunked,
-             lane_pad]
+             cli_bf16_f32, *augmented.values(), chaos["telemetry"], control, feedback,
+             chunked, lane_pad]
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":

@@ -59,9 +59,11 @@ The serving control plane has two loops of its own, each run alone:
   candidate whose promotion turns the answers NaN
   (``regress_after_promote``, armed in this process). It must show at
   least 3 clean promotions, the corrupt candidate rejected, the rollback
-  to the last-known-good digest, no digest promoted twice and 0 failed
-  requests. (The JAX loop's replay-manifest check waits for the episode
-  miner, ROADMAP A12.5.)
+  to the last-known-good digest, no digest promoted twice, 0 failed
+  requests, and at least one hard episode mined from the serving
+  process's telemetry (``episode_miner``; the load test tags its
+  episodes ``seed:<n>``, and the events land in the trainer's
+  ``logs/telemetry.jsonl``, as in the JAX loop).
 * ``--schedule autoscale`` (``run_autoscale_chaos``): a one-replica pool
   and the autoscaler daemon (its own process, ``autoscaler_kill_at_phase=1``:
   killed with a scale-up journaled and the fleet untouched, then
@@ -712,8 +714,10 @@ def run_promote_chaos(workdir: str, *, config: dict | None = None,
 
     import torch
 
+    from .episode_miner import mine_events, select_hard_episodes
     from .serve_loadtest import run_loadtest, synth_episodes
     from .serve_maml import build_learner
+    from .telemetry import events as tel_events
     from .utils import faultinject
     from .utils.checkpoint import publish_done_marker
 
@@ -733,6 +737,7 @@ def run_promote_chaos(workdir: str, *, config: dict | None = None,
     watch_dir = os.path.join(exp_dir, "saved_models")
     journal_path = os.path.join(exp_dir, "logs", "promotions.jsonl")
     test_csv = os.path.join(exp_dir, "logs", "test_summary.csv")
+    telemetry_path = os.path.join(exp_dir, "logs", "telemetry.jsonl")
     settings = {**PROMOTE_DAEMON, **(daemon or {})}
     way = int(config["num_classes_per_set"])
     query = int(query or config["num_target_samples"])
@@ -746,13 +751,14 @@ def run_promote_chaos(workdir: str, *, config: dict | None = None,
     os.environ["DATASET_DIR"] = dataset_dir
 
     verdict: dict = {"schedule": ["promote"], "ok": False, "bucket": "x".join(map(str, bucket)),
-                     "daemon_settings": settings}
+                     "daemon_settings": settings, "telemetry": telemetry_path}
     log("trainer run 1 (kill_trainer_mid_publish=1)")
     with open(trainer_log, "a") as out:
         first_run = subprocess.Popen(
             trainer_argv, env=_daemon_env(dataset_dir, "kill_trainer_mid_publish=1"),
             stdout=out, stderr=subprocess.STDOUT)
-    pool = server = thread = follower = None
+    pool = server = thread = follower = sink = None
+    previous_sink = None
     holder: dict = {"proc": None}
     stop_traffic = threading.Event()
     results: list[dict] = []
@@ -761,6 +767,10 @@ def run_promote_chaos(workdir: str, *, config: dict | None = None,
         if beside is not None:
             verdict["beside"] = beside()
             log("the work beside the first trainer run is done")
+        # The serving side's events (``serve_dispatch`` with the traffic's
+        # seed tags) go to the trainer's telemetry file, as in the JAX loop.
+        sink = tel_events.EventLog(telemetry_path)
+        previous_sink = tel_events.install(sink)
         pool, _ = _local_pool(
             cfg_path, 2, bucket,
             serve_config={"meta_batch_size": 2, "max_wait_ms": 0.0, **(serve_config or {})},
@@ -868,6 +878,9 @@ def run_promote_chaos(workdir: str, *, config: dict | None = None,
         _close_front_door(server, thread)
         if pool is not None:
             pool.close()
+        if sink is not None:
+            tel_events.install(previous_sink)
+            sink.flush()
         if previous_dataset_dir is None:
             os.environ.pop("DATASET_DIR", None)
         else:
@@ -875,6 +888,9 @@ def run_promote_chaos(workdir: str, *, config: dict | None = None,
         if follower is not None:
             follower.close()
     verdict["wall_s"] = round(time.time() - t0, 3)
+    # The feedback edge: the run's own telemetry mines into a replay manifest.
+    verdict["mined_episodes"] = len(select_hard_episodes(
+        mine_events(_read_events(exp_dir)), max_margin=1.0, top=64))
 
     rows = _journal(journal_path)
     start = {r["digest"]: r for r in rows if r["phase"] == "start"}
@@ -935,6 +951,7 @@ def run_promote_chaos(workdir: str, *, config: dict | None = None,
         and verdict["loadtest_slo_pass"]
         and offered > 0
         and offered == answered
+        and verdict["mined_episodes"] > 0
     )
     if not verdict["ok"]:
         log(f"verdict: {json.dumps(verdict, indent=1)}")

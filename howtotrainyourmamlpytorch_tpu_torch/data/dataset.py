@@ -40,7 +40,6 @@ import os
 import numpy as np
 from PIL import Image, ImageFile
 
-from ..utils.parser_utils import wire_codec_for
 from .augment import augment_image
 from .fast_synth import (
     assemble_episode_native,
@@ -93,7 +92,11 @@ class FewShotLearningDataset:
         self.augment_images = False
         # uint8 wire format (--transfer_dtype uint8): normalization moves
         # onto the device (models/common.WireCodec carries mean/std), so the
-        # host pipeline must keep pixels at k/255 and skip it here.
+        # host pipeline must keep pixels at k/255 and skip it here. (Imported
+        # here: a spawned loader worker rebuilds the dataset without
+        # __init__, and so without the parser's torch modules.)
+        from ..utils.parser_utils import wire_codec_for
+
         codec = wire_codec_for(vars(args))
         self.defer_normalization = codec is not None and codec.mean is not None
         # --device_augment: Omniglot's rotation and cifar's crop and flip

@@ -79,6 +79,7 @@ from .data.device_prefetch import AUTO_DEPTH, DevicePrefetcher
 from .models.common import StagedBatch, dispatch_multiplier, prepare_batch
 from .telemetry.device import OOM_EXIT_CODE, is_resource_exhausted, write_oom_report
 from .telemetry.runtime import TrainTelemetry
+from .tune.space import fingerprint_from_args
 from .utils import faultinject, sanitize
 from .utils.checkpoint import (
     AsyncCheckpointWriter,
@@ -201,6 +202,7 @@ class ExperimentBuilder:
             profile_num_iters=int(knob("profile_num_iters", 20) or 20),
             profile_trigger_path=str(knob("profile_trigger_path", "") or ""),
             peak_flops=float(knob("peak_flops", 0.0) or 0.0) or None,
+            config_fingerprint=self._config_fingerprint(args),
         )
         self.telemetry.heartbeat_extra = self._heartbeat_extra
         self.watchdog_enabled = bool(knob("watchdog", True))
@@ -536,6 +538,16 @@ class ExperimentBuilder:
                              emergency_checkpoint=not bool(trips))
         self.telemetry.shutdown()
         sys.exit(REQUEUE_EXIT_CODE)
+
+    @staticmethod
+    def _config_fingerprint(args) -> str | None:
+        """The 12-hex id of the resolved knob set (``tune/space.py``), or
+        None when ``args`` cannot be resolved: provenance, not correctness,
+        so a half-built namespace does not stop a run."""
+        try:
+            return fingerprint_from_args(args)
+        except Exception:  # noqa: BLE001 - provenance, not correctness
+            return None
 
     def _heartbeat_extra(self) -> dict:
         """The builder's heartbeat fields (host values only)."""

@@ -48,7 +48,9 @@ captured (``launches``, per replay), its number of ``replays`` and the
 seconds its warm-up and capture took (``capture_s``). The captured
 ``cudaGraph_t`` is kept beside its executable (``keep_graph``), so the
 kernel nodes a replay launches can be read back from it
-(``graph.raw_cuda_graph()``).
+(``graph.raw_cuda_graph()``). Each capture emits a ``capture`` event
+(the program ledger's name and signature, ``capture_s``, the launches):
+the port's counterpart of the JAX package's compile events.
 """
 
 from __future__ import annotations
@@ -61,6 +63,8 @@ import numpy as np
 import torch
 
 from ..ops import fused_norm
+from ..telemetry import events as telemetry_events
+from ..telemetry.device import program_name, program_signature
 from ..utils.trees import tree_leaves, tree_map, tree_unflatten
 
 #: Eager steps on the capture's stream before the capture.
@@ -206,4 +210,9 @@ class StepGraphs:
                 stream=self.stream, key=key,
             )
             self.graphs[key] = graph
+            telemetry_events.emit(
+                "capture", name=program_name(second_order, final_only),
+                signature=program_signature(key[2]), capture_s=graph.capture_s,
+                launches=dict(graph.launches),
+            )
         return graph.dispatch(state, group, importance, lr)

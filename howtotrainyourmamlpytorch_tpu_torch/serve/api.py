@@ -193,12 +193,14 @@ class ServingAPI:
         return self.metrics.snapshot(
             queue_depth=self.batcher.queue_depth(),
             compile_table=self.engine.compile_table(),
+            program_table=self.engine.ledger.table(),
         )
 
     def metrics_text(self) -> str:
         return self.metrics.render_prometheus(
             queue_depth=self.batcher.queue_depth(),
             compile_table=self.engine.compile_table(),
+            program_table=self.engine.ledger.table(),
         )
 
     def close(self) -> None:

@@ -28,8 +28,12 @@ Each dispatch feeds ``ServeMetrics`` on ``engine.metrics``
 (``telemetry/events.py``; nothing without a sink). The first dispatch of
 each ``(kind, shape)`` signature is counted in the compile table and
 emits ``serve_compile``: the port compiles nothing per signature, the
-count stands where JAX counts its XLA traces. The program ledger is
-ROADMAP A12.
+count stands where JAX counts its XLA traces. ``warmup`` records each
+bucket's adapt and classify programs in the program ledger
+(``engine.ledger``: FLOPs under ``FlopCounterMode``, the allocator's
+peak), emitted as ``program_profile`` and served on ``/metrics``; the
+JAX ledger's fields that only XLA's analysis gives (bytes accessed,
+temp bytes) are left out.
 
 With ``ServeConfig.tier_dir`` the engine keeps a durable tier
 (``serve/tier/``): the cache writes through to a crash-consistent spill at
@@ -46,6 +50,7 @@ in float32 with TF32 off and deterministic cuDNN algorithms
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -58,6 +63,7 @@ import torch
 from ..models.common import encode_images
 from ..models.maml import MAMLFewShotLearner
 from ..telemetry import events as telemetry_events
+from ..telemetry.device import ProgramLedger, flop_counter
 from ..utils import faultinject
 from ..utils.platform import resolve_device, set_f32_numerics
 from ..utils.trees import tree_map
@@ -220,6 +226,11 @@ class ServingEngine:
         self._published = _Published(0, self.device_istate(state))
         self._lock = threading.Lock()
         self._signatures: dict[str, int] = {}
+        # The per-bucket program ledger: one row per adapt and classify
+        # program, recorded at warmup (``_measured``; this thread's warmup
+        # flag), on /metrics.
+        self.ledger = ProgramLedger()
+        self._warming = threading.local()
         self._warmed_buckets: set[tuple[int, int, int]] = set()
         self._dispatch_seq = 0
         #: Warmup done or one dispatch answered; ``/healthz`` is 503 until.
@@ -615,15 +626,42 @@ class ServingEngine:
 
     def _probe(self, istate, ep: EpisodeRequest) -> np.ndarray:
         """Host logits ``(B, Q, classes)`` of one episode, padded to the
-        task axis, outside the cache and the episode counters."""
+        task axis, outside the cache and the episode counters; inside
+        ``warmup`` each program not yet in the ledger is recorded."""
+        warming = getattr(self._warming, "active", False)
+        bucket = "x".join(str(d) for d in ep.bucket) if warming else None
         mask = None if self.geometry is None else self._pad_rows([ep.support_mask])
-        adapted = self._run_adapt(
-            istate, self._pad_rows([ep.x_support]), self._pad_rows([ep.y_support]),
-            mask,
-        )
-        return self._run_classify(
-            istate, adapted, self._pad_rows([ep.x_query])
-        ).cpu().numpy()
+        xs = self._pad_rows([ep.x_support])
+        with self._measured(f"adapt:{xs.shape[0]}x{xs.shape[1]}", "serve_adapt", bucket):
+            adapted = self._run_adapt(istate, xs, self._pad_rows([ep.y_support]), mask)
+        xq = self._pad_rows([ep.x_query])
+        with self._measured(f"classify:{xq.shape[0]}x{xq.shape[1]}", "serve_classify",
+                            bucket):
+            logits = self._run_classify(istate, adapted, xq)
+        return logits.cpu().numpy()
+
+    @contextlib.contextmanager
+    def _measured(self, label: str, role: str, bucket: str | None):
+        """The block's program as a ledger row, unless ``bucket`` is None or
+        the row exists: its FLOPs counted by ``FlopCounterMode`` (aten ops
+        only: the fused-norm kernels are not aten ops and go uncounted;
+        the convolutions and the head, which dominate, are counted) and
+        the caching allocator's peak after it (the process's, since the
+        counter was last reset). Only warmup measures; a live dispatch
+        never runs under the counter."""
+        if bucket is None or self.ledger.has_entry(label):
+            yield
+            return
+        counter = flop_counter()
+        with counter:
+            yield
+        peak, kind = None, ""
+        if self.device.type == "cuda":
+            self._sync()
+            peak = int(torch.cuda.max_memory_allocated(self.device))
+            kind = torch.cuda.get_device_name(self.device)
+        self.ledger.record(label, role=role, flops=float(counter.get_total_flops()),
+                           hbm_peak_bytes=peak, device_kind=kind, bucket=bucket)
 
     def warmup(self, buckets: Sequence[tuple[int, int, int]] | None = None) -> None:
         """Serves one synthetic episode at each ``(way, shot, query)``
@@ -637,11 +675,15 @@ class ServingEngine:
                 )
             buckets = list(self.geometry.lattice)
         istate = self._published.istate
-        for way, shot, query in buckets:
-            ep = self._synthetic_episode(way, shot, query)
-            self._probe(istate, ep)
-            with self._lock:
-                self._warmed_buckets.add(ep.bucket)
+        self._warming.active = True
+        try:
+            for way, shot, query in buckets:
+                ep = self._synthetic_episode(way, shot, query)
+                self._probe(istate, ep)
+                with self._lock:
+                    self._warmed_buckets.add(ep.bucket)
+        finally:
+            self._warming.active = False
         self.ready = True
 
     def canary_probe(self, istate, buckets=None) -> list[tuple[int, int, int]]:

@@ -10,10 +10,11 @@ with two differences:
   compiles nothing per signature; the count keeps the dashboard's
   guarantee (a mixed stream under a geometry lattice mints at most the
   lattice's signatures) checkable.
-- The program ledger's rows (``maml_serve_program_flops``,
-  ``_bytes_accessed``, ``_arithmetic_intensity``, ``_hbm_peak_bytes``,
-  ``_temp_bytes``) are left out: the port has no program ledger yet
-  (ROADMAP A12).
+- Of the program ledger's rows, ``maml_serve_program_flops`` and
+  ``maml_serve_program_hbm_peak_bytes`` are served (per program and bucket,
+  recorded at warmup; the peak on a card only). ``_bytes_accessed``,
+  ``_arithmetic_intensity`` and ``_temp_bytes`` come from XLA's analysis
+  of a compiled program and are left out.
 
 Everything here is thread-safe.
 """
@@ -74,9 +75,10 @@ class ServeMetrics:
         total = hits + misses
         return hits / total if total else 0.0
 
-    def snapshot(self, *, queue_depth: int = 0,
-                 compile_table: dict | None = None) -> dict:
-        """``compile_table``: the engine's ``{signature: 1}`` table."""
+    def snapshot(self, *, queue_depth: int = 0, compile_table: dict | None = None,
+                 program_table: list | None = None) -> dict:
+        """``compile_table``: the engine's ``{signature: 1}`` table;
+        ``program_table``: its ledger's rows."""
         return {
             "requests_total": self.requests_total.value,
             "request_errors": self.request_errors.value,
@@ -107,10 +109,12 @@ class ServeMetrics:
                 for key, row in self.bucket_table().items()
             },
             "compiles": dict(compile_table or {}),
+            "programs": [dict(row) for row in (program_table or [])],
         }
 
     def render_prometheus(self, *, queue_depth: int = 0,
-                          compile_table: dict | None = None) -> str:
+                          compile_table: dict | None = None,
+                          program_table: list | None = None) -> str:
         p = self.PREFIX
         counters = (
             ("requests_total", self.requests_total),
@@ -163,4 +167,13 @@ class ServeMetrics:
         lines.append(f"# TYPE {p}_program_compiles counter")
         for label, count in sorted((compile_table or {}).items()):
             lines.append(f'{p}_program_compiles{{program="{label}"}} {count}')
+        for metric, field in (("program_flops", "flops"),
+                              ("program_hbm_peak_bytes", "hbm_peak_bytes")):
+            rows = [row for row in (program_table or []) if row.get(field) is not None]
+            if not rows:
+                continue
+            lines.append(f"# TYPE {p}_{metric} gauge")
+            for row in sorted(rows, key=lambda r: str(r.get("name"))):
+                lines.append(f'{p}_{metric}{{program="{row.get("name", "?")}",'
+                             f'bucket="{row.get("bucket") or ""}"}} {row[field]:g}')
         return "\n".join(lines) + "\n"

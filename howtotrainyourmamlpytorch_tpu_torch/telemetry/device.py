@@ -3,8 +3,11 @@ memory watermarks and OOM forensics
 (``howtotrainyourmamlpytorch_tpu/telemetry/device.py``).
 
 * :class:`ProgramLedger`: one row per captured train-step program (its
-  ``(second_order, final_only)`` branch, batch shape and dtype). FLOPs per
-  iteration come from ``torch.utils.flop_counter.FlopCounterMode`` around
+  ``(second_order, final_only)`` branch, batch shape and dtype), and in a
+  serving engine one per bucket's adapt and classify programs
+  (``record``, from its warmup). FLOPs per
+  iteration come from ``torch.utils.flop_counter.FlopCounterMode``
+  (:func:`flop_counter`) around
   the eager warm-up step that precedes each capture
   (``models/step_graph.warmup_hooks``), never inside a capture, divided by
   the warm-up steps. Memory is the caching allocator's counters
@@ -93,6 +96,36 @@ def sample_memory_stats() -> list[dict] | None:
     return rows
 
 
+def flop_counter():
+    """A ``FlopCounterMode`` that prints no table and whose dispatch does
+    not import ``torch._dynamo``. Its ``__torch_dispatch__`` is wrapped to
+    disable dynamo, and the wrapper imports dynamo, and the compiler stack
+    behind it, at its first call: seconds on the CPU, more on a card's
+    installation, paid by every trainer and serving worker at its first
+    count. Nothing in this package compiles with dynamo, so the wrapped
+    function may run as it is: it is given as its own disabled form, the
+    cache the wrapper reads first."""
+    from torch.utils import flop_counter as counter
+
+    dispatch = getattr(counter, "_FlopCounterMode", None)
+    raw = getattr(getattr(dispatch, "__torch_dispatch__", None), "__wrapped__", None)
+    if raw is not None and getattr(raw, "__dynamo_disable", None) is None:
+        raw.__dynamo_disable = raw
+    return counter.FlopCounterMode(display=False)
+
+
+def program_name(second_order: bool, final_only: bool) -> str:
+    """A captured train step's name in the ledger and its ``capture`` event."""
+    return (f"train_step[{'second' if second_order else 'first'}_order"
+            f"{',final_only' if final_only else ''}]")
+
+
+def program_signature(shapes) -> str:
+    """A captured step's batch shapes (``((shape, dtype), ...)``) as the
+    ledger's signature string."""
+    return str([list(s) for s, _ in shapes])[:160]
+
+
 @dataclasses.dataclass
 class ProgramEntry:
     """One captured program's row (host values only). ``flops`` is per
@@ -109,6 +142,7 @@ class ProgramEntry:
     bytes_in_use: int | None = None
     device_kind: str = ""
     compute_dtype: str = "float32"
+    bucket: str | None = None
     t: float = 0.0
 
     def as_row(self) -> dict:
@@ -135,16 +169,14 @@ class ProgramLedger:
         reads the allocator's counters after it. ``key`` is the graph's
         ``(second_order, final_only, shapes-and-dtypes)``."""
         import torch
-        from torch.utils.flop_counter import FlopCounterMode
 
-        counter = FlopCounterMode(display=False)
+        counter = flop_counter()
         with counter:
             yield
         second_order, final_only, shapes = key if key is not None else (True, False, ())
         entry = ProgramEntry(
-            name=f"train_step[{'second' if second_order else 'first'}_order"
-                 f"{',final_only' if final_only else ''}]",
-            signature=str([list(s) for s, _ in shapes])[:160],
+            name=program_name(second_order, final_only),
+            signature=program_signature(shapes),
             flops=float(counter.get_total_flops()) / max(int(steps), 1),
             compute_dtype="bfloat16" if "bfloat16" in str(shapes) else "float32",
             t=time.time(),
@@ -158,6 +190,33 @@ class ProgramLedger:
         with self._lock:
             self._entries[(entry.name, entry.signature)] = entry
             self._pending.append(entry)
+
+    # -- a serve program ---------------------------------------------------
+
+    def record(self, name: str, *, role: str, flops: float | None,
+               hbm_peak_bytes: int | None = None, device_kind: str = "",
+               bucket: str | None = None, signature: str = "") -> ProgramEntry:
+        """One measured program's row (the serving engine's adapt and
+        classify programs, ``k`` 1), emitted at once as ``program_profile``."""
+        entry = ProgramEntry(
+            name=str(name), role=str(role), signature=str(signature)[:160],
+            flops=None if flops is None else float(flops),
+            hbm_peak_bytes=hbm_peak_bytes, device_kind=str(device_kind),
+            bucket=bucket, t=time.time(),
+        )
+        entry.dispatch_flops = entry.flops
+        with self._lock:
+            self._entries[(entry.name, entry.signature)] = entry
+        if self.emit_events:
+            telemetry_events.emit(
+                "program_profile", peak_flops=self.peak_flops(entry),
+                **{key: value for key, value in entry.as_row().items() if key != "t"},
+            )
+        return entry
+
+    def has_entry(self, name: str) -> bool:
+        with self._lock:
+            return any(key[0] == name for key in self._entries)
 
     # -- per dispatch -----------------------------------------------------
 

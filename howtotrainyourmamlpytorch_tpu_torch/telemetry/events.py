@@ -1,6 +1,6 @@
 """Structured run events: a host-buffered JSONL log
 (``howtotrainyourmamlpytorch_tpu/telemetry/events.py``: ``emit``, the
-``EventLog`` sink, the event context and ``read_events``).
+``EventLog`` sink, the event context, ``EventReader`` and ``read_events``).
 
 One line per event, ``{"t": <unix seconds>, "type": <str>, ...fields}``,
 after a ``{"type": "schema", "version": 1}`` line. ``emit`` only appends a
@@ -17,7 +17,8 @@ The training events and their fields are the JAX package's: ``step``,
 ``rollback``, ``preemption``, ``requeue_exit``, ``hang``, ``oom``,
 ``data_fault``, ``anomaly``, ``memory``, ``epoch_summary``,
 ``program_profile``, ``profile_start`` / ``profile_stop``, ``run_start`` /
-``run_end``.
+``run_end``; and the port's ``capture`` (a train step's CUDA-graph
+capture, where the JAX package emits ``compile``).
 
 A process-wide context (``set_context``: the run's ``trace_id``) is merged
 into every event, whichever thread emits it. The dispatcher hands one
@@ -135,32 +136,86 @@ class EventLog:
         return len(lines)
 
 
-def read_events(path: str, since: float | None = None) -> list[dict]:
-    """The events of a JSONL file, a complete last line without its newline
-    (a killed writer's) included; an unparseable line is skipped with a
-    warning. ``since`` drops events stamped before that unix time."""
-    events, torn = [], 0
-    try:
-        with open(path, "rb") as f:
-            lines = f.read().splitlines()
-    except OSError:
-        return []
-    for line in lines:
-        if not line.strip():
-            continue
+class EventReader:
+    """Incremental reader of a telemetry JSONL file (JAX
+    ``telemetry/events.EventReader``): ``read`` resumes from ``offset``,
+    where the previous call stopped, so a supervisor can follow a live run
+    and a report can stream a long one.
+
+    A line that does not parse mid-file is skipped and counted in
+    ``torn_lines`` (concurrent appends can tear one), with a warning. A
+    last line without its newline (a writer mid-append) is not consumed;
+    with ``include_tail`` it is yielded when it is complete JSON, but the
+    offset stays before it. A schema line newer than ``SCHEMA_VERSION``
+    raises ``ValueError``."""
+
+    def __init__(self, path: str, offset: int = 0):
+        self.path = path
+        self.offset = int(offset)
+        self.torn_lines = 0
+
+    def _parse(self, line: bytes, since: float | None) -> dict | None:
+        """One line as an event, or None (torn, or before ``since``; schema
+        lines always pass)."""
         try:
             record = json.loads(line)
         except ValueError:
-            torn += 1
-            continue
-        if (since is not None and record.get("type") != "schema"
-                and float(record.get("t", 0.0)) < since):
-            continue
-        events.append(record)
-    if torn:
-        print(f"WARNING: skipped {torn} unparseable line(s) in {path}",
-              file=sys.stderr)
-    return events
+            self.torn_lines += 1
+            return None
+        if record.get("type") == "schema":
+            version = int(record.get("version", -1))
+            if version > SCHEMA_VERSION:
+                raise ValueError(
+                    f"{self.path}: telemetry schema {version} is newer than "
+                    f"this build reads (up to {SCHEMA_VERSION})")
+        elif since is not None and float(record.get("t", 0.0)) < since:
+            return None
+        return record
+
+    def iter_events(self, since: float | None = None,
+                    include_tail: bool = False):
+        """Yields the events from ``offset`` on, moving ``offset`` past each
+        line that ends in a newline."""
+        torn_before = self.torn_lines
+        with open(self.path, "rb") as f:
+            f.seek(self.offset)
+            tail = b""
+            for raw in f:
+                if not raw.endswith(b"\n"):
+                    tail = raw
+                    break
+                self.offset += len(raw)
+                line = raw.strip()
+                if not line:
+                    continue
+                record = self._parse(line, since)
+                if record is not None:
+                    yield record
+        if include_tail and tail.strip():
+            torn_seen = self.torn_lines
+            record = self._parse(tail.strip(), since)
+            if record is not None:
+                yield record
+            else:
+                self.torn_lines = torn_seen  # a writer mid-append, not torn
+        torn = self.torn_lines - torn_before
+        if torn:
+            print(f"WARNING: skipped {torn} unparseable line(s) in "
+                  f"{self.path}", file=sys.stderr)
+
+    def read(self, since: float | None = None,
+             include_tail: bool = False) -> list[dict]:
+        return list(self.iter_events(since=since, include_tail=include_tail))
+
+
+def read_events(path: str, since: float | None = None) -> list[dict]:
+    """The events of a JSONL file: ``EventReader``'s one-shot form, a
+    complete last line without its newline (a killed writer's) included.
+    ``since`` drops events stamped before that unix time. A missing file
+    reads as no events."""
+    if not os.path.exists(path):
+        return []
+    return EventReader(path).read(since=since, include_tail=True)
 
 
 _active: EventLog | None = None

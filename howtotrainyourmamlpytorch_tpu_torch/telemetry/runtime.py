@@ -17,7 +17,8 @@ program ledger, and gives the experiment builder its hooks:
   (``telemetry/device.py``; their FLOPs were counted at the warm-up before
   a capture).
 * ``activate``: installs the event sink, the run's ``trace_id`` (from the
-  dispatcher's ``MAML_TRACE_ID`` when it set one), the ledger's warm-up
+  dispatcher's ``MAML_TRACE_ID`` when it set one) and
+  ``config_fingerprint`` (``tune/space.py``) as the event context, the ledger's warm-up
   hook and the ``SIGUSR1`` profile trigger; ``shutdown`` (idempotent, on
   every exit path) stops the profiler and flushes.
 """
@@ -54,9 +55,14 @@ class TrainTelemetry:
     def __init__(self, logs_dir: str, *, enabled: bool = True,
                  profile_trace_path: str = "", profile_num_iters: int = 20,
                  profile_trigger_path: str = "", trace_id: str | None = None,
-                 peak_flops: float | None = None):
+                 peak_flops: float | None = None,
+                 config_fingerprint: str | None = None):
         self.enabled = bool(enabled)
         self.logs_dir = logs_dir
+        # The resolved knob set's id (``tune.space.config_fingerprint``),
+        # on the event context (so on every event, ``step`` included) and
+        # in every heartbeat.
+        self.config_fingerprint = str(config_fingerprint) if config_fingerprint else None
         self.trace_id = str(trace_id or os.environ.get(telemetry_events.TRACE_ID_ENV)
                             or telemetry_events.new_trace_id())
         # One process on one card; the JAX package's topology columns.
@@ -103,6 +109,7 @@ class TrainTelemetry:
         previous_context = telemetry_events.set_context(
             trace_id=self.trace_id, process_index=self.process_index,
             process_count=self.process_count,
+            config_fingerprint=self.config_fingerprint,
         )
         try:
             yield self
@@ -236,6 +243,8 @@ class TrainTelemetry:
             "mesh_mp": self.mesh_mp, "current_iter": int(current_iter),
             "epoch": self._epoch, "anomalies": self.anomaly.reports,
         }
+        if self.config_fingerprint is not None:
+            payload["config_fingerprint"] = self.config_fingerprint
         steps = self.anomaly.window_stats("step_time")
         if steps is not None and steps["sum_s"] > 0:
             rate = steps["count"] / steps["sum_s"]

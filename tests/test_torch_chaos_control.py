@@ -21,6 +21,16 @@ import os
 import pytest
 
 from howtotrainyourmamlpytorch_tpu_torch import chaos_train
+from howtotrainyourmamlpytorch_tpu_torch.utils import locksan
+
+
+@pytest.fixture(autouse=True)
+def _lock_sanitizer():
+    """Every test of this suite runs under the port's lock sanitizer: no
+    cycle in the observed acquisition order, and every lock created under
+    ``howtotrainyourmamlpytorch_tpu_torch/serve`` held under 2.0 s."""
+    with locksan.sanitized() as san:
+        yield san
 
 
 @pytest.fixture

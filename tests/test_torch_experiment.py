@@ -292,9 +292,10 @@ def test_interval_checkpoint_resumes_mid_epoch(runs, tmp_path, monkeypatch):
 def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
     """The knobs still not ported raise naming their ROADMAP item;
     ``device_augment`` (A7's, ported since) builds a run whose learner
-    rotates on the device and whose loader ships the quarter turns, and
+    rotates on the device and whose loader ships the quarter turns,
     ``on_nonfinite rollback`` (A12's, ported since) builds a run under that
-    policy."""
+    policy, and ``dataprovider_backend process`` (A5's, ported since)
+    builds a run whose loader synthesises in spawned worker processes."""
     monkeypatch.setenv("DATASET_DIR", str(runs["tmp_path"]))
     args = _args(runs["tmp_path"], "refused", continue_from_epoch="from_scratch",
                  **{knob: value})
@@ -314,6 +315,14 @@ def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
         builder = build()
         builder.data.close()
         assert builder.on_nonfinite == "rollback"
+        return
+    if knob == "dataprovider_backend":
+        builder = build()
+        try:
+            assert builder.data.backend == "process"
+            assert len(builder.data._spawned.worker_pids) == 2
+        finally:
+            builder.data.close()
         return
     with pytest.raises(NotImplementedError, match=item):
         build()

@@ -223,3 +223,38 @@ def test_control_plane_modules_are_in_the_import_check_and_stay_off_the_card():
     assert proc.returncode == 0, proc.stderr
     assert "TORCH False" in proc.stdout, proc.stdout
     assert "CUDA False" in proc.stdout and "JAX []" in proc.stdout, proc.stdout
+
+
+def test_feedback_and_toolkit_modules_are_in_the_import_check_and_host_only():
+    """The episode miner, the knob space, the lock sanitizer and its
+    algorithm, and the telemetry report are among the modules the import
+    check walks; the miner, the space, the sanitizer, the algorithm and the
+    report's report and fleet modes import no torch (a command line run
+    beside a trainer holds no CUDA context)."""
+    modules = _port_modules()
+    for name in ("episode_miner", "tune", "tune.space", "utils.algo", "utils.locksan",
+                 "telemetry_report"):
+        assert f"{port.__name__}.{name}" in modules
+    code = (
+        "import json, sys, tempfile, os\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import episode_miner, telemetry_report\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.tune import space\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.utils import algo, locksan\n"
+        "d = tempfile.mkdtemp()\n"
+        "p = os.path.join(d, 'telemetry.jsonl')\n"
+        "open(p, 'w').write(json.dumps({'t': 1.0, 'type': 'serve_dispatch',\n"
+        "    'tags': ['seed:3'], 'margins': [0.1], 'entropies': [1.0]}) + '\\n')\n"
+        "assert episode_miner.main(['--telemetry', p, '--out', p + '.m', '--json']) == 0\n"
+        "assert telemetry_report.main([p, '--json']) == 0\n"
+        "assert telemetry_report.main(['--fleet', p]) == 0\n"
+        "space.fingerprint_from_args(object())\n"
+        "with locksan.sanitized():\n"
+        "    pass\n"
+        "print('TORCH', 'torch' in sys.modules)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=_env(), cwd=REPO, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "TORCH False" in proc.stdout, proc.stdout

@@ -39,6 +39,7 @@ from howtotrainyourmamlpytorch_tpu_torch.serve import PoolConfig, ReplicaPool
 from howtotrainyourmamlpytorch_tpu_torch.serve.resilience import LocalReplica
 from howtotrainyourmamlpytorch_tpu_torch.serve.resilience import promotion as promo
 from howtotrainyourmamlpytorch_tpu_torch.utils import checkpoint, faultinject
+from howtotrainyourmamlpytorch_tpu_torch.utils import locksan
 from test_torch_serve_http import CLI_CONFIG
 from test_torch_serve_pool import LEARNER, jax_reference, local_pool, make_api
 from test_torch_serve_runtime import ATOL, RTOL, episode
@@ -47,6 +48,15 @@ from test_torch_serve_runtime import ATOL, RTOL, episode
 JAX, PORT = (jpromo, jckpt, jfi), (promo, checkpoint, faultinject)
 PHASES = ["start", "verified", "promoted", "slo_ok", "rejected", "rollback_start",
           "rolled_back", "deduped", "resumed", "retired"]
+
+
+@pytest.fixture(autouse=True)
+def _lock_sanitizer():
+    """Every test of this suite runs under the port's lock sanitizer: no
+    cycle in the observed acquisition order, and every lock created under
+    ``howtotrainyourmamlpytorch_tpu_torch/serve`` held under 2.0 s."""
+    with locksan.sanitized() as san:
+        yield san
 
 
 @pytest.fixture(autouse=True)

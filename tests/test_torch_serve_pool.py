@@ -49,6 +49,7 @@ from howtotrainyourmamlpytorch_tpu_torch.serve.resilience.replica import (
 )
 from howtotrainyourmamlpytorch_tpu_torch.telemetry import events
 from howtotrainyourmamlpytorch_tpu_torch.utils import checkpoint, faultinject
+from howtotrainyourmamlpytorch_tpu_torch.utils import locksan
 from test_torch_serve_http import CLI_CONFIG, run_server, stop_server
 from test_torch_serve_runtime import (  # noqa: F401 (one_intra_op_thread)
     ATOL,
@@ -61,6 +62,15 @@ from test_torch_serve_runtime import (  # noqa: F401 (one_intra_op_thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LEARNER = MAMLFewShotLearner(tiny_cfg())
+
+
+@pytest.fixture(autouse=True)
+def _lock_sanitizer():
+    """Every test of this suite runs under the port's lock sanitizer: no
+    cycle in the observed acquisition order, and every lock created under
+    ``howtotrainyourmamlpytorch_tpu_torch/serve`` held under 2.0 s."""
+    with locksan.sanitized() as san:
+        yield san
 
 
 @pytest.fixture(autouse=True)

@@ -59,6 +59,7 @@ from howtotrainyourmamlpytorch_tpu_torch.serve import (
 from howtotrainyourmamlpytorch_tpu_torch.serve.tier import ArtifactSpill
 from howtotrainyourmamlpytorch_tpu_torch.telemetry import events
 from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
+from howtotrainyourmamlpytorch_tpu_torch.utils import locksan
 from test_torch_gradient_descent import shared_state_numpy
 from test_torch_train import one_intra_op_thread, port_config  # noqa: F401
 
@@ -72,6 +73,15 @@ FAMILIES = {
     "matching_nets": MatchingNetsLearner,
     "protonets": ProtoNetsLearner,
 }
+
+
+@pytest.fixture(autouse=True)
+def _lock_sanitizer():
+    """Every test of this suite runs under the port's lock sanitizer: no
+    cycle in the observed acquisition order, and every lock created under
+    ``howtotrainyourmamlpytorch_tpu_torch/serve`` held under 2.0 s."""
+    with locksan.sanitized() as san:
+        yield san
 
 
 TINY = dict(num_stages=2, num_filters=8, image_height=14, image_width=14,

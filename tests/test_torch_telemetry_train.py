@@ -31,11 +31,9 @@ from test_faultinject import _exp_args
 #: a program's FLOPs at the warm-up before a capture, on a card).
 JAX_ONLY_EVENTS = {"compile", "program_profile"}
 #: Heartbeat keys of mechanisms the port lacks on the CPU or at all: the
-#: ledger's MFU and memory (a card), the collectives (A10), the tuner's
-#: fingerprint (A12, tune/space.py).
+#: ledger's MFU and memory (a card), the collectives (A10).
 JAX_ONLY_HEARTBEAT = {"mfu_pct", "peak_flops", "hbm_peak_bytes",
-                      "comm_bytes_per_iter", "collectives_per_iter",
-                      "config_fingerprint"}
+                      "comm_bytes_per_iter", "collectives_per_iter"}
 
 
 def _port_builder(tmp, name, **overrides):
@@ -85,11 +83,34 @@ def test_event_types_and_fields_are_the_jax_builders(runs):
     assert {"step", "host_sync", "epoch_summary", "checkpoint_save",
             "checkpoint_load", "run_start", "run_end"} <= set(port)
     for kind, fields in port.items():
-        assert fields == jax_[kind] - {"config_fingerprint"}, kind
+        assert fields == jax_[kind], kind
     trace_ids = {e["trace_id"] for e in
                  events.read_events(str(runs / "port" / "logs" / "telemetry.jsonl"))
                  if e["type"] != "schema"}
     assert len(trace_ids) == 1
+
+
+def test_step_events_and_heartbeat_carry_the_jax_fingerprint(runs):
+    """Both builders stamp the resolved knob set's 12-hex id
+    (``tune/space.py``) on every event, ``step`` included, and in
+    ``logs/status.json``: the same id for the same args."""
+    from howtotrainyourmamlpytorch_tpu.tune.space import fingerprint_from_args as jfp
+    from howtotrainyourmamlpytorch_tpu_torch.tune.space import fingerprint_from_args
+
+    args = _exp_args(runs, "port", watchdog=False)
+    want = fingerprint_from_args(args)
+    assert want == jfp(args) and len(want) == 12
+    assert ExperimentBuilder._config_fingerprint(args) == want
+    for name in ("port", "jax"):
+        stream = [e for e in events.read_events(str(runs / name / "logs" / "telemetry.jsonl"))
+                  if e["type"] != "schema"]
+        steps = [e for e in stream if e["type"] == "step"]
+        assert steps and {e.get("config_fingerprint") for e in stream} == {want}, name
+        with open(runs / name / "logs" / "status.json") as f:
+            assert json.load(f)["config_fingerprint"] == want, name
+    assert ExperimentBuilder._config_fingerprint(object()) is not None
+    assert ExperimentBuilder._config_fingerprint(
+        type("Broken", (), {"iters_per_dispatch": "x"})()) is None
 
 
 def test_summary_columns_are_the_jax_columns(runs):
@@ -133,7 +154,7 @@ def test_oom_report_event_and_row_have_the_jax_keys(runs):
     assert set(report["config_levers"]) == set(jax_report["config_levers"])
     assert report["error_type"] == "torch.OutOfMemoryError"
     assert report["exit_code"] == 77 and report["current_iter"] == 1
-    assert set(oom[0]) == set(jax_oom[0]) - {"config_fingerprint"}
+    assert set(oom[0]) == set(jax_oom[0])
     assert rows[0] == jax_rows[0]
     assert rows[1].split(",")[1:] == jax_rows[1].split(",")[1:] == ["oom", "1", "0", "0", "1"]
 
