@@ -329,10 +329,31 @@ Phases, in order; any failure exits non-zero before the result lines:
              port's lock sanitizer (no cycle, every serve hold under 2.0 s),
              and serve http's ``/metrics`` holds a ``maml_serve_program_flops``
              row above 0 for each warmed bucket's adapt and classify.
+   fleet  - (run after control plane, before feedback) data-parallel
+             meta-training across processes, on the same tree: the flagship (CHAOS_CONFIG, fused, 2 epochs of 4, K=2, 8
+             validation tasks) as a two-rank fleet through the port's
+             dispatcher (``--num_processes 2``), both ranks on this card
+             over gloo (NCCL refuses two ranks on one device), each rank's
+             step split at the reduction (graph A, all-reduce, graph B),
+             against one process with ``--task_chunk 4``: theta, LSLR and
+             the Adam moments of train_model_latest bitwise, the BN state
+             at the CPU test's bar, each rank's launches per replay equal
+             to the chunked run's per chunk, step events and a heartbeat
+             per rank, rank 0 the only checkpoint writer; each rank's and
+             the chunked run's meta-iterations/s and the reduction's ms per
+             meta-update. A one-rank nccl group in this process, while
+             the fleet's ranks start: ``fused_psum`` of the flagship's
+             gradients bitwise its input, one all-reduce per dtype. The
+             kill-host loop (``chaos_train.run_killhost_chaos``: rank 1
+             SIGKILLed at iteration 3, the dispatcher resumes on one
+             process) at flagship width, 3 epochs of 2, beside
+             [feedback], [task_chunk] and [lane_pad]: its verdict ok and
+             ``multihost_recovery_s``.
 12. result - a [replay] line with each captured graph's kernel nodes, each
              phase's seconds, one JSON line listing the kernels (with their
-             bfloat16 ms, bound, largest error and ulps, and launches in
-             the bf16 CLI), the nvidia-smi line, and the last line
+             bfloat16 ms, bound, largest error and ulps, launches in the
+             bf16 CLI, and launches per rank per iteration in [fleet]), the
+             nvidia-smi line, and the last line
              ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX; exits non-zero without a CUDA device.
@@ -4184,6 +4205,277 @@ def feedback_phase(torch, fn, dataset_dir, serve_telemetry) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [fleet]: data-parallel meta-training across processes
+# ---------------------------------------------------------------------------
+
+#: The fleet's depth: epochs of iterations, K meta-updates a dispatch, and
+#: validation tasks (at least the meta-batch, and a whole batch a rank).
+FLEET_EPOCHS, FLEET_ITERS, FLEET_K, FLEET_EVAL_TASKS = 2, 6, 2, 8
+#: The kill-host loop's depth: rank 1 dies after iteration 3, past the
+#: first epoch's checkpoint.
+KILLHOST_EPOCHS, KILLHOST_ITERS = 3, 2
+#: The BN state of the fleet against the chunked run: the CPU test's bar
+#: (ranks average it as "local mean / dp, summed").
+FLEET_BN_RTOL, FLEET_BN_ATOL = 1e-4, 1e-5
+
+
+def fleet_config(**overrides) -> dict:
+    """The flagship JSON over the phase's tree, at the fleet's depth."""
+    return chaos_config(**{"total_epochs": FLEET_EPOCHS,
+                           "total_iter_per_epoch": FLEET_ITERS,
+                           "num_evaluation_tasks": FLEET_EVAL_TASKS, **overrides})
+
+
+def _run_logged(argv, env, log_path, timeout=600) -> tuple[int, float]:
+    """``argv`` to completion with its output in ``log_path``: (rc, s)."""
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        rc = subprocess.run(argv, env=env, cwd=REPO, stdout=log,
+                            stderr=subprocess.STDOUT, timeout=timeout).returncode
+    return rc, time.perf_counter() - t0
+
+
+def _rank_rates(events) -> dict:
+    """Per rank from a run's telemetry: the meta-iterations/s of the first
+    epoch after its first dispatch (which holds the capture): the
+    iterations between the first log read and the epoch's summary read,
+    over the seconds between the two (each read waits for the card, so
+    the window holds those iterations' device time); the reduction's ms
+    per meta-update and bytes per step; the launches a replay of each
+    captured step makes; the step events."""
+    out = {}
+    for rank in sorted({int(e.get("process_index", 0)) for e in events
+                        if e.get("type") == "step"}):
+        mine = [e for e in events if int(e.get("process_index", 0)) == rank]
+        reads = [e for e in mine if e.get("type") == "host_sync"]
+        first = next(e for e in reads if e["reason"] == "log")
+        summary = next(e for e in reads if e["reason"] == "epoch_summary")
+        reduces = [e for e in mine if e.get("type") == "reduce"]
+        out[rank] = {
+            "meta_iters_per_s": (summary["iter"] - first["iter"]) / (summary["t"] - first["t"]),
+            "timed_iters": summary["iter"] - first["iter"],
+            "steps": sum(e.get("type") == "step" for e in mine),
+            "captures": {e["name"]: e["launches"] for e in mine
+                         if e.get("type") == "capture"},
+        }
+        if reduces:
+            out[rank]["reduce_ms_per_iter"] = (
+                1e3 * sum(e["reduce_s"] for e in reduces) / sum(e["k"] for e in reduces))
+            out[rank]["reduce_bytes_per_iter"] = reduces[-1]["bytes"]
+    return out
+
+
+def _final_states(torch, config_path, exp_dirs):
+    """Each experiment's ``train_model_latest`` loaded on the CPU by one
+    learner of the config."""
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
+        args_to_maml_config,
+    )
+
+    with open(config_path) as f:
+        learner = MAMLFewShotLearner(args_to_maml_config(json.load(f)))
+    return [learner.load_model(os.path.join(d, "saved_models"), "train_model",
+                               "latest", "cpu") for d in exp_dirs]
+
+
+def fleet_nccl_world1(torch) -> dict:
+    """A one-rank ``nccl`` group in this process: ``fused_psum`` of the
+    flagship's first meta-gradient parts (fused kernels, seed 104) is
+    bitwise its input, with one all-reduce per dtype bucket; the group is
+    left after."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import collectives, distributed
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    address = f"127.0.0.1:{distributed.find_free_port()}"
+    if not distributed.initialize_distributed(address, 1, 0, 60.0):
+        fail("[fleet] the one-rank group did not start")
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        if backend != "nccl":
+            fail(f"[fleet] one rank on one card chose {backend}, not nccl")
+        t0 = time.perf_counter()
+        learner, _ = fused_and_plain(FLAGSHIP)
+        state0 = learner.init_state(torch.Generator().manual_seed(104))
+        batch = learner._device_batch(state0, train_batch(np.random.RandomState(2)))
+        parts = learner._meta_grads_local(
+            state0, batch, learner._importance(state0, learner._train_importance(0)),
+            second_order=True, final_only=False)
+        torch.cuda.synchronize()
+        grads_s = time.perf_counter() - t0
+        before = collectives.collective_counts["all_reduce"]
+        times = []
+        for _ in range(2):  # the first sets the communicator up
+            t0 = time.perf_counter()
+            reduced = collectives.fused_psum(parts)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        count = (collectives.collective_counts["all_reduce"] - before) // 2
+        _, spec = collectives.flatten_buckets(parts)
+        leaves = list(zip(tree_leaves(parts), tree_leaves(reduced)))
+        if count != len(spec.dtypes) or not all(torch.equal(a, b) for a, b in leaves):
+            fail(f"[fleet] nccl world 1: {count} all-reduces for dtypes {spec.dtypes}, "
+                 f"bitwise {[torch.equal(a, b) for a, b in leaves]}")
+        return {"backend": backend, "collectives": count, "dtypes": list(spec.dtypes),
+                "leaves": len(leaves), "bytes": sum(a.numel() * a.element_size()
+                                                    for a, _ in leaves),
+                "first_reduce_ms": times[0], "reduce_ms": times[1], "bitwise": True,
+                "grads_s": grads_s}
+    finally:
+        t0 = time.perf_counter()
+        distributed.shutdown_distributed()
+        PHASE_SECONDS["fleet_nccl_shutdown"] = time.perf_counter() - t0
+
+
+def fleet_phase(torch, fn, dataset_dir) -> dict:
+    """[fleet]: the flagship (``CHAOS_CONFIG`` at ``FLEET_*`` depth, the
+    three fused flags, K = ``FLEET_K``) as a two-rank fleet through the
+    port's dispatcher, both ranks on this card over gloo, held to one
+    process with ``--task_chunk 4`` on the same tree: theta, LSLR and the
+    Adam moments of ``train_model_latest`` bitwise, the BN state at
+    ``FLEET_BN_*``; each rank's launches per replay exactly the chunked
+    run's per chunk (and ``CLI_FLAGSHIP_TRAIN``); step events and a
+    heartbeat per rank; rank 0 the only writer of ``saved_models/``. The
+    one-rank nccl reduction (``fleet_nccl_world1``) runs in this process
+    while the fleet's ranks start. (The kill-host loop is
+    ``killhost_phase``.)"""
+    import tempfile
+
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry.events import read_events
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry.heartbeat import read_heartbeat
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    out = {}
+    env = {**os.environ, "DATASET_DIR": dataset_dir,
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("MAML_FAULTS", None)
+    argv = [*FUSED_ARGV, "--iters_per_dispatch", str(FLEET_K)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as work:
+        paths, dirs = {}, {}
+        for name, overrides in (("fleet", {"data_parallel_devices": 2}),
+                                ("chunked", {"task_chunk": 4})):
+            dirs[name] = os.path.join(work, name)
+            paths[name] = os.path.join(work, f"{name}.json")
+            with open(paths[name], "w") as f:
+                json.dump(fleet_config(experiment_name=dirs[name], **overrides), f)
+        module = "howtotrainyourmamlpytorch_tpu_torch"
+        # The one-rank nccl check runs here while the fleet's ranks start
+        # (interpreters, the data, the first eager step), before their
+        # first timed window.
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=1) as beside:
+            fleet_run = beside.submit(_run_logged, [
+                sys.executable, "-u", "-m", f"{module}.train_maml_system_dispatch",
+                paths["fleet"], "--num_processes", "2", "--fleet_grace_s", "25",
+                *argv], env, os.path.join(work, "fleet.log"))
+            with phase_timer("fleet_nccl"):
+                out["nccl_world1"] = fleet_nccl_world1(torch)
+            rc, out["fleet_s"] = fleet_run.result()
+        rc_chunked, out["chunked_s"] = _run_logged(
+            [sys.executable, "-u", "-m", f"{module}.train_maml_system",
+             "--name_of_args_json_file", paths["chunked"], *argv],
+            env, os.path.join(work, "chunked.log"))
+        if rc or rc_chunked:
+            for log in ("fleet.log", "chunked.log"):
+                with open(os.path.join(work, log)) as f:
+                    print(f"[fleet] tail of {log}:\n" + f.read()[-6000:], flush=True)
+            fail(f"[fleet] the fleet exited {rc}, the chunked run {rc_chunked}")
+        (fleet, _), (chunked, _) = _final_states(
+            torch, paths["fleet"], [dirs["fleet"], dirs["chunked"]])
+        for field in ("theta", "lslr", "opt_state", "iteration"):
+            got, want = tree_leaves(getattr(fleet, field)), tree_leaves(getattr(chunked, field))
+            if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"[fleet] {field} of the fleet's train_model_latest is not the "
+                     "chunked run's bit for bit")
+        bn_gap = max(float(((a - b).abs() - FLEET_BN_RTOL * b.abs()).max())
+                     for a, b in zip(tree_leaves(fleet.bn_state),
+                                     tree_leaves(chunked.bn_state)))
+        if bn_gap > FLEET_BN_ATOL:
+            fail(f"[fleet] BN state past the bar by {bn_gap}")
+        out["bn_excess_over_rtol"] = bn_gap
+        events = {name: read_events(os.path.join(dirs[name], "logs", "telemetry.jsonl"))
+                  for name in dirs}
+        rates = {name: _rank_rates(events[name]) for name in dirs}
+        if sorted(rates["fleet"]) != [0, 1]:
+            fail(f"[fleet] step events of ranks {sorted(rates['fleet'])}, expected 0 and 1")
+        (chunk_captures,) = [r["captures"] for r in rates["chunked"].values()]
+        per_chunk = {prog: {k: v // 2 for k, v in launches.items()}
+                     for prog, launches in chunk_captures.items()}
+        for rank, r in rates["fleet"].items():
+            if not r["captures"] or "reduce_ms_per_iter" not in r:
+                fail(f"[fleet] rank {rank} replayed no split step: {r}")
+            if r["captures"] != per_chunk or any(
+                    launches != CLI_FLAGSHIP_TRAIN for launches in r["captures"].values()):
+                fail(f"[fleet] rank {rank} launches a replay {r['captures']}, the "
+                     f"chunked run a chunk {per_chunk} (expected {CLI_FLAGSHIP_TRAIN})")
+        logs = os.path.join(dirs["fleet"], "logs")
+        beats = {rank: read_heartbeat(os.path.join(logs, name)) for rank, name in
+                 ((0, "status.json"), (1, "status.r1.json"))}
+        if any(b is None or b.get("process_index") != rank for rank, b in beats.items()):
+            fail(f"[fleet] per-rank heartbeats {beats}")
+        writers = {int(e.get("process_index", -1)) for e in events["fleet"]
+                   if e.get("type") in ("checkpoint_submit", "checkpoint_save")}
+        saved = sorted(os.listdir(os.path.join(dirs["fleet"], "saved_models")))
+        if writers != {0} or saved != sorted(os.listdir(os.path.join(dirs["chunked"],
+                                                                    "saved_models"))):
+            fail(f"[fleet] checkpoint writers {writers}, saved {saved}")
+        out.update(rates=rates, launches_per_rank_iter=rates["fleet"][0]["captures"],
+                   chunked_launches_per_chunk=per_chunk, writers=sorted(writers),
+                   saved=saved, heartbeats_iter=[b["current_iter"] for b in beats.values()])
+    return out
+
+
+def killhost_phase(dataset_dir) -> dict:
+    """[fleet]'s kill-host loop (``chaos_train.run_killhost_chaos``) at the
+    flagship's width and ``KILLHOST_*`` depth on ``dataset_dir``: its
+    verdict, which must be ``ok``."""
+    import tempfile
+
+    from howtotrainyourmamlpytorch_tpu_torch import chaos_train
+
+    with phase_timer("fleet_killhost"), tempfile.TemporaryDirectory(
+            prefix="chip_smoke_killhost_") as work:
+        verdict = chaos_train.run_killhost_chaos(
+            work, config=fleet_config(total_epochs=KILLHOST_EPOCHS,
+                                      total_iter_per_epoch=KILLHOST_ITERS),
+            dataset_dir=dataset_dir, extra_argv=FUSED_ARGV)
+        if not verdict["ok"]:
+            with open(os.path.join(work, "chaos_killhost.log")) as f:
+                print("[fleet] tail of the kill-host run:\n" + f.read()[-6000:], flush=True)
+            fail(f"[fleet] kill-host verdict {json.dumps(verdict)}")
+    return verdict
+
+
+def print_fleet(r, smi) -> None:
+    """The fleet phase's lines, each time with the card's name and limit."""
+    rates = r["rates"]
+    ranks = " ".join(f"rank {k} {v['meta_iters_per_s']:.3f} (reduce "
+                     f"{v['reduce_ms_per_iter']:.3f} ms/iter of "
+                     f"{v['reduce_bytes_per_iter']} bytes)"
+                     for k, v in rates["fleet"].items())
+    (single,) = rates["chunked"].values()
+    print(f"[fleet] flagship, 2 ranks on one card over gloo, K={FLEET_K}, against one "
+          f"process --task_chunk 4: theta, LSLR, Adam bitwise; BN within the bar; "
+          f"launches per rank per iteration {json.dumps(r['launches_per_rank_iter'])} = "
+          f"the chunked run's per chunk; writers {r['writers']}; meta-iters/s {ranks}; "
+          f"chunked {single['meta_iters_per_s']:.3f}; run s fleet {r['fleet_s']:.1f} "
+          f"chunked {r['chunked_s']:.1f} | {smi}", flush=True)
+    n = r["nccl_world1"]
+    print(f"[fleet] nccl, world 1: fused_psum of the flagship's {n['leaves']} gradient "
+          f"parts ({n['bytes']} bytes) bitwise the input, {n['collectives']} all-reduce "
+          f"for {n['dtypes']}, {n['reduce_ms']:.3f} ms ({n['first_reduce_ms']:.3f} ms the "
+          f"first, with the communicator's set-up) | {smi}", flush=True)
+    k = r["killhost"]
+    print(f"[fleet] kill-host: ok {k['ok']}, multihost_recovery_s "
+          f"{k['multihost_recovery_s']}, survivor hang event {k['survivor_hang_detected']},"
+          f" wall {k['wall_s']} s, rows {k['host_loss_audit_rows']} | {smi}", flush=True)
+    print(f"[fleet] {json.dumps(r)}", flush=True)
+
+
 def print_feedback(r, smi) -> None:
     """The feedback phase's lines, with the card's name and power limit
     beside the times."""
@@ -4632,12 +4924,21 @@ def main() -> int:
                                       keep_telemetry=serve_telemetry)
     print_serve_cli(control.pop("background"))
     print_control_plane(control, smi)
-    # 13. The hard-episode loop: the promote loop's serving telemetry mined,
+    # 13. Data-parallel meta-training across processes, on the same tree,
+    # alone (its ranks' rates are timed); then the kill-host loop (process
+    # starts and a resume, timed from the death) beside [feedback],
+    # [task_chunk] and [lane_pad].
+    from concurrent.futures import ThreadPoolExecutor
+
+    with phase_timer("fleet"):
+        fleet = fleet_phase(torch, fn, tree)
+    beside = ThreadPoolExecutor(max_workers=1)
+    killhost = beside.submit(killhost_phase, tree)
+    # 14. The hard-episode loop: the promote loop's serving telemetry mined,
     # the flagship trained on the manifest, its telemetry reported.
     with phase_timer("feedback"):
         feedback = feedback_phase(torch, fn, tree, serve_telemetry)
     print_feedback(feedback, smi)
-    tree_dir.cleanup()
     with phase_timer("task_chunk"):
         chunked = task_chunk_phase(torch, fn)
     print("[task_chunk] " + " | ".join(
@@ -4659,6 +4960,10 @@ def main() -> int:
           f"{lane_pad['unpadded_replay_ms_per_iter']:.2f}; checkpoints both ways "
           f"bitwise | {PHASE_SECONDS['lane_pad']:.1f} s | {json.dumps(lane_pad)}",
           flush=True)
+    fleet["killhost"] = killhost.result()
+    beside.shutdown()
+    tree_dir.cleanup()
+    print_fleet(fleet, smi)
 
     print("[replay] fused-norm kernel nodes of each captured graph, each equal "
           f"to the launches its capture counted: {json.dumps(REPLAY_NODES)}",
@@ -4723,6 +5028,9 @@ def main() -> int:
             "bf16_max_abs_err": errs_bf16[name], "bf16_max_ulps": max(
                 res[name]["max_ulps"] for res in bf16.values() if name in res),
             "bf16_launches": cli["cli_bf16"]["launches"][name],
+            "fleet_launches_per_rank_iter": {
+                prog: launches[name]
+                for prog, launches in fleet["launches_per_rank_iter"].items()},
         })
     print(f"[seconds] each phase: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(json.dumps({"kernels": kernels}))

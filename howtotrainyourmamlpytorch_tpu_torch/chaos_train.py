@@ -43,9 +43,21 @@ schedules whose recovery replays the same trajectory (``sigterm``,
 ``kill``, ``hang``, ``enospc``) the final ``train_model_latest`` and the
 ``summary_statistics.csv`` rows (their wall-clock columns aside) must
 equal the twin's bit for bit; with ``nan`` or ``producer`` the run must be
-finite and complete instead. ``--devices`` takes 1 only; a mesh is
-ROADMAP A10. The runs' output goes to ``<workdir>/chaos_{exp,baseline}.log``;
-the verdict JSON to stdout; the exit code is 0 iff it says ``ok``.
+finite and complete instead. ``--devices N`` trains a dp-N fleet of N
+ranks (the config's ``data_parallel_devices``; the dispatcher starts the
+ranks and degrades the fleet on a hang). The runs' output goes to
+``<workdir>/chaos_{exp,baseline}.log``; the verdict JSON to stdout; the
+exit code is 0 iff it says ``ok``.
+
+``--schedule killhost`` runs alone (``run_killhost_chaos``): a two-rank
+fleet through the dispatcher (``--num_processes 2 --fault_rank 1``), rank
+1 SIGKILLed at iteration 3 (a lost host). The survivor's collective fails
+(or its watchdog fires, exit 76), the dispatcher shuts the fleet down,
+writes the ``host-loss:rank1`` audit row stamped with the death's time and
+resumes degraded on one process (``procs2->procs1``) from the last
+checkpoint, and the run completes. ``multihost_recovery_s`` is the death
+to the degraded phase's first checkpoint load; the verdict's keys are the
+JAX harness's.
 
 The serving control plane has two loops of its own, each run alone:
 
@@ -143,9 +155,10 @@ def make_tiny_dataset(root: str, seed: int = 0) -> None:
                     os.path.join(d, f"{i}.png"))
 
 
-def tiny_config() -> dict:
+def tiny_config(devices: int = 1) -> dict:
     """The JAX harness's tiny config (2-stage 4-filter MAML++, 3 epochs x 2
-    iterations) with its resilience knobs; no ``experiment_name``."""
+    iterations) with its resilience knobs, on a dp layout of ``devices``
+    ranks; no ``experiment_name``."""
     return {
         "dataset_name": "omniglot_mini", "dataset_path": "omniglot_mini",
         "image_height": 28, "image_width": 28, "image_channels": 1,
@@ -179,7 +192,7 @@ def tiny_config() -> dict:
         "on_nonfinite": "skip",
         "watchdog": True, "watchdog_min_s": 10.0, "watchdog_factor": 3.0,
         "checkpoint_async": True, "data_fault_budget": 4,
-        "data_parallel_devices": 1, "model_parallel_devices": 1,
+        "data_parallel_devices": devices, "model_parallel_devices": 1,
     }
 
 
@@ -268,19 +281,40 @@ def _plan_phase(faults: list[str], resume_iter: int, epoch_len: int,
     return plan
 
 
+def _claim_phase(state_path: str, argv: list[str]) -> tuple[dict, int]:
+    """``(state, this phase's index)``. The ranks of one fleet phase share
+    its coordinator address (a fresh port each phase): the first rank to
+    arrive takes the next index, the others the one it took."""
+    import fcntl
+
+    key = None
+    if "--coordinator_address" in argv:
+        key = argv[argv.index("--coordinator_address") + 1]
+    with open(state_path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        with open(state_path) as f:
+            state = json.load(f)
+        claimed = state.setdefault("claimed", {})
+        if key is not None and key in claimed:
+            return state, claimed[key]
+        index = state["next"]
+        state["next"] = index + 1
+        if key is not None:
+            claimed[key] = index
+        with open(state_path, "w") as f:
+            json.dump(state, f)
+    return state, index
+
+
 def phase_main(argv: list[str]) -> int:
     """The dispatcher's entry under chaos: the next phase's faults planned
     against the resume point, the training entry point run with them, its
     rc and exit time recorded; the rc passed on (a signal death as
-    128 + the signal)."""
+    128 + the signal). Every rank of a fleet phase runs the phase's plan;
+    rank 0 records it."""
     state_path = os.environ[PHASES_ENV]
-    with open(state_path) as f:
-        state = json.load(f)
-    index = state["next"]
+    state, index = _claim_phase(state_path, argv)
     faults = state["phases"][index] if index < len(state["phases"]) else []
-    state["next"] = index + 1
-    with open(state_path, "w") as f:
-        json.dump(state, f)
     resume_iter = _latest_iter(state["exp_dir"])
     plan = _plan_phase(faults, resume_iter, state["epoch_len"], state["total_iters"])
     env = dict(os.environ)
@@ -294,10 +328,12 @@ def phase_main(argv: list[str]) -> int:
         [sys.executable, "-u", "-m", f"{PACKAGE}.train_maml_system", *argv],
         env=env, check=False,
     ).returncode
-    with open(state["log"], "a") as f:
-        f.write(json.dumps({"phase": index, "faults": faults, "plan": plan,
-                            "resume_iter": resume_iter, "rc": rc,
-                            "t_start": t_start, "t_exit": time.time()}) + "\n")
+    rank = argv[argv.index("--process_id") + 1] if "--process_id" in argv else "0"
+    if rank == "0":
+        with open(state["log"], "a") as f:
+            f.write(json.dumps({"phase": index, "faults": faults, "plan": plan,
+                                "resume_iter": resume_iter, "rc": rc,
+                                "t_start": t_start, "t_exit": time.time()}) + "\n")
     return 128 - rc if rc < 0 else rc
 
 
@@ -339,7 +375,8 @@ def run_chaos(workdir: str, schedule: list[str], *, config: dict | None = None,
     argv = [*extra_argv, *(["--device", device] if device else [])]
     epoch_len = int(config["total_iter_per_epoch"])
     total_iters = int(config["total_epochs"]) * epoch_len
-    verdict: dict = {"schedule": list(schedule), "devices": 1}
+    verdict: dict = {"schedule": list(schedule),
+                     "devices": max(int(config.get("data_parallel_devices", 1) or 1), 1)}
 
     base_exp = None
     if baseline:
@@ -477,6 +514,98 @@ def run_chaos(workdir: str, schedule: list[str], *, config: dict | None = None,
         ok = (completed and dispatch_rc == 0 and recovered_all
               and bitexact is not False and final_finite is not False)
     verdict["ok"] = bool(ok)
+    return verdict
+
+
+# ---------------------------------------------------------------------------
+# The host-loss class: a rank of a fleet killed
+# ---------------------------------------------------------------------------
+
+#: Wall budget of the kill-a-host run (the fleet phase, the shutdown and
+#: the degraded resume to completion).
+KILLHOST_TIMEOUT_S = 900
+
+#: The victim's plan: rank 1 SIGKILLed after its third meta-update.
+KILLHOST_FAULTS = "sigkill_at_iter=3"
+
+
+def run_killhost_chaos(workdir: str, *, config: dict | None = None,
+                       dataset_dir: str | None = None, device: str | None = None,
+                       extra_argv: list[str] = (), grace_s: float = 25.0,
+                       verbose: bool = True) -> dict:
+    """Kill-a-host (JAX ``tools/chaos_train.py:540-660``): a two-rank fleet
+    through the port's dispatcher, rank 1 SIGKILLed at iteration 3; the
+    run must complete degraded on one process with the host-loss row.
+    ``config``: the experiment JSON without ``experiment_name`` (the tiny
+    config on two ranks by default); ``extra_argv`` and ``--device`` go to
+    every rank. Returns the verdict (JAX's keys)."""
+
+    def log(msg):
+        if verbose:
+            print(f"chaos: {msg}", file=sys.stderr, flush=True)
+
+    config = {**(config or tiny_config()), "data_parallel_devices": 2}
+    cfg_path = _write_config(workdir, config, "chaos_killhost")
+    exp_dir = os.path.join(workdir, "chaos_killhost")
+    env = {**_child_env(dataset_dir or workdir), "MAML_FAULTS": KILLHOST_FAULTS}
+    argv = [*extra_argv, *(["--device", device] if device else [])]
+    log(f"kill-a-host: a 2-rank fleet through the dispatcher, rank 1 killed at "
+        f"iteration 3 (output in {exp_dir}.log)")
+    t0 = time.time()
+    with open(f"{exp_dir}.log", "w") as out:
+        dispatch_rc = subprocess.run(
+            [sys.executable, "-u", "-m", f"{PACKAGE}.train_maml_system_dispatch",
+             cfg_path, "--num_processes", "2", "--fault_rank", "1",
+             "--fleet_grace_s", str(grace_s), "--max_hangs", "4", *argv],
+            env=env, check=False, timeout=KILLHOST_TIMEOUT_S, stdout=out,
+            stderr=subprocess.STDOUT,
+        ).returncode
+    wall_s = time.time() - t0
+    log(f"dispatcher rc {dispatch_rc} after {wall_s:.1f} s")
+    events = _read_events(exp_dir)
+    # The survivor sees the loss as a failed collective (gloo: the peer's
+    # connection closed) or as a silent one its watchdog ends (76): the
+    # hang event is recorded when there is one, not required.
+    hangs = [e for e in events
+             if e.get("type") == "hang" and int(e.get("process_index", -1)) == 0]
+    try:
+        with open(os.path.join(exp_dir, "logs", "interruptions.csv")) as f:
+            audit_rows = [line.strip() for line in f][1:]
+    except OSError:
+        audit_rows = []
+    host_loss_rows = [r for r in audit_rows if "host-loss:rank1" in r]
+    degrade_rows = [r for r in audit_rows if "procs2->procs1" in r]
+    recovery_s = None
+    if host_loss_rows:
+        t_loss = min(float(r.split(",")[0]) for r in host_loss_rows)
+        loads = [float(e["t"]) for e in events
+                 if e.get("type") == "checkpoint_load" and float(e["t"]) >= t_loss]
+        if loads:
+            recovery_s = round(min(loads) - t_loss, 3)
+    final_finite = None
+    try:
+        final_finite = all(np.isfinite(np.asarray(a, np.float64)).all()
+                           for a in final_leaves(exp_dir).values())
+    except Exception:  # noqa: BLE001 - no final checkpoint
+        pass
+    completed = os.path.exists(os.path.join(exp_dir, "logs", "test_summary.csv"))
+    verdict = {
+        "schedule": ["killhost"], "devices": 2, "num_processes": 2,
+        "completed": completed,
+        "dispatcher_rc": dispatch_rc,
+        "survivor_hang_detected": bool(hangs),
+        "host_loss_audit_rows": host_loss_rows,
+        "degraded_to_one_process": bool(degrade_rows),
+        "multihost_recovery_s": recovery_s,
+        "final_finite": final_finite,
+        "wall_s": round(wall_s, 1),
+    }
+    verdict["ok"] = bool(
+        completed and dispatch_rc == 0 and host_loss_rows and degrade_rows
+        and recovery_s is not None and final_finite is not False
+    )
+    if not verdict["ok"]:
+        log(f"verdict: {json.dumps(verdict, indent=1)}")
     return verdict
 
 
@@ -1260,12 +1389,14 @@ def main(argv=None) -> int:
                              "(oom last), 'auto': the six recoverable classes "
                              "shuffled by --seed; or, alone, 'promote' (the "
                              "train-to-serve loop: trainer, promotion daemon, "
-                             "two-replica pool, load test) or 'autoscale' (the "
+                             "two-replica pool, load test), 'autoscale' (the "
                              "autoscaler over a one-replica pool under a load "
-                             "swing)")
+                             "swing) or 'killhost' (rank 1 of a two-rank fleet "
+                             "killed, through the dispatcher)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--devices", type=int, default=1,
-                        help="1 only (a mesh is ROADMAP A10)")
+                        help="ranks of the dp fleet the schedule runs on (one "
+                             "process each); a hang degrades it")
     parser.add_argument("--baseline", action="store_true",
                         help="also run an unfaulted twin and hold the replaying "
                              "classes to it bit for bit")
@@ -1275,8 +1406,11 @@ def main(argv=None) -> int:
     parser.add_argument("--workdir", default=None,
                         help="keep the runs here instead of a temporary directory")
     args = parser.parse_args(argv)
-    if args.devices != 1:
-        raise NotImplementedError("--devices > 1 (a mesh) is ROADMAP item A10")
+    if args.devices < 1:
+        parser.error(f"--devices must be >= 1, got {args.devices}")
+    if args.devices > 1 and args.baseline:
+        parser.error("--baseline is a one-process twin; a fleet that degrades "
+                     "sums its gradients in another order")
     if not args.tiny and args.workdir is None:
         parser.error("--tiny is required (or --workdir with a prepared dataset)")
     if args.schedule == "auto":
@@ -1289,15 +1423,17 @@ def main(argv=None) -> int:
         dataset = os.path.join(workdir, "omniglot_mini")
         if not os.path.isdir(dataset):
             make_tiny_dataset(dataset, seed=args.seed)
-        loops = {"promote": run_promote_chaos, "autoscale": run_autoscale_chaos}
+        loops = {"promote": run_promote_chaos, "autoscale": run_autoscale_chaos,
+                 "killhost": run_killhost_chaos}
         if len(schedule) == 1 and schedule[0] in loops:
             verdict = loops[schedule[0]](workdir, device=args.device,
                                          verbose=not args.json)
         elif set(schedule) & set(loops):
-            parser.error("promote and autoscale each run alone")
+            parser.error("promote, autoscale and killhost each run alone")
         else:
-            verdict = run_chaos(workdir, schedule, baseline=args.baseline,
-                                device=args.device, verbose=not args.json)
+            verdict = run_chaos(workdir, schedule, config=tiny_config(args.devices),
+                                baseline=args.baseline, device=args.device,
+                                verbose=not args.json)
         print(json.dumps(verdict))
         return 0 if verdict["ok"] else 2
     finally:

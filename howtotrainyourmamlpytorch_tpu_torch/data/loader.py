@@ -21,9 +21,13 @@ spawned processes, with prefetch (``howtotrainyourmamlpytorch_tpu/data/loader.py
 * A replay manifest (``episode_miner``'s) mixes mined hard episodes into
   the train stream: every ``replay_every``-th global episode slot draws the
   next mined seed. Validation and test streams never replay.
-
-Not ported, and refused where set: the per-host shard of a multi-host run
-(ROADMAP A10).
+* The per-host shard of a multi-process run (``data_shard_index`` of
+  ``data_shard_count``, stamped by ``get_args`` from the process group):
+  the loader synthesises only the contiguous ``[shard_lo, shard_lo +
+  shard_size)`` slice of every batch's episode indices. Seeds stay keyed
+  to the global episode index, so the shards of one batch, concatenated in
+  rank order, are the single-process batch bit for bit, and a resumed
+  sharded loader keeps the global seed window.
 """
 
 from __future__ import annotations
@@ -100,10 +104,12 @@ def _collate_episodes(episodes):
 
 
 def _synthesize_batch(dataset, set_name, seed_base, augment, b, global_batch,
-                      replay):
-    """Batch ``b`` of a generator, collated (both backends)."""
+                      shard, replay):
+    """This shard of batch ``b`` of a generator, collated (both backends);
+    ``shard`` is ``(shard_lo, shard_size)``."""
     replay_seeds, replay_every, replay_offset = replay
-    base = b * global_batch
+    shard_lo, shard_size = shard
+    base = b * global_batch + shard_lo
     return _collate_episodes([
         dataset.get_set(
             set_name,
@@ -111,15 +117,8 @@ def _synthesize_batch(dataset, set_name, seed_base, augment, b, global_batch,
                              replay_offset),
             augment_images=augment,
         )
-        for idx in range(base, base + global_batch)
+        for idx in range(base, base + shard_size)
     ])
-
-
-def _refuse_unported(args) -> None:
-    if int(getattr(args, "data_shard_count", 1) or 1) > 1:
-        raise NotImplementedError(
-            "a per-host data shard (data_shard_count > 1) is ROADMAP item A10"
-        )
 
 
 # ---------------------------------------------------------------------------
@@ -217,9 +216,9 @@ def _worker_ready() -> int:
 
 
 def _synthesize_batch_in_worker(set_name, seed_base, augment, b, global_batch,
-                                replay):
+                                shard, replay):
     return _synthesize_batch(_WORKER_DATASET, set_name, seed_base, augment, b,
-                             global_batch, replay)
+                             global_batch, shard, replay)
 
 
 class _SpawnedPool:
@@ -272,12 +271,19 @@ class MetaLearningSystemDataLoader:
     """Train/val/test episode-batch generators over the episode dataset."""
 
     def __init__(self, args, current_iter: int = 0):
-        _refuse_unported(args)
         self.args = args
         self.num_of_gpus = args.num_of_gpus
         self.batch_size = args.batch_size
         self.samples_per_iter = args.samples_per_iter
         self.num_workers = max(int(args.num_dataprovider_workers), 1)
+        # This loader's shard of every batch (0 of 1: the whole batch).
+        self.shard_index = int(getattr(args, "data_shard_index", 0) or 0)
+        self.shard_count = max(int(getattr(args, "data_shard_count", 1) or 1), 1)
+        if not 0 <= self.shard_index < self.shard_count:
+            raise ValueError(
+                f"data_shard_index {self.shard_index} out of range for "
+                f"{self.shard_count} shard(s)"
+            )
         self.total_train_iters_produced = 0
         # The hard-episode mix-in: off unless a manifest is set.
         manifest_path = str(getattr(args, "replay_manifest", "") or "").strip()
@@ -312,8 +318,26 @@ class MetaLearningSystemDataLoader:
 
     @property
     def global_batch(self) -> int:
-        """Episodes per yielded batch (``data.py:575-581``)."""
+        """Episodes per batch over all shards (``data.py:575-581``): seed
+        windows and epoch arithmetic do not depend on the shard count; a
+        sharded loader yields ``shard_size`` of them."""
         return self.num_of_gpus * self.batch_size * self.samples_per_iter
+
+    @property
+    def shard_size(self) -> int:
+        """Episodes this loader synthesises per batch."""
+        if self.global_batch % self.shard_count != 0:
+            raise ValueError(
+                f"global meta-batch {self.global_batch} not divisible by "
+                f"{self.shard_count} data-plane shard(s)"
+            )
+        return self.global_batch // self.shard_count
+
+    @property
+    def shard_lo(self) -> int:
+        """The first episode index (within a batch) of this shard: the
+        ``parallel/mesh.host_batch_bounds`` slice."""
+        return self.shard_index * self.shard_size
 
     @property
     def worker_startup_s(self) -> float | None:
@@ -355,16 +379,17 @@ class MetaLearningSystemDataLoader:
         out: queue.Queue = queue.Queue(maxsize=prefetch)
         sentinel = object()
         task = (set_name, seed_base, augment)
+        shard = (self.shard_lo, self.shard_size)
 
         if self._spawned is not None:
             spawned = self._spawned
 
             def submit(b):
-                return spawned.submit(*task, b, self.global_batch, replay)
+                return spawned.submit(*task, b, self.global_batch, shard, replay)
         else:
             def submit(b):
                 return self._pool.submit(_synthesize_batch, self.dataset, *task,
-                                         b, self.global_batch, replay)
+                                         b, self.global_batch, shard, replay)
 
         def produce():
             try:

@@ -60,7 +60,24 @@ The operations plane:
 * The fault points of ``utils/faultinject.py`` sit where the JAX builder's
   do.
 
-Multi-device and multi-process training raise (ROADMAP A10).
+A data-parallel fleet (``process_count`` > 1, stamped by ``get_args``
+from the process group; ``parallel/``) runs one builder per rank:
+
+* rank 0 is the chief, the single writer of the checkpoints, the summary
+  CSV/JSON and ``test_summary.csv`` (every rank holds the same replicated
+  state, so one writer loses nothing); audit rows and telemetry stay per
+  rank, with the rank on every event and in ``interruptions.csv``;
+* the state is rank 0's on every rank after init and after every load
+  (``models/common.CheckpointableLearner.replicate``), the experiment
+  state too;
+* barriers come before a rollback's reload and before the ensemble, so no
+  rank reads a checkpoint the chief is still publishing;
+* validation and test batches are sharded like train batches; the learner
+  reduces the metrics over ranks, and the ensemble gathers every rank's
+  per-task logits and targets.
+
+Only the MAML learners split a meta-batch over ranks; the sequential
+learners and ``--model_parallel_devices > 1`` raise (ROADMAP A10.2).
 """
 
 from __future__ import annotations
@@ -77,6 +94,8 @@ import torch
 
 from .data.device_prefetch import AUTO_DEPTH, DevicePrefetcher
 from .models.common import StagedBatch, dispatch_multiplier, prepare_batch
+from .parallel import multihost
+from .parallel.mesh import TENSOR_PARALLEL_ITEM, refuse_tensor_parallel
 from .telemetry.device import OOM_EXIT_CODE, is_resource_exhausted, write_oom_report
 from .telemetry.runtime import TrainTelemetry
 from .tune.space import fingerprint_from_args
@@ -116,22 +135,34 @@ class _RollbackSignal(Exception):
         self.trips = float(trips)
 
 
-def _refuse_unported(args) -> None:
-    """Multi-device and multi-process training raise (A10)."""
+def _check_topology(args, model) -> tuple[int, int]:
+    """``(process_index, process_count)`` of ``args``, refusing what the
+    port does not run: a policy it does not know, tensor parallelism
+    (A10.2), a fleet whose size is not the config's ``num_processes`` or
+    ``data_parallel_devices``, and a learner that cannot split its
+    meta-batch over the fleet's ranks."""
     policy = str(getattr(args, "on_nonfinite", "halt") or "halt").lower()
     if policy not in ("halt", "skip", "rollback"):
         raise ValueError(f"on_nonfinite must be halt|skip|rollback, got {policy!r}")
-    multi = (
-        int(getattr(args, "process_count", 1) or 1) > 1
-        or int(getattr(args, "num_processes", 0) or 0) > 1
-        or getattr(args, "coordinator_address", None)
-        or int(getattr(args, "data_parallel_devices", 0) or 0) > 1
-        or int(getattr(args, "model_parallel_devices", 1) or 1) > 1
-    )
-    if multi:
+    refuse_tensor_parallel(int(getattr(args, "model_parallel_devices", 1) or 1))
+    index = int(getattr(args, "process_index", 0) or 0)
+    count = max(int(getattr(args, "process_count", 1) or 1), 1)
+    for key in ("num_processes", "data_parallel_devices"):
+        want = int(getattr(args, key, 0) or 0)
+        if want > 1 and want != count:
+            raise ValueError(
+                f"{key} {want} needs a process group of {want} ranks "
+                f"(--num_processes {want}, or the dispatcher); this run has "
+                f"{count} process(es)"
+            )
+    if count > 1 and getattr(model, "dp", 1) != count:
         raise NotImplementedError(
-            "multi-device and multi-host training is ROADMAP item A10"
+            "multi-host training requires a learner that declares a dp batch "
+            "sharding for its step programs (MAML's dp path); this "
+            f"learner/mesh combination cannot span {count} processes "
+            f"({TENSOR_PARALLEL_ITEM} holds the sequential learners on a fleet)"
         )
+    return index, count
 
 
 def _log_due(current_iter: int, chunk: int) -> bool:
@@ -169,7 +200,10 @@ class ExperimentBuilder:
         called as ``data(args=args, current_iter=...)``; ``model``: a
         learner of the trainer contract; ``device``: the card unless the
         caller asks for another."""
-        _refuse_unported(args)
+        self.process_index, self.process_count = _check_topology(args, model)
+        # Rank 0 writes; every rank keeps its own audit rows and events.
+        self._is_chief = self.process_index == 0
+        self._multihost = self.process_count > 1
         self.args, self.model = args, model
         self._data_cls = data
         self.device = resolve_device(device)
@@ -203,6 +237,7 @@ class ExperimentBuilder:
             profile_trigger_path=str(knob("profile_trigger_path", "") or ""),
             peak_flops=float(knob("peak_flops", 0.0) or 0.0) or None,
             config_fingerprint=self._config_fingerprint(args),
+            process_index=self.process_index, process_count=self.process_count,
         )
         self.telemetry.heartbeat_extra = self._heartbeat_extra
         self.watchdog_enabled = bool(knob("watchdog", True))
@@ -212,9 +247,9 @@ class ExperimentBuilder:
         self._watchdog: DispatchWatchdog | None = None
         self._epoch_boundaries_done = 0
 
-        self.train_state = model.init_state(
+        self.train_state = model.replicate(model.init_state(
             torch.Generator().manual_seed(int(args.seed)), self.device
-        )
+        ))
         # The resume's checkpoint_load is this run's event.
         with self.telemetry.sink():
             if args.continue_from_epoch == "from_scratch":
@@ -225,12 +260,7 @@ class ExperimentBuilder:
                     self.args.continue_from_epoch = "from_scratch"
                     self.create_summary_csv = True
             elif int(args.continue_from_epoch) >= 0:
-                self.train_state, self.state = self.model.load_model(
-                    model_save_dir=self.saved_models_filepath,
-                    model_name="train_model",
-                    model_idx=args.continue_from_epoch,
-                    device=self.device,
-                )
+                self._load(args.continue_from_epoch)
                 self._align_summary_csv()
 
         self.data = data(args=args, current_iter=self.state["current_iter"])
@@ -327,6 +357,21 @@ class ExperimentBuilder:
     def _checkpoint_path(self, model_idx) -> str:
         return os.path.join(self.saved_models_filepath, f"train_model_{model_idx}")
 
+    def _load(self, model_idx) -> None:
+        """``train_model_<model_idx>`` as the state, rank 0's on every rank
+        of a fleet (the experiment state too)."""
+        train_state, state = self.model.load_model(
+            model_save_dir=self.saved_models_filepath, model_name="train_model",
+            model_idx=model_idx, device=self.device,
+        )
+        self.train_state = self.model.replicate(train_state)
+        self.state = multihost.broadcast_object(state)
+
+    def _barrier(self, tag: str) -> None:
+        """Every rank of a fleet meets here (nothing on one process)."""
+        if self._multihost:
+            multihost.barrier(tag)
+
     def _saved_epoch_indices(self) -> list[int]:
         """Epoch indices with a ``train_model_<e>`` file, newest first."""
         indices = []
@@ -348,19 +393,15 @@ class ExperimentBuilder:
         for model_idx in candidates:
             path = self._checkpoint_path(model_idx)
             try:
-                self.train_state, self.state = self.model.load_model(
-                    model_save_dir=self.saved_models_filepath,
-                    model_name="train_model",
-                    model_idx=model_idx,
-                    device=self.device,
-                )
+                self._load(model_idx)
                 print(f"resumed from checkpoint {path}")
                 self._align_summary_csv()
                 return True
             except CheckpointCorruptError as exc:
                 quarantined = path + ".corrupt"
                 try:
-                    os.replace(path, quarantined)
+                    if self._is_chief:
+                        os.replace(path, quarantined)
                 except FileNotFoundError:
                     pass
                 print(f"WARNING: {exc}; quarantined to {quarantined}, falling "
@@ -414,7 +455,8 @@ class ExperimentBuilder:
             except FileExistsError:
                 pass
         row = [time.time(), int(self._shutdown_signum) if kind is None else kind,
-               int(self.state["current_iter"]), self.epoch, 0, 1]
+               int(self.state["current_iter"]), self.epoch, self.process_index,
+               self.process_count]
         try:
             with open(interruptions) as f:
                 existing = f.readline().rstrip("\n").split(",")
@@ -528,7 +570,7 @@ class ExperimentBuilder:
             print("WARNING: non-finite meta-loss pending at shutdown; not "
                   "overwriting train_model_latest (the requeued run resumes "
                   "from the last epoch checkpoint)", file=sys.stderr)
-        else:
+        elif self._is_chief:
             self.model.save_model(path, self.train_state, self.state)
         self._write_interruption_row()
         print(("emergency checkpoint written to " + path if not trips
@@ -570,7 +612,9 @@ class ExperimentBuilder:
         state's epochs. An epoch's row is written before its checkpoint, so
         a process killed between the two (SIGKILL, the watchdog's exit, an
         async write still in flight) left a row that the replay of that
-        epoch writes again; the JAX builder keeps both."""
+        epoch writes again; the JAX builder keeps both. The chief's file."""
+        if not self._is_chief:
+            return
         path = os.path.join(self.logs_filepath, "summary_statistics.csv")
         stats = self.state.get("per_epoch_statistics") or {}
         epochs = len(next(iter(stats.values()), []))
@@ -655,6 +699,9 @@ class ExperimentBuilder:
         if self._ckpt_writer is not None:
             # The in-flight epoch write may be the newest valid state.
             self._ckpt_writer.drain()
+        # Every rank trips alike (the metrics are reduced), but only the
+        # chief's drain fenced a write: no rank reloads before it is out.
+        self._barrier("pre-rollback-reload")
         self._rollbacks_this_run += 1
         if self._rollbacks_this_run > MAX_ROLLBACKS_PER_RUN:
             raise NonFiniteLossError(
@@ -668,9 +715,9 @@ class ExperimentBuilder:
               "rolling back to the last valid checkpoint (rollback "
               f"{self._rollbacks_this_run}/{MAX_ROLLBACKS_PER_RUN})", file=sys.stderr)
         if not self._resume_from_latest():
-            self.train_state = self.model.init_state(
+            self.train_state = self.model.replicate(self.model.init_state(
                 torch.Generator().manual_seed(int(self.args.seed)), self.device
-            )
+            ))
             self.state = {"best_val_acc": 0.0, "best_val_iter": 0, "best_epoch": 0,
                           "current_iter": 0}
         self.state["nonfinite_trips_total"] = carry_trips
@@ -781,9 +828,10 @@ class ExperimentBuilder:
             self.train_state, (x_support, x_target, y_support, y_target)
         )
         # To the host batch by batch: the ensemble holds every model's
-        # test-set logits.
+        # test-set logits. A fleet's ranks each hold their tasks' logits:
+        # every rank gathers the whole batch's.
         per_model_per_batch_preds[model_idx].extend(
-            list(per_task_preds.detach().cpu().numpy())
+            list(multihost.gather_global(per_task_preds))
         )
         return per_model_per_batch_preds
 
@@ -797,6 +845,10 @@ class ExperimentBuilder:
         unless ``checkpoint_async`` is off, when the loop pays it all."""
         epoch_path = self._checkpoint_path(int(epoch))
         latest = self._checkpoint_path("latest")
+        if not self._is_chief:
+            # Rank 0 is the single writer of the replicated state.
+            self._last_ckpt_t = time.monotonic()
+            return
         t0 = time.perf_counter()
         if self._ckpt_writer is not None:
             snapshot = model.snapshot_model(self.train_state, state)
@@ -824,7 +876,7 @@ class ExperimentBuilder:
         if self.on_nonfinite != "skip" and self._pending_nonfinite_trips():
             print("WARNING: non-finite meta-loss pending at the checkpoint "
                   "interval; skipping the interval write", file=sys.stderr)
-        else:
+        elif self._is_chief:
             path = self._checkpoint_path("latest")
             t0 = time.perf_counter()
             if self._ckpt_writer is not None:
@@ -849,14 +901,18 @@ class ExperimentBuilder:
         epoch_summary_string = self.build_loss_summary_string(epoch_summary_losses)
         epoch_summary_losses["epoch"] = self.epoch
         epoch_summary_losses["epoch_run_time"] = time.time() - start_time
-        if create_summary_csv:
+        if create_summary_csv and self._is_chief:
             self.summary_statistics_filepath = save_statistics(
                 self.logs_filepath, list(epoch_summary_losses.keys()), create=True
             )
-            self.create_summary_csv = False
+        self.create_summary_csv = False
         start_time = time.time()
         print("epoch {} -> {}".format(epoch_summary_losses["epoch"],
                                       epoch_summary_string))
+        if not self._is_chief:
+            # Every rank keeps the statistics (the ensemble's choice of
+            # epochs must be the same everywhere); the chief writes them.
+            return start_time, state
         # A row follows the file's header: a resumed experiment whose CSV
         # has other columns gets its values under the right names.
         row = list(epoch_summary_losses.values())
@@ -886,17 +942,15 @@ class ExperimentBuilder:
         per_model_per_batch_targets = [[] for _ in range(top_n_models)]
         num_batches = int(self.args.num_evaluation_tasks / self.args.batch_size)
         for idx, model_idx in enumerate(top_n_idx):
-            self.train_state, self.state = self.model.load_model(
-                model_save_dir=self.saved_models_filepath,
-                model_name="train_model",
-                model_idx=int(model_idx) + 1,  # checkpoint files count from 1
-                device=self.device,
-            )
+            self._load(int(model_idx) + 1)  # checkpoint files count from 1
             for test_sample in self.data.get_test_batches(
                 total_batches=num_batches, augment_images=False
             ):
                 self._maybe_emergency_exit(write_checkpoint=False)
-                per_model_per_batch_targets[idx].extend(np.array(test_sample[3]))
+                # A fleet's loader yields this rank's shard: the targets of
+                # the whole batch match the gathered logits.
+                per_model_per_batch_targets[idx].extend(
+                    multihost.allgather_host(np.array(test_sample[3])))
                 per_model_per_batch_preds = self.test_evaluation_iteration(
                     val_sample=test_sample, model_idx=idx,
                     per_model_per_batch_preds=per_model_per_batch_preds,
@@ -911,10 +965,11 @@ class ExperimentBuilder:
             "test_accuracy_mean": np.mean(correct),
             "test_accuracy_std": np.std(correct),
         }
-        save_statistics(self.logs_filepath, list(test_losses.keys()),
-                        create=True, filename="test_summary.csv")
-        save_statistics(self.logs_filepath, list(test_losses.values()),
-                        create=False, filename="test_summary.csv")
+        if self._is_chief:
+            save_statistics(self.logs_filepath, list(test_losses.keys()),
+                            create=True, filename="test_summary.csv")
+            save_statistics(self.logs_filepath, list(test_losses.values()),
+                            create=False, filename="test_summary.csv")
         print(test_losses)
         return test_losses
 
@@ -930,7 +985,8 @@ class ExperimentBuilder:
             self._watchdog = DispatchWatchdog(
                 min_deadline_s=self.watchdog_min_s, factor=self.watchdog_factor,
                 logs_dir=self.logs_filepath, on_hang=self._on_hang,
-                identity={"process_index": 0, "process_count": 1},
+                identity={"process_index": self.process_index,
+                          "process_count": self.process_count},
                 capture_count=self._captures,
             )
         try:
@@ -989,9 +1045,11 @@ class ExperimentBuilder:
                     f"of {total_iters}"
                 )
         # The last epoch's write must be on disk before the ensemble reads
-        # the checkpoints (and a failed write fails the run here).
+        # the checkpoints (and a failed write fails the run here); on a
+        # fleet no rank reads before the chief's write is out.
         if self._ckpt_writer is not None:
             self._ckpt_writer.drain()
+        self._barrier("pre-ensemble")
         return self.evaluated_test_set_using_the_best_models(top_n_models=5)
 
     def _make_stager(self, batches) -> DevicePrefetcher | None:
@@ -1129,10 +1187,11 @@ class ExperimentBuilder:
         self.total_losses = {}
         self.epochs_done_in_this_run += 1
         self._epoch_boundaries_done += 1
-        save_to_json(
-            filename=os.path.join(self.logs_filepath, "summary_statistics.json"),
-            dict_to_store=self.state["per_epoch_statistics"],
-        )
+        if self._is_chief:
+            save_to_json(
+                filename=os.path.join(self.logs_filepath, "summary_statistics.json"),
+                dict_to_store=self.state["per_epoch_statistics"],
+            )
         self.telemetry.flush()
         if self.epochs_done_in_this_run >= self.total_epochs_before_pause:
             print(

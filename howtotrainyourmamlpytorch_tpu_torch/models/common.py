@@ -406,9 +406,10 @@ class CheckpointableLearner:
     """Checkpoint methods of the trainer contract
     (``howtotrainyourmamlpytorch_tpu/models/common.py:459``): a train state
     and the experiment state in one archive of the JAX package's format,
-    rebuilt on load from a fresh state of this learner's config. One
-    device, so nothing is gathered. The archive's layout follows the state
-    (``utils/checkpoint``); a learner with serve-time state beyond the
+    rebuilt on load from a fresh state of this learner's config. The state
+    is replicated on every rank, so nothing is gathered. The archive's
+    layout follows the state (``utils/checkpoint``); a learner with
+    serve-time state beyond the
     checkpoint's prefix overrides ``load_inference_state``.
 
     Archives never hold lane padding (``ops/layout.py``): a learner whose
@@ -484,6 +485,19 @@ class CheckpointableLearner:
         ``device`` (the card by default)."""
         filepath = os.path.join(model_save_dir, f"{model_name}_{model_idx}")
         return self._load(checkpoint.load_checkpoint, filepath, "init_state", device)
+
+    def replicate(self, state):
+        """``state`` replicated over the ranks of a multi-process learner:
+        rank 0's values on every rank (one broadcast per dtype bucket),
+        after init and after every load, so no rank trains from a state of
+        its own. The identity on one process. Checkpoints hold no layout:
+        a fleet's resumes on one process and the other way round."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is None or mesh.world <= 1:
+            return state
+        from ..parallel.collectives import broadcast_tree
+
+        return broadcast_tree(state)
 
     def load_inference_state(self, filepath: str, device=None):
         """``(inference_state, experiment_state)``: the parameters, LSLR

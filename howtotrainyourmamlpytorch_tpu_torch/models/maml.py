@@ -38,6 +38,18 @@ task axis through one vmapped program; here each chunk's forward and outer
 backward run before the next chunk's forward, its loss scaled by chunk/B
 and the gradients summed, so live activations are bounded by the chunk.
 The per-task metrics are put back on the full ``(B, ...)`` task axis.
+
+Data parallel (``mesh``, ``maml.py:920-962``). On a dp layout of ``dp``
+ranks (``parallel/mesh.py``) each rank runs the meta-loss on its own
+slice of the tasks, chunked by ``task_chunk / dp`` where chunking is on,
+its loss scaled by the same expression as a chunk's (its tasks over the
+global count) and its accuracy and BN state by ``1 / dp``; the four are
+all-reduced with the ``collective_fusion`` the config selects (one
+all-reduce per dtype bucket by default) and Adam runs on every rank on
+the reduced gradients, so the state stays replicated. Two ranks therefore
+add the same two gradient terms as the single-process step with
+``task_chunk = B/2``, bit for bit. On a card the captured step is split
+at that seam (``models/step_graph.py``). ANIL inherits all of it.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..inner_loop import init_lslr, lslr_update
 from ..ops.losses import masked_cross_entropy, nll
+from ..parallel.collectives import guard_task_chunk, reduce_fn
 from ..utils import sanitize
 from ..utils.platform import resolve_device, set_f32_numerics
 from ..utils.trees import (
@@ -227,8 +240,14 @@ class MAMLFewShotLearner(CheckpointableLearner):
     """The MAML/MAML++ learner: the train and eval steps of the reference
     trainer contract, and the serving half."""
 
-    def __init__(self, cfg: MAMLConfig):
+    def __init__(self, cfg: MAMLConfig, mesh=None):
+        """``mesh``: a ``parallel.mesh.Mesh`` of ``dp`` ranks, or None on one
+        process."""
         self.cfg = cfg
+        self.mesh = mesh
+        guard_task_chunk(mesh, cfg.task_chunk)
+        #: The dp extent: the ranks the task axis is split over.
+        self.dp = 1 if mesh is None else int(mesh.dp)
         self.backbone = build_backbone(cfg.backbone)
         self.tx = make_injected_adam(cfg.meta_learning_rate, cfg.clip_grad_value)
         self.current_epoch = 0
@@ -414,9 +433,10 @@ class MAMLFewShotLearner(CheckpointableLearner):
 
     def _task_chunks(self, batch) -> list:
         """``batch`` cut on its task axis into chunks of ``task_chunk``
-        tasks; the whole batch, alone, when ``task_chunk`` is 0 or at least
-        the task count (``maml.py:826-835``)."""
-        tasks, chunk = batch[0].shape[0], self.cfg.task_chunk
+        tasks (``task_chunk / dp`` on a rank's slice); the whole batch,
+        alone, when that is 0 or at least the task count
+        (``maml.py:826-835``)."""
+        tasks, chunk = batch[0].shape[0], self.cfg.task_chunk // self.dp
         if not 0 < chunk < tasks:
             return [batch]
         if tasks % chunk:
@@ -426,16 +446,18 @@ class MAMLFewShotLearner(CheckpointableLearner):
             )
         return [tuple(a[i:i + chunk] for a in batch) for i in range(0, tasks, chunk)]
 
-    def _meta_grads(self, state: TrainState, batch, importance, *,
-                    second_order, final_only):
-        """``(loss, accuracy_mean, bn_state_mean, grads)`` of one meta-step
-        (``maml.py:881-918``, off-mesh); ``grads`` over ``{"theta",
+    def _meta_grads_local(self, state: TrainState, batch, importance, *,
+                          second_order, final_only):
+        """This rank's ``(loss, accuracy_mean, bn_state_mean, grads)`` of one
+        meta-step (``maml.py:881-962``); ``grads`` over ``{"theta",
         "lslr"}``, the BN state averaged over tasks. With task chunks, each
-        chunk's loss (its task mean times chunk/B) is differentiated before
-        the next chunk runs and the gradients are summed."""
+        chunk's loss (its task mean times chunk/B, B the global task count)
+        is differentiated before the next chunk runs and the gradients are
+        summed. On ``dp`` ranks the accuracy and BN state carry ``1 / dp``:
+        the sum over ranks is the whole meta-step's."""
         outer = {"theta": state.theta, "lslr": state.lslr}
         leaves = [a.detach().requires_grad_() for a in tree_leaves(outer)]
-        tasks = batch[0].shape[0]
+        tasks = batch[0].shape[0] * self.dp
         losses, grads, accuracy, bn_states = [], None, [], []
         for chunk in self._task_chunks(batch):
             share = chunk[0].shape[0] / tasks
@@ -460,21 +482,48 @@ class MAMLFewShotLearner(CheckpointableLearner):
             losses.append(loss.detach())
             accuracy.append(aux["accuracy"])
             bn_states.append(aux["bn_state"])
-        bn_mean = tree_map(lambda *s: _task_cat(s).mean(dim=0), *bn_states)
+        bn_mean = tree_map(lambda *s: self._rank_share(_task_cat(s).mean(dim=0)),
+                           *bn_states)
         return (
-            sum(losses[1:], losses[0]), _task_cat(accuracy).mean(), bn_mean,
-            tree_unflatten(outer, grads),
+            sum(losses[1:], losses[0]), self._rank_share(_task_cat(accuracy).mean()),
+            bn_mean, tree_unflatten(outer, grads),
         )
+
+    def _rank_share(self, value: torch.Tensor) -> torch.Tensor:
+        """A rank's mean as its share of the mean over ranks (``/ dp``)."""
+        return value if self.dp == 1 else value / self.dp
+
+    def _reduce(self, parts):
+        """The sum over ranks of a rank's metric and gradient parts (the
+        identity on one process)."""
+        if self.dp == 1:
+            return parts
+        return reduce_fn(self.cfg.collective_fusion)(parts)
+
+    def _meta_grads(self, state: TrainState, batch, importance, *,
+                    second_order, final_only):
+        """``(loss, accuracy_mean, bn_state_mean, grads)`` of one meta-step
+        over every rank's tasks."""
+        return self._reduce(self._meta_grads_local(
+            state, batch, importance,
+            second_order=second_order, final_only=final_only,
+        ))
 
     @torch.no_grad()
     def _train_step(self, state: TrainState, batch, importance, *,
                     second_order, final_only=False):
         """One meta-update (``maml.py:964-996``): meta-gradients, Adam on
         the trainable leaves, the divergence sentinel."""
-        loss, accuracy, bn_state, grads = self._meta_grads(
+        return self._apply_meta_update(state, self._meta_grads(
             state, batch, importance,
             second_order=second_order, final_only=final_only,
-        )
+        ))
+
+    @torch.no_grad()
+    def _apply_meta_update(self, state: TrainState, reduced):
+        """Adam on the reduced gradients and the sentinel on the reduced
+        loss and gradients: the half of the step after the reduction."""
+        loss, accuracy, bn_state, grads = reduced
         outer = {"theta": state.theta, "lslr": state.lslr}
         outer, opt_state = self.tx.step(outer, grads, state.opt_state)
         new_state = TrainState(
@@ -494,9 +543,11 @@ class MAMLFewShotLearner(CheckpointableLearner):
 
     def _evaluation_step(self, state, batch, importance, *, final_only=False):
         """Adaptation and target evaluation at first order, chunk by chunk
-        of tasks; the BN state is discarded (``maml.py:998-1019``)."""
+        of tasks; the BN state is discarded (``maml.py:998-1019``). On ``dp``
+        ranks the loss and accuracy are reduced over ranks and the logits
+        are this rank's tasks'."""
         cfg = self.cfg
-        tasks = batch[0].shape[0]
+        tasks = batch[0].shape[0] * self.dp
         losses, accuracy, logits = [], [], []
         for chunk in self._task_chunks(batch):
             share = chunk[0].shape[0] / tasks
@@ -509,9 +560,10 @@ class MAMLFewShotLearner(CheckpointableLearner):
             losses.append(loss.detach() if share == 1.0 else loss.detach() * share)
             accuracy.append(aux["accuracy"])
             logits.append(aux["logits"])
-        metrics = dict(loss=sum(losses[1:], losses[0]),
-                       accuracy=_task_cat(accuracy).mean())
-        return metrics, _task_cat(logits)
+        loss, accuracy = self._reduce((
+            sum(losses[1:], losses[0]), self._rank_share(_task_cat(accuracy).mean())
+        ))
+        return dict(loss=loss, accuracy=accuracy), _task_cat(logits)
 
     # ------------------------------------------------------------------
     # Reference trainer contract

@@ -51,6 +51,19 @@ kernel nodes a replay launches can be read back from it
 (``graph.raw_cuda_graph()``). Each capture emits a ``capture`` event
 (the program ledger's name and signature, ``capture_s``, the launches):
 the port's counterpart of the JAX package's compile events.
+
+On a learner of ``dp`` > 1 ranks the step is split at the reduction seam,
+because the all-reduce of a gloo group runs on the host and cannot sit
+inside a capture: graph A computes the rank's meta-gradient parts
+(``_meta_grads_local``) into one static flat buffer per dtype
+(``parallel/collectives.flatten_buckets``); the buffers are all-reduced
+in place between the replays; graph B runs Adam and the sentinel
+(``_apply_meta_update``) from them. A dispatch of K runs K times A, the
+reduction, B. The launches each graph captured are kept per graph
+(``part_launches``); ``launches`` is their sum, and ``reduce_s`` the host
+seconds the reductions took, which each dispatch also emits as a
+``reduce`` event (its seconds, its K and the bytes a rank reduces a
+step). One rank's step stays one graph.
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ import numpy as np
 import torch
 
 from ..ops import fused_norm
+from ..parallel.collectives import all_reduce_, flatten_buckets, unflatten_buckets
 from ..telemetry import events as telemetry_events
 from ..telemetry.device import program_name, program_signature
 from ..utils.trees import tree_leaves, tree_map, tree_unflatten
@@ -110,34 +124,81 @@ class StepGraph:
         for dst, src in zip(self._batch, batch):
             dst.copy_(src)
 
+        branch = dict(second_order=second_order, final_only=final_only)
+
         def step():
             return learner._train_step(
-                self._inputs, self._batch, self._importance,
-                second_order=second_order, final_only=final_only,
+                self._inputs, self._batch, self._importance, **branch
             )
 
+        def grads_part():
+            """Graph A: the rank's parts, into one flat buffer per dtype."""
+            return flatten_buckets(learner._meta_grads_local(
+                self._inputs, self._batch, self._importance, **branch
+            ))
+
+        def update_part(buckets, spec):
+            """Graph B: the update from the reduced buffers."""
+            new_state, metrics = learner._apply_meta_update(
+                self._inputs, unflatten_buckets(buckets, spec)
+            )
+            return new_state, torch.stack(
+                [metrics["loss"], metrics["accuracy"], metrics["nonfinite"]]
+            )
+
+        self.split = learner.dp > 1
+        self.reduce_s = 0.0
         current = torch.cuda.current_stream(device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream), contextlib.ExitStack() as hooks:
             for hook in list(warmup_hooks):
                 hooks.enter_context(hook(key, WARMUP_STEPS))
             for _ in range(WARMUP_STEPS):
-                step()
+                if self.split:
+                    # Every rank warms up in step, the reduction included.
+                    buckets, spec = grads_part()
+                    self._reduce(buckets)
+                    update_part(buckets, spec)
+                else:
+                    step()
         current.wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = dict(fused_norm.launch_counts)
-        # thread_local: the prefetcher's thread may pin host memory and
-        # copy on its own stream while this thread captures.
-        with collector_paused(), torch.cuda.graph(
-            self.graph, stream=stream, capture_error_mode="thread_local"
-        ):
-            self._outputs, metrics = step()
-            self._metrics = torch.stack(
-                [metrics["loss"], metrics["accuracy"], metrics["nonfinite"]]
+
+        def capture(fn, *args):
+            """``fn`` captured into a new graph: ``(graph, its outputs, the
+            launches it recorded)``."""
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            before = dict(fused_norm.launch_counts)
+            # thread_local: the prefetcher's thread may pin host memory and
+            # copy on its own stream while this thread captures.
+            with collector_paused(), torch.cuda.graph(
+                graph, stream=stream, capture_error_mode="thread_local"
+            ):
+                out = fn(*args)
+            graph.instantiate()
+            return graph, out, {
+                name: fused_norm.launch_counts[name] - before[name] for name in before
+            }
+
+        if self.split:
+            self.graph, (self._buckets, spec), grads_launches = capture(grads_part)
+            self.update_graph, (self._outputs, self._metrics), update_launches = capture(
+                update_part, self._buckets, spec
             )
-        self.graph.instantiate()
+            self.part_launches = {"meta_grads": grads_launches,
+                                  "update": update_launches}
+        else:
+            def whole():
+                new_state, metrics = step()
+                return new_state, torch.stack(
+                    [metrics["loss"], metrics["accuracy"], metrics["nonfinite"]]
+                )
+
+            self.graph, (self._outputs, self._metrics), launches = capture(whole)
+            self.update_graph = None
+            self.part_launches = {"step": launches}
         self.launches = {
-            name: fused_norm.launch_counts[name] - before[name] for name in before
+            name: sum(part[name] for part in self.part_launches.values())
+            for name in fused_norm.launch_counts
         }
         self.replays = 0
         out_leaves = tree_leaves(self._outputs)
@@ -153,6 +214,17 @@ class StepGraph:
         # Host seconds of the warm-up and the capture (entering the capture
         # synchronizes the device, so the warm-up's device time is in it).
         self.capture_s = time.perf_counter() - t0
+
+    def _reduce(self, buckets: dict) -> None:
+        """The all-reduce of the flat buffers, in place. The host first
+        waits for the work queued before it (graph A), which a reduction
+        through the host would wait for anyway, so that ``reduce_s`` times
+        the reduction alone (and the wait for the slowest rank)."""
+        torch.cuda.current_stream().synchronize()
+        t0 = time.perf_counter()
+        for buf in buckets.values():
+            all_reduce_(buf)
+        self.reduce_s += time.perf_counter() - t0
 
     def _load(self, state, importance: np.ndarray, lr: float) -> None:
         """The caller's state, the epoch's learning rate and importance
@@ -181,6 +253,9 @@ class StepGraph:
             for dst, src in zip(self._batch, group):
                 dst.copy_(src[k])
             self.graph.replay()
+            if self.split:
+                self._reduce(self._buckets)
+                self.update_graph.replay()
             self.replays += 1
             metrics[:, k].copy_(self._metrics)
         fresh = [torch.empty_like(a) for a in self._out_leaves]
@@ -215,4 +290,13 @@ class StepGraphs:
                 signature=program_signature(key[2]), capture_s=graph.capture_s,
                 launches=dict(graph.launches),
             )
-        return graph.dispatch(state, group, importance, lr)
+        if not graph.split:
+            return graph.dispatch(state, group, importance, lr)
+        before = graph.reduce_s
+        out = graph.dispatch(state, group, importance, lr)
+        telemetry_events.emit(
+            "reduce", name=program_name(second_order, final_only),
+            k=int(group[0].shape[0]), reduce_s=graph.reduce_s - before,
+            bytes=sum(b.numel() * b.element_size() for b in graph._buckets.values()),
+        )
+        return out

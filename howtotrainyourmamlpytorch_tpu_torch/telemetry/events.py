@@ -18,7 +18,8 @@ The training events and their fields are the JAX package's: ``step``,
 ``data_fault``, ``anomaly``, ``memory``, ``epoch_summary``,
 ``program_profile``, ``profile_start`` / ``profile_stop``, ``run_start`` /
 ``run_end``; and the port's ``capture`` (a train step's CUDA-graph
-capture, where the JAX package emits ``compile``).
+capture, where the JAX package emits ``compile``) and ``reduce`` (a
+fleet rank's all-reduces of one dispatch: seconds, K, bytes a step).
 
 A process-wide context (``set_context``: the run's ``trace_id``) is merged
 into every event, whichever thread emits it. The dispatcher hands one

@@ -1,5 +1,5 @@
 """The trainer's heartbeat, ``logs/status.json``
-(``howtotrainyourmamlpytorch_tpu/telemetry/heartbeat.py``, one process).
+(``howtotrainyourmamlpytorch_tpu/telemetry/heartbeat.py``).
 
 One small JSON document, replaced atomically at the loop's existing
 forced-read boundaries (the log cadence and the epoch summary): last-known
@@ -13,8 +13,9 @@ reads it for its audit rows.
   reader never sees a torn document.
 * Never fatal: an I/O failure drops the beat with one warning.
 
-Every rank of a multi-process run would write its own file; ranks are
-ROADMAP A10, so there is one, ``status.json``.
+Every rank of a multi-process run writes its own file, so no two race
+one rename target: rank 0 ``status.json`` (what the dispatcher reads),
+rank k ``status.r<k>.json``.
 """
 
 from __future__ import annotations
@@ -27,8 +28,11 @@ import time
 HEARTBEAT_SCHEMA = 1
 
 
-def heartbeat_path(logs_dir: str) -> str:
-    return os.path.join(logs_dir, "status.json")
+def heartbeat_path(logs_dir: str, process_index: int = 0) -> str:
+    """Rank ``process_index``'s heartbeat file in ``logs_dir``."""
+    return os.path.join(
+        logs_dir, "status.json" if process_index == 0 else f"status.r{process_index}.json"
+    )
 
 
 class HeartbeatWriter:

@@ -56,7 +56,8 @@ class TrainTelemetry:
                  profile_trace_path: str = "", profile_num_iters: int = 20,
                  profile_trigger_path: str = "", trace_id: str | None = None,
                  peak_flops: float | None = None,
-                 config_fingerprint: str | None = None):
+                 config_fingerprint: str | None = None,
+                 process_index: int = 0, process_count: int = 1):
         self.enabled = bool(enabled)
         self.logs_dir = logs_dir
         # The resolved knob set's id (``tune.space.config_fingerprint``),
@@ -65,10 +66,13 @@ class TrainTelemetry:
         self.config_fingerprint = str(config_fingerprint) if config_fingerprint else None
         self.trace_id = str(trace_id or os.environ.get(telemetry_events.TRACE_ID_ENV)
                             or telemetry_events.new_trace_id())
-        # One process on one card; the JAX package's topology columns.
-        self.n_devices, self.mesh_dp, self.mesh_mp = 1, 1, 1
-        self.process_index, self.process_count = 0, 1
-        self.mesh_shape = "single"
+        # The JAX package's topology columns: one card a rank, the dp
+        # extent the process count.
+        self.process_index, self.process_count = int(process_index), int(process_count)
+        self.n_devices, self.mesh_dp, self.mesh_mp = self.process_count, self.process_count, 1
+        self.mesh_shape = (
+            "single" if self.process_count == 1 else f"dp{self.process_count}xmp1"
+        )
         self.events: EventLog | None = (
             EventLog(os.path.join(logs_dir, "telemetry.jsonl")) if self.enabled else None
         )
@@ -87,7 +91,7 @@ class TrainTelemetry:
         self.memory_growth = MemoryGrowthDetector()
         self.ledger = (device_ledger.ProgramLedger(peak_flops=peak_flops)
                        if self.enabled else None)
-        self._heartbeat = (HeartbeatWriter(heartbeat_path(logs_dir))
+        self._heartbeat = (HeartbeatWriter(heartbeat_path(logs_dir, self.process_index))
                            if self.enabled else None)
         #: The builder's extra heartbeat fields (a cheap callable, host only).
         self.heartbeat_extra = None

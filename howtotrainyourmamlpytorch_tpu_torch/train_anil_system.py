@@ -20,7 +20,7 @@ from .train_maml_system import run
 def main(argv=None) -> dict:
     """Trains, validates and tests the experiment ``argv`` names; returns
     the ensemble's test losses. Raises without a CUDA device."""
-    return run(lambda cfg, args: ANILLearner(cfg), argv)
+    return run(lambda cfg, args, mesh: ANILLearner(cfg, mesh=mesh), argv)
 
 
 if __name__ == "__main__":

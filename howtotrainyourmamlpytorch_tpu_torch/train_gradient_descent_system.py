@@ -21,7 +21,7 @@ from .train_maml_system import run
 def main(argv=None) -> dict:
     """Trains, validates and tests the experiment ``argv`` names; returns
     the ensemble's test losses. Raises without a CUDA device."""
-    return run(lambda cfg, args: GradientDescentLearner(cfg), argv)
+    return run(lambda cfg, args, mesh: GradientDescentLearner(cfg), argv)
 
 
 if __name__ == "__main__":

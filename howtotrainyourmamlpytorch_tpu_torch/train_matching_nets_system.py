@@ -22,7 +22,7 @@ def main(argv=None) -> dict:
     """Trains, validates and tests the experiment ``argv`` names; returns
     the ensemble's test losses. Raises without a CUDA device."""
     return run(
-        lambda cfg, args: MatchingNetsLearner(cfg, parity_bug=bool(args.parity_bug)),
+        lambda cfg, args, mesh: MatchingNetsLearner(cfg, parity_bug=bool(args.parity_bug)),
         argv,
     )
 

@@ -12,7 +12,11 @@ JAX package's flags, defaults and merge order
 
 ``get_args`` returns ``(args, device)``: the card, or a raise unless the
 caller asks for the CPU, in its argument or with ``--device cpu`` (which the
-dispatcher and the chaos harness pass on to the runs they start).
+dispatcher and the chaos harness pass on to the runs they start). It runs
+after ``parallel.initialize_distributed_from_argv`` and stamps the process
+group's identity on ``args`` (``process_index``/``process_count``, and the
+loader's ``data_shard_index``/``data_shard_count`` unless the config sets
+them); a rank's card is ``cuda:<local rank mod device count>``.
 ``load_maml_config`` reads a JSON alone (no command line, no
 ``DATASET_DIR``) for the entry points that take no data.
 
@@ -31,10 +35,14 @@ import argparse
 import json
 import os
 
+import torch
+
 from ..models.backbone import BackboneConfig
 from ..models.common import DeviceAugment, WireCodec
 from ..models.maml import MAMLConfig
 from . import sanitize
+from ..parallel.distributed import local_rank, process_count, process_index
+from ..parallel.mesh import rank_device
 from .platform import resolve_device
 
 
@@ -196,12 +204,27 @@ def get_args(argv=None, device=None):
     )
     args = Bunch(args_dict)
     args.compute_dtype = resolve_compute_dtype(args.compute_dtype)
-    # One process: the JAX package's host identity of a single-host run.
-    args.process_index, args.process_count = 0, 1
+    # The process group's identity (0 of 1 without one), read once here
+    # for telemetry, the loader's shard and the checkpoint writer.
+    args.process_index, args.process_count = process_index(), process_count()
+    want_procs = int(getattr(args, "num_processes", 0) or 0)
+    if want_procs > 1 and args.process_count != want_procs:
+        raise ValueError(
+            f"--num_processes {want_procs} but the process group spans "
+            f"{args.process_count} process(es); was "
+            "initialize_distributed_from_argv called before get_args, with a "
+            "reachable --coordinator_address and a --process_id?"
+        )
     if int(getattr(args, "data_shard_count", 0) or 0) < 1:
-        args.data_shard_index, args.data_shard_count = 0, 1
+        args.data_shard_index = args.process_index
+        args.data_shard_count = args.process_count
     sanitize.set_debug_nans(bool(args.debug_nans))
-    device = resolve_device(device if device is not None else flags.device)
+    device = device if device is not None else flags.device
+    if args.process_count > 1:
+        device = rank_device(local_rank(), device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+    device = resolve_device(device)
     print("use device", device)
     return args, device
 

@@ -24,8 +24,13 @@ an event with a diagnostic and an exit code:
   one, and a graph in flight on the card cannot be interrupted.
 
 76 is not the preemption code (75): a preempted run resumes as it was, a
-hung one makes the device suspect (on one card the dispatcher resumes on
-the same device; a smaller mesh is ROADMAP A10).
+hung one makes the topology suspect (the dispatcher resumes a dp-N fleet
+on ``degraded_dp_extent`` ranks; one card resumes on the same device).
+
+On a fleet a collective that never returns (a peer wedged, or gone without
+closing its connection) is inside the dispatch's window like any other
+device work, so it trips the watchdog the same way; the ``hang`` event
+carries the rank (``identity``: ``process_index``/``process_count``).
 """
 
 from __future__ import annotations

@@ -4,8 +4,12 @@ plans are the JAX harness's (``tools/chaos_train.py``), and a tiny
 supervised run of ``enospc,sigterm,kill,hang`` through the port's
 dispatcher recovers every fault and ends bit for bit on its unfaulted
 twin (``train_model_latest`` and the summary CSV without its wall-clock
-columns); ``oom`` ends a run with exit 77 and its report."""
+columns); ``oom`` ends a run with exit 77 and its report. The command line's
+``--devices 2 --schedule killhost`` kills rank 1 of a two-rank fleet and
+recovers on one process (JAX ``tools/chaos_train.py:540-660``); the tiny
+config on N ranks is the JAX harness's ``tiny_config(..., devices=N)``."""
 
+import json
 import os
 import subprocess
 import sys
@@ -94,11 +98,57 @@ def test_oom_ends_the_run_with_its_report(tmp_path):
     assert verdict["faults"]["oom"]["report"]["error_type"] == "torch.OutOfMemoryError"
 
 
-def test_the_command_line_refuses_a_mesh():
+def test_the_command_line_refuses_a_mesh(tmp_path):
+    """``--devices 2 --schedule killhost``: rank 1 SIGKILLed at iteration 3;
+    the dispatcher writes the host-loss row, resumes on one process, and
+    the run completes finite. The verdict's keys and ``ok`` are the JAX
+    harness's. (A baseline twin of a fleet is refused.)"""
     proc = subprocess.run(
         [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.chaos_train",
-         "--tiny", "--devices", "2"],
+         "--tiny", "--devices", "2", "--schedule", "killhost", "--device", "cpu",
+         "--json"],
+        capture_output=True, text=True, cwd=REPO, timeout=600,
+        env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"},
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    verdict = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(verdict) >= {"completed", "dispatcher_rc", "survivor_hang_detected",
+                            "host_loss_audit_rows", "degraded_to_one_process",
+                            "multihost_recovery_s", "final_finite", "ok"}
+    assert verdict["ok"] and verdict["completed"] and verdict["dispatcher_rc"] == 0
+    assert verdict["degraded_to_one_process"] and verdict["final_finite"]
+    assert verdict["host_loss_audit_rows"][0].split(",")[1] == (
+        "host-loss:rank1-degrade:procs2->procs1")
+    assert 0 < verdict["multihost_recovery_s"] < 120
+    refused = subprocess.run(
+        [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.chaos_train",
+         "--tiny", "--devices", "2", "--baseline"],
         capture_output=True, text=True, cwd=REPO, timeout=120,
         env={**os.environ, "PYTHONPATH": REPO},
     )
-    assert proc.returncode != 0 and "A10" in proc.stderr
+    assert refused.returncode == 2 and "--baseline" in refused.stderr
+
+
+def test_the_tiny_config_on_n_ranks_is_the_jax_harness(tmp_path):
+    for devices in (1, 2):
+        with open(jax_chaos.tiny_config(str(tmp_path), "cfg", devices=devices)) as f:
+            want = json.load(f)
+        want.pop("experiment_name")
+        assert chaos_train.tiny_config(devices) == want
+
+
+def test_the_ranks_of_a_fleet_phase_share_its_plan(tmp_path):
+    """Under ``--devices N`` the dispatcher starts N phase runners a phase:
+    ranks with one coordinator address take one phase index, the next
+    address the next, a one-process phase always the next."""
+    state_path = tmp_path / "phases.json"
+    state_path.write_text(json.dumps({"phases": [["kill"], ["hang"], []], "next": 0}))
+
+    def claim(*argv):
+        return chaos_train._claim_phase(str(state_path), list(argv))[1]
+
+    first = ("--coordinator_address", "127.0.0.1:1", "--process_id")
+    assert [claim(*first, "0"), claim(*first, "1")] == [0, 0]
+    assert claim("--name_of_args_json_file", "cfg.json") == 1
+    second = ("--coordinator_address", "127.0.0.1:2", "--process_id")
+    assert [claim(*second, "1"), claim(*second, "0")] == [2, 2]

@@ -6,7 +6,13 @@ planned progress. On one card a hang or two signal deaths rerun on the
 same device (the JAX dispatcher's "no smaller viable mesh" branch), each
 class on its own budget; 77 stops at once; the audit rows carry the
 heartbeat's progress; one trace id reaches every phase; ``MAML_FAULTS``
-only the first. A mesh's degrade and the fleet raise (A10)."""
+only the first. A dp-N config is an N-rank fleet whose hang degrades it
+(``hang-degrade:dp4->dp2``) and whose clean degraded phase probes it back
+up; the fleet flags (``--num_processes``, ``--fault_rank``,
+``--fleet_grace_s``) are the dispatcher's own, on the harness of
+``tests/test_multihost.py`` (``fleet_harness``: a stub that keys its plan
+by rank). Host loss, preemption and fault targeting are in
+``tests/test_torch_fleet.py``."""
 
 import json
 import os
@@ -22,6 +28,7 @@ from howtotrainyourmamlpytorch_tpu_torch.telemetry.events import TRACE_ID_ENV
 from howtotrainyourmamlpytorch_tpu_torch.utils.watchdog import HANG_EXIT_CODE
 
 from test_dispatch_supervise import STUB
+from test_multihost import FLEET_STUB
 
 
 @pytest.fixture
@@ -49,6 +56,42 @@ def harness(tmp_path, monkeypatch):
         rc = dispatch.main(["chaostest", *argv])
         calls = ([json.loads(line) for line in log_path.read_text().splitlines()]
                  if log_path.exists() else [])
+        audit_path = tmp_path / "exp" / "logs" / "interruptions.csv"
+        audit = audit_path.read_text().splitlines()[1:] if audit_path.exists() else []
+        return rc, calls, audit
+
+    return run
+
+
+@pytest.fixture
+def fleet_harness(tmp_path, monkeypatch):
+    """``run(plans, cfg_overrides, *argv)`` -> (exit code, invocations by
+    plan key, audit rows): each rank's stub reads the plan of its key
+    (``rank<k>``, or ``single`` without ``--process_id``), as the JAX
+    fleet harness's (``tests/test_multihost.py:380``)."""
+    monkeypatch.chdir(tmp_path)
+    stub_path = tmp_path / "stub_entry.py"
+    stub_path.write_text(FLEET_STUB)
+    monkeypatch.setenv(dispatch.ENTRY_ENV, str(stub_path))
+    plan_dir = tmp_path / "plans"
+    plan_dir.mkdir()
+    monkeypatch.setenv("STUB_PLAN_DIR", str(plan_dir))
+    monkeypatch.setenv("STUB_LOG", str(tmp_path / "invocations"))
+
+    def run(plans, cfg_overrides=None, *argv):
+        cfg = {"experiment_name": "exp", "total_epochs": 2, "num_of_gpus": 1,
+               "batch_size": 4, "samples_per_iter": 1, "data_parallel_devices": 2}
+        cfg.update(cfg_overrides or {})
+        cfg_path = tmp_path / "fleet_cfg.json"
+        cfg_path.write_text(json.dumps(cfg))
+        for key, plan in plans.items():
+            (plan_dir / f"{key}.json").write_text(json.dumps(plan))
+        rc = dispatch.main([str(cfg_path), *argv])
+        calls = {}
+        for key in plans:
+            path = tmp_path / f"invocations.{key}"
+            if path.exists():
+                calls[key] = [json.loads(line) for line in path.read_text().splitlines()]
         audit_path = tmp_path / "exp" / "logs" / "interruptions.csv"
         audit = audit_path.read_text().splitlines()[1:] if audit_path.exists() else []
         return rc, calls, audit
@@ -179,14 +222,39 @@ def test_a_finished_run_is_left_alone(harness, tmp_path):
 
 @pytest.mark.parametrize("argv", [("--num_processes", "2"), ("--fault_rank", "0"),
                                   ("--fleet_grace_s", "5")])
-def test_the_fleet_raises_naming_a10(harness, argv):
-    with pytest.raises(NotImplementedError, match="A10"):
-        harness([{"rc": 0}], None, *argv)
+def test_the_fleet_raises_naming_a10(fleet_harness, argv):
+    """The fleet flags are the dispatcher's own (none reaches the entry):
+    ``--num_processes 2`` starts two ranks with the coordinator's flags;
+    the others alone leave a one-process config one process."""
+    done = [{"rc": 0, "epochs": 2, "test_eval": True}]
+    rc, calls, _ = fleet_harness({"single": done, "rank0": done, "rank1": [{"rc": 0}]},
+                                 {"data_parallel_devices": 1}, *argv)
+    assert rc == 0
+    if argv[0] == "--num_processes":
+        assert set(calls) == {"rank0", "rank1"}
+        assert calls["rank0"][0]["num_processes"] == "2"
+        assert calls["rank0"][0]["coordinator"] == calls["rank1"][0]["coordinator"]
+        assert calls["rank0"][0]["dp"] == 2
+    else:
+        assert set(calls) == {"single"} and calls["single"][0]["coordinator"] is None
 
 
-def test_a_hang_on_a_mesh_raises_naming_a10(harness):
-    with pytest.raises(NotImplementedError, match="A10"):
-        harness([{"rc": HANG_EXIT_CODE}], {"data_parallel_devices": 4})
+def test_a_hang_on_a_mesh_raises_naming_a10(fleet_harness):
+    """A hang on a dp-4 fleet (every rank's watchdog, 76) degrades it to
+    two ranks (``degraded_dp_extent``); a clean phase with progress there
+    probes four again, which finishes (JAX
+    ``tests/test_dispatch_supervise.py:127``)."""
+    hang, idle = {"rc": HANG_EXIT_CODE}, {"rc": 0}
+    rc, calls, audit = fleet_harness({
+        "rank0": [hang, {"rc": 0, "epochs": 1}, {"rc": 0, "epochs": 1, "test_eval": True}],
+        "rank1": [hang, idle, idle],
+        "rank2": [hang, idle],
+        "rank3": [hang, idle],
+    }, {"data_parallel_devices": 4})
+    assert rc == 0
+    assert [c["dp"] for c in calls["rank0"]] == [4, 2, 4]
+    assert [c["num_processes"] for c in calls["rank0"]] == ["4", "2", "4"]
+    assert _kinds(audit) == ["hang-degrade:dp4->dp2", "probe-promote:dp4"]
 
 
 @pytest.mark.parametrize("name, module", [

@@ -288,6 +288,7 @@ def test_interval_checkpoint_resumes_mid_epoch(runs, tmp_path, monkeypatch):
     ("on_nonfinite", "rollback", "A12"),
     ("num_processes", 2, "A10"),
     ("dataprovider_backend", "process", "A5"),
+    ("model_parallel_devices", 2, "A10.2"),
 ])
 def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
     """The knobs still not ported raise naming their ROADMAP item;
@@ -295,7 +296,10 @@ def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
     rotates on the device and whose loader ships the quarter turns,
     ``on_nonfinite rollback`` (A12's, ported since) builds a run under that
     policy, and ``dataprovider_backend process`` (A5's, ported since)
-    builds a run whose loader synthesises in spawned worker processes."""
+    builds a run whose loader synthesises in spawned worker processes.
+    ``num_processes 2`` (A10's data-parallel half, ported since) needs a
+    process group of two ranks, which this one process is not: it raises
+    naming the flag; ``model_parallel_devices 2`` (A10.2) still raises."""
     monkeypatch.setenv("DATASET_DIR", str(runs["tmp_path"]))
     args = _args(runs["tmp_path"], "refused", continue_from_epoch="from_scratch",
                  **{knob: value})
@@ -323,6 +327,10 @@ def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
             assert len(builder.data._spawned.worker_pids) == 2
         finally:
             builder.data.close()
+        return
+    if knob == "num_processes":
+        with pytest.raises(ValueError, match="--num_processes 2"):
+            build()
         return
     with pytest.raises(NotImplementedError, match=item):
         build()

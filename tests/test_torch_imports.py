@@ -258,3 +258,25 @@ def test_feedback_and_toolkit_modules_are_in_the_import_check_and_host_only():
     )
     assert proc.returncode == 0, proc.stderr
     assert "TORCH False" in proc.stdout, proc.stdout
+
+
+def test_parallel_modules_are_in_the_import_check():
+    """The data-parallel layer (bring-up, the dp layout, the bucketed
+    collectives, the fences and gathers) is among the modules the import
+    check walks (no JAX, nothing of the JAX package), with the names JAX's
+    ``parallel/`` exports for its dp half."""
+    from howtotrainyourmamlpytorch_tpu import parallel as jparallel
+    from howtotrainyourmamlpytorch_tpu_torch import parallel
+
+    modules = _port_modules()
+    for name in ("parallel", "parallel.distributed", "parallel.mesh",
+                 "parallel.collectives", "parallel.multihost"):
+        assert f"{port.__name__}.{name}" in modules
+    dp_half = {"make_mesh", "default_mesh_from_args", "degraded_dp_extent",
+               "degraded_process_count", "host_batch_bounds", "DistributedInitError",
+               "initialize_distributed", "initialize_distributed_from_argv",
+               "DEFAULT_DATA_AXIS", "DEFAULT_MODEL_AXIS"}
+    assert dp_half <= set(jparallel.__all__) and dp_half <= set(parallel.__all__)
+    assert {"fused_psum", "per_leaf_psum", "flatten_buckets", "unflatten_buckets",
+            "BucketSpec", "guard_task_chunk", "barrier", "gather_global",
+            "allgather_host", "is_multiprocess"} <= set(parallel.__all__)

@@ -234,5 +234,7 @@ def test_a_crashed_worker_raises_in_the_consumer(tree):
 def test_backend_names_are_checked(tree):
     with pytest.raises(ValueError, match="thread|process"):
         MetaLearningSystemDataLoader(make_args(tree, dataprovider_backend="fork"))
-    with pytest.raises(NotImplementedError, match="A10"):
-        MetaLearningSystemDataLoader(make_args(tree, data_shard_count=2))
+    # The per-host shard (A10, ported since): a shard out of range raises.
+    with pytest.raises(ValueError, match="out of range"):
+        MetaLearningSystemDataLoader(make_args(tree, data_shard_index=2,
+                                               data_shard_count=2))
