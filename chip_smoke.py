@@ -349,6 +349,28 @@ Phases, in order; any failure exits non-zero before the result lines:
              process) at flagship width, 3 epochs of 2, beside
              [feedback], [task_chunk] and [lane_pad]: its verdict ok and
              ``multihost_recovery_s``.
+   autotune - (last, when no trainer process is alive: a live one marks
+             every probe contended) the ledger-guided autotuner. First one
+             dispatch of the probe learner (tune/autotuner.py: first-order
+             MAML, the three fused flags, 8 tasks) at 2 stages of 4 filters
+             under each knob that changes its program (task_chunk 2, 4, 8,
+             lane padding) and at the flagship's width at the baseline: the
+             wrappers' launches twice what the captured graph counted
+             (AUTOTUNE_*_LAUNCHES, times the chunks), and the graph's kernel
+             nodes. Then ``python -m howtotrainyourmamlpytorch_tpu_torch.autotune
+             --json`` at JAX's defaults, its gates a copy of the package's
+             seed file: exit 0 or 2; the regime memory or compute (dispatch
+             on the card means the program ledger gave no intensity), with
+             the intensity and the ridge; a measured baseline and every
+             ranked probe measured or discarded with its sentinel readings,
+             not all discarded; the gates copy and the
+             ``AUTOTUNE_<run_id>_r0{1,2}.json`` receipts written exactly when
+             it exits 0; each fingerprint ``config_fingerprint(resolve(
+             overrides, ctx))``. Then ``autotune_run`` in this process at the
+             flagship's width (4 stages of 64 filters, 5 inner steps, 20
+             meta-iterations a window where the command line takes 50), a
+             dry run, under the same checks. Prints each width's regime,
+             sentinel floor, baseline and probe rates and verdict.
 12. result - a [replay] line with each captured graph's kernel nodes, each
              phase's seconds, one JSON line listing the kernels (with their
              bfloat16 ms, bound, largest error and ulps, launches in the
@@ -457,11 +479,17 @@ CHUNK_SHAPES = ([(5, 128, hw, hw) for hw in (28, 14, 7, 3)]
 # too).
 PADDED_SHAPES = [(n, 128, hw, hw) for n in (25, 75) for hw in (84, 42, 21, 10)]
 PADDED_SERVE_SHAPES = [(n, 256, hw, hw) for n in (25, 15) for hw in (84, 42, 21, 10)]
+# The autotuner's probe (tune/autotuner.py): 8 tasks x 4 filters folded
+# into 32 channels, 2 and 4 tasks a chunk into 8 and 16, N=5, at its two
+# pooled stages (28 and 14 pixels). Lane-padded (4 -> 8 filters) it runs at
+# 64 channels, ZOO_SHAPES' first two; at the flagship's width its shapes
+# are TRAIN_SHAPES and, chunked, CHUNK_SHAPES' and FLAGSHIP_SHAPES' N=5.
+PROBE_SHAPES = [(5, c, hw, hw) for c in (8, 16, 32) for hw in (28, 14)]
 KERNEL_SHAPES = (FLAGSHIP_SHAPES + TRAIN_SHAPES + [NORTH_STAR_SHAPE, NORTH_STAR_TARGET]
                  + NORTH_STAR_STAGES + ZOO_SHAPES
                  + [s for s in STRIDE2_SHAPES if s not in TRAIN_SHAPES]
                  + NORTH_STAR_SERVE_SHAPES + CHUNK_SHAPES + PADDED_SHAPES
-                 + PADDED_SERVE_SHAPES)
+                 + PADDED_SERVE_SHAPES + PROBE_SHAPES)
 # The VGG's LeakyReLU slope and ResNet-12's.
 SLOPE, RESNET_SLOPE = 0.01, 0.1
 RESNET12 = os.path.join(
@@ -483,7 +511,7 @@ POOL_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[1], NORTH_STAR_SHAPE, NORTH_STAR_TA
                *(s for s in NORTH_STAR_STAGES if s[2] % 2 == 0), *ZOO_SHAPES[:2],
                *(s for s in FLAGSHIP_SHAPES[:2] + CHUNK_SHAPES + PADDED_SHAPES
                  + NORTH_STAR_SERVE_SHAPES + PADDED_SERVE_SHAPES
-                 if s[2] % 2 == 0 and s[2] > 3)]
+                 if s[2] % 2 == 0 and s[2] > 3), *PROBE_SHAPES]
 # Launches of each kernel per serve dispatch of 4 episodes (4 stages x (5
 # adapt steps + 1 classify) forwards, 5 x 4 backwards) and per flagship
 # MSL train iteration (5 steps x support and target x 4 stages; stages 0-1
@@ -567,6 +595,15 @@ CLI_RESNET12_TRAIN_FINAL = {"bn_stats": 0, "bn_stats_act": 128, "bn_act_bwd": 0,
 CLI_RESNET12_EVAL = {"bn_stats": 0, "bn_stats_act": 48, "bn_act_bwd": 40,
                      "bn_act_pool_apply": 0}
 RESNET_SERVE_LAUNCHES = CLI_RESNET12_EVAL
+# The autotuner's probe (tune/autotuner.py, the three fused flags, remat on,
+# first order, final-only): per iteration at its 2 stages of 2 inner steps,
+# both pooled, 7 pooled forwards a stage; at the flagship's 4 stages of 5
+# steps the flagship's final-only train iteration. A task chunk of c
+# multiplies them by 8 / c (tests/test_torch_autotune.py counts them on the
+# CPU).
+AUTOTUNE_PROBE_LAUNCHES = {"bn_stats": 14, "bn_stats_act": 0, "bn_act_bwd": 0,
+                           "bn_act_pool_apply": 14}
+AUTOTUNE_FLAGSHIP_LAUNCHES = CLI_FLAGSHIP_TRAIN_FINAL
 # The VGG's other options on the flagship JSON (the backbone_options
 # phase), and the launches of its first second-order step without remat (5
 # inner steps x support and target forwards a stage: the any-order op)
@@ -4547,6 +4584,259 @@ def print_control_plane(r, smi) -> None:
           f"{json.dumps(r, default=str)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# [autotune]: the ledger-guided autotuner
+# ---------------------------------------------------------------------------
+
+# The autotuner's in-process dry run at the flagship's width: 4 stages of 64
+# filters, 5 inner steps, meta-batch 8, and 20 meta-iterations a timing
+# window where the command line takes JAX's 50.
+AUTOTUNE_FLAGSHIP_SPEC = dict(num_stages=4, num_filters=64, inner_steps=5, batch_size=8,
+                              window_iters=20)
+# Knob settings each width's launches are held at: the probe's every legal
+# single-knob move that changes its program (K replays the baseline's graph),
+# the flagship's baseline.
+AUTOTUNE_PROBE_SETTINGS = ({}, {"task_chunk": 2}, {"task_chunk": 4}, {"task_chunk": 8},
+                           {"lane_pad_channels": True})
+
+
+def _autotune_context(torch):
+    from howtotrainyourmamlpytorch_tpu_torch.tune.space import TuneContext
+
+    return TuneContext(n_devices=torch.cuda.device_count(), dp=1, mp=1, global_batch=8)
+
+
+def check_autotune_doc(doc, log, ctx, tag) -> None:
+    """An autotune document on the card: a roofline regime (``dispatch``
+    there means the ledger gave no intensity), a measured baseline, every
+    ranked probe measured or discarded with its sentinel readings, not every
+    probe discarded, and each receipt's and the winner's fingerprint
+    ``config_fingerprint(resolve(overrides, ctx))``."""
+    from howtotrainyourmamlpytorch_tpu_torch.tune.space import config_fingerprint, resolve
+
+    if doc["regime"] not in ("memory", "compute"):
+        fail(f"[autotune] {tag}: regime {doc['regime']} ({doc['regime_reason']}): the "
+             "program ledger gave no roofline position on the card")
+    if doc["baseline"] is None:
+        fail(f"[autotune] {tag}: the baseline was contended on every attempt: "
+             f"{json.dumps(log[:1])}")
+    probes = doc["probes"]
+    if [{"knob": p["knob"], "value": p["value"]} for p in probes] != doc["ranked_candidates"]:
+        fail(f"[autotune] {tag}: probes {probes} are not the ranked candidates")
+    if not probes or all(p["discarded"] for p in probes):
+        fail(f"[autotune] {tag}: every probe was discarded: {json.dumps(log)}")
+    if [e["overrides"] for e in log] != [{}] + [{p["knob"]: p["value"]} for p in probes]:
+        fail(f"[autotune] {tag}: the sentinel log does not follow the probes")
+    for entry, measured in zip(log, [doc["baseline"]] + [p["measured"] for p in probes]):
+        attempts = entry["attempts"]
+        if entry["measured"] != measured or not attempts or any(
+                a["before"]["sentinel_ms"] is None or a["after"]["sentinel_ms"] is None
+                for a in attempts):
+            fail(f"[autotune] {tag}: probe {entry['overrides']} has no sentinel reading")
+        if (measured is None) != all(a["flagged"] for a in attempts):
+            fail(f"[autotune] {tag}: probe {entry['overrides']} measured {measured} "
+                 f"against its readings {attempts}")
+    for p in probes:
+        if p["discarded"] != (p["measured"] is None):
+            fail(f"[autotune] {tag}: probe row {p}")
+    for run in doc["emissions"] or ():
+        parsed = run["parsed"]
+        overrides = ({parsed["autotune_knob"]: parsed["autotune_value"]}
+                     if "autotune_knob" in parsed else {})
+        if parsed["config_fingerprint"] != config_fingerprint(resolve(overrides, ctx)):
+            fail(f"[autotune] {tag}: {run['name']} fingerprint {parsed['config_fingerprint']}")
+    winner = doc["winner"]
+    if winner and winner["config_fingerprint"] != config_fingerprint(
+            resolve({winner["knob"]: winner["value"]}, ctx)):
+        fail(f"[autotune] {tag}: the winner's fingerprint {winner['config_fingerprint']}")
+    if (doc["emissions"] is None) != ("judge" not in doc):
+        fail(f"[autotune] {tag}: receipts without a verdict or a verdict without them")
+
+
+def autotune_launches(torch, fn) -> dict:
+    """One dispatch of the probe learner at each of AUTOTUNE_PROBE_SETTINGS
+    and of the flagship-width probe at the baseline: the wrappers' launches
+    in it (the eager warm-up and the capture) twice what its captured graph
+    counted, which must be AUTOTUNE_*_LAUNCHES (times the chunks) and the
+    graph's kernel nodes."""
+    from howtotrainyourmamlpytorch_tpu_torch.models import step_graph
+    from howtotrainyourmamlpytorch_tpu_torch.tune import autotuner
+
+    out = {}
+    for tag, spec, want, settings in (
+        ("probe", autotuner.ProbeSpec(), AUTOTUNE_PROBE_LAUNCHES, AUTOTUNE_PROBE_SETTINGS),
+        ("flagship", autotuner.ProbeSpec(**AUTOTUNE_FLAGSHIP_SPEC),
+         AUTOTUNE_FLAGSHIP_LAUNCHES, ({},)),
+    ):
+        for overrides in settings:
+            learner, state, batches = autotuner.probe_learner(overrides, spec)
+            before = dict(fn.launch_counts)
+            learner.run_train_iters(state, batches, 0)
+            torch.cuda.synchronize()
+            wrappers = {k: fn.launch_counts[k] - before[k] for k in fn.KERNELS}
+            (graph,) = learner._step_graphs.graphs.values()
+            chunk = overrides.get("task_chunk", 0)
+            chunks = spec.batch_size // chunk if chunk else 1
+            expected = {k: chunks * v for k, v in want.items()}
+            name = f"autotune {tag} {json.dumps(overrides)}"
+            if graph.launches != expected:
+                fail(f"[{name}] the captured graph counted {graph.launches}, expected "
+                     f"{expected}")
+            warm = step_graph.WARMUP_STEPS + 1
+            if wrappers != {k: warm * v for k, v in expected.items()}:
+                fail(f"[{name}] the wrappers launched {wrappers} in the warm-up and the "
+                     f"capture, the graph counted {graph.launches} a step")
+            check_replay(graph, name)
+            out[f"{tag} {json.dumps(overrides)}"] = graph.launches
+    return out
+
+
+def autotune_cli(torch, work) -> dict:
+    """``python -m howtotrainyourmamlpytorch_tpu_torch.autotune --json`` at
+    JAX's defaults, its gates a copy of the package's seed file and its
+    receipts in ``work``: exit 0 or 2, the document's checks, and the gates
+    copy and the two receipts written exactly when it exits 0."""
+    import shutil
+
+    from howtotrainyourmamlpytorch_tpu_torch import autotune
+    from howtotrainyourmamlpytorch_tpu_torch.tune.autotuner import PROBE_KEY
+
+    gates, out = os.path.join(work, "gates.json"), os.path.join(work, "autotune_out")
+    shutil.copy(autotune.DEFAULT_GATES, gates)
+    with open(gates, "rb") as f:
+        seed = f.read()
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "howtotrainyourmamlpytorch_tpu_torch.autotune", "--json",
+         "--out", out, "--gates", gates],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=900,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode not in (0, 2):
+        fail(f"[autotune] the command line exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    doc = json.loads(proc.stdout)
+    check_autotune_doc(doc, doc["sentinel_log"], _autotune_context(torch), "cli")
+    kept = proc.returncode == 0
+    receipts = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    with open(gates, "rb") as f:
+        written = f.read()
+    if kept:
+        run_id = doc["run_id"]
+        with open(gates) as f:
+            entry = json.load(f)["gates"].get(PROBE_KEY)
+        if (receipts != [f"AUTOTUNE_{run_id}_r01.json", f"AUTOTUNE_{run_id}_r02.json"]
+                or entry != doc["winner"]["gate_entry"] or not doc["gates_appended"]):
+            fail(f"[autotune] exit 0 but receipts {receipts}, gate {entry}")
+    elif receipts or written != seed or doc["gates_appended"] or doc["winner"]:
+        fail(f"[autotune] exit 2 but receipts {receipts} or the gates file changed")
+    return {"exit_code": proc.returncode, "seconds": seconds, "receipts": receipts,
+            "doc": doc}
+
+
+def autotune_flagship(torch) -> dict:
+    """``autotune_run`` in this process at AUTOTUNE_FLAGSHIP_SPEC, a dry run
+    (no gates file, no receipts): the flagship-width probe's roofline row
+    from the program ledger, then the loop with its default measure, sentinel
+    and judge."""
+    from howtotrainyourmamlpytorch_tpu_torch.telemetry.device import resolve_peak_flops
+    from howtotrainyourmamlpytorch_tpu_torch.tune import autotuner
+
+    spec = autotuner.ProbeSpec(**AUTOTUNE_FLAGSHIP_SPEC)
+    kind = torch.cuda.get_device_name(0)
+    peak = resolve_peak_flops(kind, "float32")
+    entry = autotuner.probe_program(spec)
+    ctx = _autotune_context(torch)
+    log = []
+    doc = autotuner.autotune_run(
+        run_id="flagship", ctx=ctx, spec=spec, device_kind=kind, peak_flops=peak,
+        arithmetic_intensity=entry.arithmetic_intensity, sentinel_log=log)
+    check_autotune_doc(doc, log, ctx, "flagship")
+    bandwidth = autotuner.hbm_bandwidth(kind)
+    doc["machine"] = {"device_kind": kind, "peak_flops": peak, "flops": entry.flops,
+                      "bytes_accessed": entry.bytes_accessed,
+                      "arithmetic_intensity": entry.arithmetic_intensity,
+                      "hbm_bytes_per_s": bandwidth, "ridge": peak / bandwidth}
+    doc["sentinel_log"] = log
+    return doc
+
+
+def autotune_phase(torch, fn) -> dict:
+    """[autotune]: the launch checks, the command line at JAX's probe, then
+    the flagship-width dry run in this process. Run where no trainer process
+    is alive, or every probe reads as contended. Launches: the wrappers' in
+    this process and every in-process probe learner's replays (each probe
+    learner is recorded as ``probe_learner`` builds it); the command line's
+    process counts its own."""
+    import tempfile
+
+    from howtotrainyourmamlpytorch_tpu_torch.tune import autotuner
+
+    learners = []
+    build = autotuner.probe_learner
+
+    def recording(*args, **kwargs):
+        made = build(*args, **kwargs)
+        learners.append(made[0])
+        return made
+
+    fn.reset_launch_counts()
+    autotuner.probe_learner = recording
+    try:
+        with phase_timer("autotune_launches"):
+            launches = autotune_launches(torch, fn)
+        with phase_timer("autotune_cli"), tempfile.TemporaryDirectory(
+                prefix="chip_smoke_autotune_") as work:
+            cli = autotune_cli(torch, work)
+        with phase_timer("autotune_flagship"):
+            flagship = autotune_flagship(torch)
+    finally:
+        autotuner.probe_learner = build
+    out = {"cli": cli, "flagship": flagship, "launches_per_replay": launches,
+           "launches": _phase_launches(fn, learners, [{}] * len(learners))}
+    learners.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_autotune(r, smi) -> None:
+    """The autotune phase's lines: per width the regime with its intensity
+    and ridge, the sentinel floor, the baseline's and each probe's rate or
+    discard, the verdict; the card's name and power limit beside them."""
+    for tag, doc, what in (
+        ("cli", r["cli"]["doc"], "JAX's probe (2 stages x 4 filters, 2 inner steps, 50 "
+                                 "iterations a window), the command line"),
+        ("flagship", r["flagship"], "the flagship's width (4 stages x 64 filters, 5 inner "
+                                    "steps, 20 iterations a window), in process, dry run"),
+    ):
+        m = doc["machine"]
+        floor = doc["sentinel_log"][0]["attempts"][0]["before"].get("floor_ms")
+        print(f"[autotune] {tag}: {what}: regime {doc['regime']}, intensity "
+              f"{m['arithmetic_intensity']:.4f} FLOP/B ({m['flops']:.4g} FLOPs, "
+              f"{m['bytes_accessed']:.4g} B before fusion), ridge {m['ridge']:.2f} FLOP/B "
+              f"| sentinel floor {floor:.4f} ms | {smi}", flush=True)
+        rows = [("baseline", doc["baseline"])] + [
+            (f"{p['knob']}={p['value']}", p["measured"]) for p in doc["probes"]]
+        attempts = [len(e["attempts"]) for e in doc["sentinel_log"]]
+        print(f"[autotune] {tag}: meta_iters_per_s " + " ".join(
+            f"{name} {'DISCARDED (contended)' if v is None else f'{v:.3f}'}"
+            for name, v in rows) + f" | attempts {attempts} | {smi}", flush=True)
+        judge = doc.get("judge") or {}
+        print(f"[autotune] {tag}: judge {judge.get('verdict')} ({judge.get('reason')}; gate "
+              f"{judge.get('gate')}), winner "
+              f"{doc['winner']['lever'] if doc['winner'] else None}", flush=True)
+    c = r["cli"]
+    shown = {**r, "cli": {k: v for k, v in c.items() if k != "doc"},
+             "flagship": {k: v for k, v in r["flagship"].items() if k != "sentinel_log"}}
+    print(f"[autotune] cli exit {c['exit_code']}, gates copy appended "
+          f"{c['doc']['gates_appended']}, receipts {c['receipts']}, {c['seconds']:.1f} s; "
+          f"launches per replay {json.dumps(r['launches_per_replay'])}, held to the kernel "
+          f"nodes | {PHASE_SECONDS['autotune']:.1f} s (launches "
+          f"{PHASE_SECONDS['autotune_launches']:.1f}, cli {PHASE_SECONDS['autotune_cli']:.1f}, "
+          f"flagship {PHASE_SECONDS['autotune_flagship']:.1f}) | "
+          f"{json.dumps(shown, default=str)}", flush=True)
+
+
 def timing_reps(shape) -> int:
     """Fewer timed calls for the large north-star shapes."""
     return 10 if np.prod(shape) >= 4_000_000 else 50
@@ -4964,6 +5254,11 @@ def main() -> int:
     beside.shutdown()
     tree_dir.cleanup()
     print_fleet(fleet, smi)
+    # 15. The ledger-guided autotuner, now that no trainer process is alive
+    # (a live one marks every probe contended).
+    with phase_timer("autotune"):
+        autotune = autotune_phase(torch, fn)
+    print_autotune(autotune, smi)
 
     print("[replay] fused-norm kernel nodes of each captured graph, each equal "
           f"to the launches its capture counted: {json.dumps(REPLAY_NODES)}",
@@ -5005,7 +5300,7 @@ def main() -> int:
     # the bf16 shapes, and the bf16 CLI's launches.
     paths = [serve, resnet_serve, serve_http, serve_north, serve_pool, train, *cli.values(),
              cli_bf16_f32, *augmented.values(), chaos["telemetry"], control, feedback,
-             chunked, lane_pad]
+             chunked, lane_pad, autotune]
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":

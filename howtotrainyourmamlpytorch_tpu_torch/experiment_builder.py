@@ -95,7 +95,7 @@ import torch
 from .data.device_prefetch import AUTO_DEPTH, DevicePrefetcher
 from .models.common import StagedBatch, dispatch_multiplier, prepare_batch
 from .parallel import multihost
-from .parallel.mesh import TENSOR_PARALLEL_ITEM, refuse_tensor_parallel
+from .parallel.mesh import refuse_tensor_parallel
 from .telemetry.device import OOM_EXIT_CODE, is_resource_exhausted, write_oom_report
 from .telemetry.runtime import TrainTelemetry
 from .tune.space import fingerprint_from_args
@@ -156,11 +156,10 @@ def _check_topology(args, model) -> tuple[int, int]:
                 f"{count} process(es)"
             )
     if count > 1 and getattr(model, "dp", 1) != count:
-        raise NotImplementedError(
+        raise ValueError(
             "multi-host training requires a learner that declares a dp batch "
             "sharding for its step programs (MAML's dp path); this "
-            f"learner/mesh combination cannot span {count} processes "
-            f"({TENSOR_PARALLEL_ITEM} holds the sequential learners on a fleet)"
+            f"learner/mesh combination cannot span {count} processes"
         )
     return index, count
 

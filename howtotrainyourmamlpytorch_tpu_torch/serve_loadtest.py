@@ -6,6 +6,7 @@ verdict, recovery (``tools/serve_loadtest.py``).
         [--rate 4] [--duration-s 5] [--ramp LO:HI:DUR[,...]] \\
         [--p99-budget-ms 2000] [--error-slo 0.01] [--timeout-s 10] \\
         [--replicas N] [--kill-replica-at K] [--tier-dir DIR] [--json] \\
+        [--geometry-mix 5x1x15,3x2x8 [--geometry-lattice 5x2x15]] \\
         [--use_pallas_fused_norm True]
     python3 -m howtotrainyourmamlpytorch_tpu_torch.serve_loadtest \\
         --url http://127.0.0.1:8080 [--way 5 --image-shape 1x28x28] ...
@@ -28,7 +29,16 @@ verdict, recovery (``tools/serve_loadtest.py``).
   health under live traffic;
 * **durable tier** - ``--tier-dir DIR`` gives replica i a tier at
   ``DIR/replica-<i>`` and routes by digest; ``serve_replica_ready_s`` is
-  the newest respawn's factory-to-HEALTHY time.
+  the newest respawn's factory-to-HEALTHY time;
+* **geometry stream** - ``--geometry-mix WxSxQ[,...]`` cycles seeded
+  episodes of those geometries (``data/synth_geometry.geometry_mix_episodes``)
+  instead of one bucket. An in-process engine then serves a geometry
+  lattice (``ServeConfig.geometry_lattice``): ``--geometry-lattice``, or
+  else the elementwise maximum of the mix, one bucket every episode is
+  coarsened onto; it is warmed at every lattice bucket and, as the JAX
+  harness does, its backbone is switched to layer norm (the lattice needs
+  a forward whose rows do not depend on each other) unless
+  ``--norm_layer`` is given.
 
 Targets: one in-process ``ServingAPI`` (the default), an in-process
 ``LocalReplica`` pool (``--replicas N``), both built by
@@ -363,16 +373,46 @@ def run_loadtest(
 # ---------------------------------------------------------------------------
 
 
+def parse_geometries(spec: str) -> list[tuple[int, int, int]]:
+    """``"5x1x15,3x2x8"`` -> ``[(5, 1, 15), (3, 2, 8)]``: the command-line
+    spelling of a geometry mix or lattice (the JAX repo's
+    ``tools/serve_bench.parse_geometries``)."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        dims = tuple(int(d) for d in part.split("x"))
+        if len(dims) != 3:
+            raise ValueError(
+                f"geometry {part!r} must be WxSxQ (e.g. 5x1x15)"
+            )
+        out.append(dims)
+    if not out:
+        raise ValueError(f"no geometries in {spec!r}")
+    return out
+
+
 def _build_local_target(opts, train_flags=()):
     """The in-process target: one ``ServingAPI`` or a ``LocalReplica``
     pool, each engine built by ``serve_maml.build_api`` and warmed at the
-    stream's bucket. Returns ``(target, backbone_config)``; the backbone
-    gives the synthetic episodes their geometry."""
+    stream's bucket, or at every bucket of its lattice under a geometry
+    mix. Returns ``(target, backbone_config)``; the backbone gives the
+    synthetic episodes their geometry."""
     from . import serve_maml
     from .serve.pool import PoolConfig, ReplicaPool
     from .serve.resilience.replica import LocalReplica
 
     tier_dir = opts.tier_dir
+    # A mix is served by a lattice engine: the given lattice, or else the
+    # elementwise maximum of the mix, one bucket every episode coarsens onto.
+    lattice = None
+    if opts.geometry_mix:
+        mix = parse_geometries(opts.geometry_mix)
+        lattice = (parse_geometries(opts.geometry_lattice) if opts.geometry_lattice
+                   else [tuple(max(g[i] for g in mix) for i in range(3))])
+        if "--norm_layer" not in train_flags:
+            train_flags = [*train_flags, "--norm_layer", "layer_norm"]
     argv = ["--config", opts.config, "--max_batch", str(opts.max_batch),
             "--max_wait_ms", "2.0", "--cache_capacity", "512"]
     argv += ["--checkpoint", opts.checkpoint] if opts.checkpoint else ["--init_from_scratch"]
@@ -386,9 +426,13 @@ def _build_local_target(opts, train_flags=()):
 
     def one_api(replica_tier_dir=None):
         serve_opts.tier_dir = replica_tier_dir
-        api, _ = serve_maml.build_api(serve_opts, train_flags, opts.device)
-        way = api.engine.learner.cfg.backbone.num_classes
-        api.warmup([(way, opts.shot, opts.query)])
+        api, _ = serve_maml.build_api(serve_opts, train_flags, opts.device,
+                                      geometry_lattice=lattice)
+        if lattice is not None:
+            api.warmup()  # every lattice bucket
+        else:
+            way = api.engine.learner.cfg.backbone.num_classes
+            api.warmup([(way, opts.shot, opts.query)])
         return api
 
     if opts.replicas > 0:
@@ -451,6 +495,13 @@ def get_parser() -> argparse.ArgumentParser:
     add("--tier-dir", default=None,
         help="durable tier root of the in-process target: replica i's at "
              "<dir>/replica-<i>, routing by digest, warm respawns")
+    add("--geometry-mix", default=None,
+        help="comma-separated WxSxQ triples: the stream cycles these geometries "
+             "(seeded data.synth_geometry.geometry_mix_episodes episodes) instead "
+             "of one bucket; in-process targets get a geometry-lattice engine")
+    add("--geometry-lattice", default=None,
+        help="WxSxQ bucket lattice of the in-process engines under --geometry-mix "
+             "(default: the elementwise maximum of the mix, one bucket)")
     add("--json", action="store_true", help="print the result as one JSON line")
     return parser
 
@@ -480,8 +531,16 @@ def main(argv=None) -> int:
         image_shape = (bb.image_channels, bb.image_height, bb.image_width)
         way = bb.num_classes
 
-    episodes = synth_episodes(opts.episodes, way=way, shot=opts.shot, query=opts.query,
-                              image_shape=image_shape, seed=opts.seed)
+    if opts.geometry_mix:
+        from .data.synth_geometry import geometry_mix_episodes
+
+        episodes = geometry_mix_episodes(
+            opts.episodes, parse_geometries(opts.geometry_mix),
+            image_shape=image_shape, seed=opts.seed)
+    else:
+        episodes = synth_episodes(opts.episodes, way=way, shot=opts.shot,
+                                  query=opts.query, image_shape=image_shape,
+                                  seed=opts.seed)
     if opts.kill_replica_at is not None:
         faultinject.activate(faultinject.FaultPlan(
             replica_kill_at_request=opts.kill_replica_at))

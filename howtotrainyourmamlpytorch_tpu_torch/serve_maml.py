@@ -134,9 +134,11 @@ def get_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def build_api(opts, train_flags=(), device=None):
+def build_api(opts, train_flags=(), device=None, geometry_lattice=None):
     """The warmed ``ServingAPI`` ``opts`` describe (on ``device``, else
-    ``opts.device``, else the card), and a line naming it."""
+    ``opts.device``, else the card), and a line naming it.
+    ``geometry_lattice``: the engine's ``(way, shot, query)`` buckets
+    (``ServeConfig.geometry_lattice``), or None for exact buckets."""
     import torch
 
     from .serve import ServeConfig, ServingAPI
@@ -158,6 +160,7 @@ def build_api(opts, train_flags=(), device=None):
             degrade_queue_depth=opts.degrade_queue_depth,
             max_queue_age_ms=opts.max_queue_age_ms, retry_after_s=opts.retry_after_s,
             tier_dir=getattr(opts, "tier_dir", None),
+            geometry_lattice=tuple(geometry_lattice) if geometry_lattice else None,
         ),
         device=device,
     )

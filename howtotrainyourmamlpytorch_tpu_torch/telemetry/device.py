@@ -14,6 +14,16 @@ memory watermarks and OOM forensics
   (``torch.cuda.memory_stats``) after that warm-up. A dispatch's FLOPs are
   the row's times the learner's declared ``dispatch_multiplier`` K. The
   ledger adds no step, no capture and no synchronisation.
+* The roofline inputs: ``bytes_accessed`` is counted over the same
+  warm-up by :func:`byte_counter`, each dispatched aten op's operand and
+  result bytes, over exactly the ops the FLOP counter executes (it sits
+  under the FLOP counter, so it sees the ops after the FLOP counter's
+  decompositions); ops that only alias (views, reshapes, ``expand``) or
+  only allocate move nothing. ``arithmetic_intensity`` is FLOPs over those
+  bytes. It is a count before fusion: every intermediate is written and
+  read again, where XLA's ``bytes accessed`` in the JAX ledger is counted
+  after fusion. The fused-norm kernels, launched through ctypes, are in
+  neither count.
 * :func:`resolve_peak_flops`: the MFU denominator, ``--peak_flops`` first,
   then ``MAML_PEAK_FLOPS``, then a table keyed by
   ``torch.cuda.get_device_name()``. An unknown card gives no peak, and so
@@ -114,6 +124,51 @@ def flop_counter():
     return counter.FlopCounterMode(display=False)
 
 
+#: Allocations: they write no byte a later op reads before it is written.
+_ALLOCATING_OPS = ("empty", "empty_like", "empty_strided", "new_empty",
+                   "new_empty_strided")
+
+
+def _moves_bytes(func) -> bool:
+    """Whether an aten op moves bytes: not a view (``is_view``: ``view``,
+    ``expand``, ``transpose``, ``detach``, ...), not ``_unsafe_view`` (the
+    alias a ``reshape`` ends in) and not an allocation."""
+    name = func._overloadpacket.__name__
+    return not (getattr(func, "is_view", False) or name == "_unsafe_view"
+                or name in _ALLOCATING_OPS)
+
+
+def byte_counter():
+    """A dispatch mode whose ``bytes`` sums, over each aten op it sees that
+    returns a tensor and moves bytes (:func:`_moves_bytes`), the bytes of
+    its tensor operands and results (``numel * element_size``, a broadcast
+    operand at its broadcast size). Entered before :func:`flop_counter`,
+    so it sees the ops the FLOP counter runs."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    def tensor_bytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if isinstance(t, torch.Tensor))
+
+    class ByteCounter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if _moves_bytes(func):
+                written = tensor_bytes(out)
+                if written:
+                    self.bytes += written + tensor_bytes((args, kwargs))
+            return out
+
+    return ByteCounter()
+
+
 def program_name(second_order: bool, final_only: bool) -> str:
     """A captured train step's name in the ledger and its ``capture`` event."""
     return (f"train_step[{'second' if second_order else 'first'}_order"
@@ -128,9 +183,10 @@ def program_signature(shapes) -> str:
 
 @dataclasses.dataclass
 class ProgramEntry:
-    """One captured program's row (host values only). ``flops`` is per
-    iteration; ``dispatch_flops`` is ``k`` (the last dispatch's declared
-    multiplier) times it."""
+    """One captured program's row (host values only). ``flops`` and
+    ``bytes_accessed`` are per iteration; ``dispatch_flops`` is ``k`` (the
+    last dispatch's declared multiplier) times the FLOPs;
+    ``arithmetic_intensity`` is FLOPs per byte."""
 
     name: str
     role: str = "train"
@@ -138,6 +194,8 @@ class ProgramEntry:
     k: int = 1
     flops: float | None = None
     dispatch_flops: float | None = None
+    bytes_accessed: float | None = None
+    arithmetic_intensity: float | None = None
     hbm_peak_bytes: int | None = None
     bytes_in_use: int | None = None
     device_kind: str = ""
@@ -166,21 +224,25 @@ class ProgramLedger:
     @contextlib.contextmanager
     def warmup_hook(self, key, steps: int = 1):
         """Around the eager warm-up of a capture: counts its FLOPs and
-        reads the allocator's counters after it. ``key`` is the graph's
-        ``(second_order, final_only, shapes-and-dtypes)``."""
+        bytes and reads the allocator's counters after it. ``key`` is the
+        graph's ``(second_order, final_only, shapes-and-dtypes)``."""
         import torch
 
-        counter = flop_counter()
-        with counter:
+        moved, counter = byte_counter(), flop_counter()
+        with moved, counter:
             yield
         second_order, final_only, shapes = key if key is not None else (True, False, ())
+        steps = max(int(steps), 1)
         entry = ProgramEntry(
             name=program_name(second_order, final_only),
             signature=program_signature(shapes),
-            flops=float(counter.get_total_flops()) / max(int(steps), 1),
+            flops=float(counter.get_total_flops()) / steps,
+            bytes_accessed=float(moved.bytes) / steps,
             compute_dtype="bfloat16" if "bfloat16" in str(shapes) else "float32",
             t=time.time(),
         )
+        if entry.flops and entry.bytes_accessed:
+            entry.arithmetic_intensity = entry.flops / entry.bytes_accessed
         if torch.cuda.is_available():
             stats = torch.cuda.memory_stats()
             entry.device_kind = torch.cuda.get_device_name()

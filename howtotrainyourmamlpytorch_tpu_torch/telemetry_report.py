@@ -15,9 +15,11 @@ port's counterparts: the ``capture`` events of the train step's CUDA
 graphs (``models/step_graph.py``) and the serving engine's
 ``serve_compile``, in the timeline (under the JAX key ``compiles``), and
 the ``program_profile`` rows (FLOPs from ``FlopCounterMode`` at each
-capture's warm-up, the allocator's peak) in the device section. The
-ledger's XLA-only columns (bytes accessed, arithmetic intensity, temp
-bytes, collectives) keep their keys and read ``None``.
+capture's warm-up, the bytes its ops move counted before fusion and the
+arithmetic intensity of the two, the allocator's peak) in the device
+section. The ledger's XLA-only columns (temp bytes, collectives, and bytes
+accessed and intensity on the serving engine's rows) keep their keys and
+read ``None``.
 
 Fleet mode: several ranks' streams (files, or one file several ranks
 append to) merged into one timeline with per-rank lanes, per-dispatch

@@ -280,3 +280,39 @@ def test_parallel_modules_are_in_the_import_check():
     assert {"fused_psum", "per_leaf_psum", "flatten_buckets", "unflatten_buckets",
             "BucketSpec", "guard_task_chunk", "barrier", "gather_global",
             "allgather_host", "is_multiprocess"} <= set(parallel.__all__)
+
+
+def test_autotuner_modules_are_in_the_import_check_and_host_only():
+    """The autotuner (the sentinel, the gate judge, the loop and its command
+    line) is among the modules the import check walks (no JAX, nothing of
+    the JAX package), with the names JAX's ``tune/autotuner.py`` exports;
+    the sentinel's trainer scan, the judge and the ranking import no
+    torch."""
+    from howtotrainyourmamlpytorch_tpu.tune import autotuner as jautotuner
+    from howtotrainyourmamlpytorch_tpu_torch.tune import autotuner
+
+    modules = _port_modules()
+    for name in ("tune.sentinel", "tune.judge", "tune.autotuner", "autotune"):
+        assert f"{port.__name__}.{name}" in modules
+    shared = {"PROBE_KEY", "BASELINE_KEY", "HBM_BW_BY_KIND", "ProbeSpec", "classify_regime",
+              "rank_candidates", "PROBE_APPLIERS", "_probe_batch", "_probe_config",
+              "default_measure", "_measure_clean", "autotune_run", "append_gate"}
+    assert shared <= set(dir(jautotuner)) and shared <= set(dir(autotuner))
+    code = (
+        "import sys\n"
+        "from howtotrainyourmamlpytorch_tpu_torch import autotune\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.tune import autotuner, judge, sentinel\n"
+        "from howtotrainyourmamlpytorch_tpu_torch.tune.space import TuneContext\n"
+        "autotuner.rank_candidates('memory', TuneContext())\n"
+        "autotuner.classify_regime(0.5, 'NVIDIA H100 80GB HBM3', 67e12)\n"
+        "judge.eval_gate('this > 1', {'this': 2})\n"
+        "sentinel.live_trainer_pids()\n"
+        "autotune.get_parser().parse_args([])\n"
+        "print('TORCH', 'torch' in sys.modules)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=_env(), cwd=REPO, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "TORCH False" in proc.stdout, proc.stdout

@@ -159,3 +159,72 @@ def test_health_sampler_measures_the_longest_degraded_window():
     with sampler:
         time.sleep(0.2)
     assert 0.0 < sampler.longest_degraded_window_s() < 1.0
+
+
+# ---------------------------------------------------------------------------
+# The geometry stream (--geometry-mix / --geometry-lattice)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def built_apis(monkeypatch):
+    """Every ``ServingAPI`` the load test's in-process targets build."""
+    from howtotrainyourmamlpytorch_tpu_torch import serve_maml
+
+    apis, build = [], serve_maml.build_api
+
+    def recording(*args, **kwargs):
+        api, line = build(*args, **kwargs)
+        apis.append(api)
+        return api, line
+
+    monkeypatch.setattr(serve_maml, "build_api", recording)
+    return apis
+
+
+@pytest.mark.parametrize("lattice", [None, "5x1x15,3x2x8"], ids=["max_of_mix", "explicit"])
+@pytest.mark.parametrize("replicas", [0, 2], ids=["one_engine", "pool"])
+def test_geometry_mix_stream_is_answered_within_the_lattice(cli_config, capsys, built_apis,
+                                                            lattice, replicas):
+    """A ``5x1x15,3x2x8`` stream: every request answered, each engine built
+    on the lattice (the mix's elementwise maximum 5x2x15, or the given one),
+    with layer norm, warmed at every lattice bucket, and minting at most an
+    adapt and a classify program per bucket."""
+    argv = ["--config", cli_config, "--device", "cpu", "--geometry-mix", "5x1x15,3x2x8",
+            "--rate", "12", "--duration-s", "1.0", "--episodes", "6",
+            "--p99-budget-ms", "30000", "--json", "--replicas", str(replicas)]
+    if lattice:
+        argv += ["--geometry-lattice", lattice]
+    code = serve_loadtest.main(argv)
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert code == 0, result
+    assert result["completed_ok"] == result["offered"] > 3 and result["errors"] == 0
+    want = serve_loadtest.parse_geometries(lattice) if lattice else [(5, 2, 15)]
+    assert built_apis and len(built_apis) >= max(replicas, 1)
+    for api in built_apis:
+        engine = api.engine
+        assert engine.config.geometry_lattice == tuple(want)
+        assert engine.learner.cfg.backbone.norm_layer == "layer_norm"
+        assert engine.warmed_buckets() == sorted(want)
+        assert 0 < len(engine.compile_table()) <= 2 * len(want)
+
+
+@pytest.mark.parametrize("spec", ["5x1x15,3x2x8", " 5x1x15 , ", "1x1x1"])
+def test_parse_geometries_is_the_jax_harness(spec):
+    from tools.serve_bench import parse_geometries
+
+    assert serve_loadtest.parse_geometries(spec) == parse_geometries(spec)
+
+
+@pytest.mark.parametrize("spec", ["5x1", "5x1x15,3x2", ",", "5x1x15x2"])
+def test_malformed_geometry_raises_the_jax_message(spec, cli_config):
+    from tools.serve_bench import parse_geometries
+
+    with pytest.raises(ValueError) as theirs:
+        parse_geometries(spec)
+    with pytest.raises(ValueError) as ours:
+        serve_loadtest.parse_geometries(spec)
+    assert str(ours.value) == str(theirs.value)
+    with pytest.raises(ValueError, match="must be WxSxQ|no geometries"):
+        serve_loadtest.main(["--config", cli_config, "--device", "cpu",
+                             "--geometry-mix", spec, "--duration-s", "0.1"])
