@@ -349,6 +349,26 @@ Phases, in order; any failure exits non-zero before the result lines:
              process) at flagship width, 3 epochs of 2, beside
              [feedback], [task_chunk] and [lane_pad]: its verdict ok and
              ``multihost_recovery_s``.
+   tensor_parallel - (after the kill-host loop, on the same tree)
+             tensor-parallel meta-training: the fused flagship (64
+             filters, meta-batch 8, second order) as two ranks at dp x mp
+             = 1 x 2 on this card over gloo (``python3 chip_smoke.py
+             --tp-rank``), each rank's convs computing half the channels
+             and the fused-norm kernels running on that half, against one
+             process: the first loss and meta-gradient under the train
+             bars, the first step's BN state and the state after 3
+             meta-updates under the GRAD bar or twice the spread of two
+             rounding paths (the plain-norm learner, one-ulp weight
+             moves); the same 3 meta-updates in float64 (plain norm)
+             under the F64 bars, losses included, and a planted fault
+             (replicated gradients unsummed) shown to cross them; each rank holding exactly half the bytes of every
+             sharded leaf; launches per rank iteration exactly one
+             process's eager step's; each rank's eager meta-iterations/s,
+             its collectives and their ms per iteration, against one
+             process's eager rate. Then the command line at mp 2 through
+             the dispatcher (``--num_processes 2``, 1 epoch of 3) resumed
+             on one process for a second epoch, its archive loaded bit for
+             bit.
    autotune - (last, when no trainer process is alive: a live one marks
              every probe contended) the ledger-guided autotuner. First one
              dispatch of the probe learner (tune/autotuner.py: first-order
@@ -374,8 +394,8 @@ Phases, in order; any failure exits non-zero before the result lines:
 12. result - a [replay] line with each captured graph's kernel nodes, each
              phase's seconds, one JSON line listing the kernels (with their
              bfloat16 ms, bound, largest error and ulps, launches in the
-             bf16 CLI, and launches per rank per iteration in [fleet]), the
-             nvidia-smi line, and the last line
+             bf16 CLI, and launches per rank per iteration in [fleet] and in
+             [tensor_parallel]), the nvidia-smi line, and the last line
              ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX; exits non-zero without a CUDA device.
@@ -383,6 +403,7 @@ Imports nothing of JAX; exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1505,14 +1526,15 @@ def train_batch(rng, tasks=8):
     return xs, xt, ys, ys.copy()
 
 
-def first_step(learner, state0, batch):
-    """The first second-order MSL step's loss and meta-gradient."""
+def first_step(learner, state0, batch, with_bn=False):
+    """The first second-order MSL step's loss and meta-gradient (and its BN
+    state, ``with_bn``)."""
     dbatch = learner._device_batch(state0, batch)
     importance = learner._importance(state0, learner._train_importance(0))
-    loss, _, _, grads = learner._meta_grads(
+    loss, _, bn, grads = learner._meta_grads(
         state0, dbatch, importance, second_order=True, final_only=False
     )
-    return loss, grads
+    return (loss, grads, bn) if with_bn else (loss, grads)
 
 
 def _gaps(candidate, reference) -> tuple[float, float]:
@@ -4513,6 +4535,482 @@ def print_fleet(r, smi) -> None:
     print(f"[fleet] {json.dumps(r)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# [tensor_parallel]: the flagship's channels sharded over two ranks
+# ---------------------------------------------------------------------------
+
+#: Meta-updates each rank takes (timed) after the first meta-gradient.
+TP_STEPS = 3
+#: The command line at mp 2: one epoch of this many iterations, then one
+#: more epoch resumed on one process.
+TP_CLI_ITERS = 3
+
+
+def _tp_batches():
+    """The flagship's episode batches of the phase (seed 2), one a step."""
+    rng = np.random.RandomState(2)
+    return [train_batch(rng) for _ in range(TP_STEPS)]
+
+
+#: The pair's float64 meta-updates against one process's
+#: (``tp_float64_gaps``): each leaf within F64_ATOL + F64_RTOL * max|one
+#: process's|, each loss within F64_LOSS_RTOL relative. In float64 the
+#: plain-norm pair and one process part by float64 rounding alone, but for
+#: the conv biases: their true gradient is 0 and Adam moves them by its
+#: reach of that rounding (up to 4.1e-10 over 3 meta-updates at 64 filters,
+#: ``tools/port_tp_float64.py`` on the CPU). A layout fault moves leaves by
+#: up to Adam's step (1e-3); a planted one is shown to cross the bars.
+F64_RTOL, F64_ATOL, F64_LOSS_RTOL = 1e-6, 1e-8, 1e-9
+
+
+def steps_in_dtype(learner, state, batches, dtype):
+    """Second-order MSL meta-updates of ``learner`` from ``state``, one for
+    each of ``train_batch``'s ``batches``, with the state's floats, the
+    importance vector and the images in ``dtype``: the learner's batch
+    decode, which casts the images to the float32 compute dtype, is
+    bypassed for the call. Returns ``(state, [loss per meta-update])``."""
+    import torch
+
+    from howtotrainyourmamlpytorch_tpu_torch.models import maml as maml_module
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves, tree_map
+
+    device = tree_leaves(state.theta)[0].device
+    state = tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a, state)
+    importance = torch.from_numpy(learner._train_importance(0)).to(device, dtype)
+    decode = maml_module.decode_train_batch
+    maml_module.decode_train_batch = lambda batch, codec, _dtype, aug=None: (
+        batch[0], batch[1], batch[2].long(), batch[3].long())
+    losses = []
+    try:
+        for xs, xt, ys, yt in batches:
+            tasks = xs.shape[0]
+            batch = tuple(torch.from_numpy(a.reshape(tasks, -1, *a.shape[3:])).to(device, dtype)
+                          for a in (xs, xt)) + tuple(
+                torch.from_numpy(a.reshape(tasks, -1)).to(device) for a in (ys, yt))
+            state, metrics = learner._train_step(state, batch, importance, second_order=True)
+            losses.append(float(metrics["loss"]))
+    finally:
+        maml_module.decode_train_batch = decode
+    return state, losses
+
+
+class unsummed_replicated_gradients:
+    """A planted tensor-parallel fault, as a context: the copy of a
+    replicated value into sharded work passes its gradient back without
+    the all-reduce, so the gradient of the LSLR rates and of every other
+    replicated leaf is one rank's partial sum (the usual tp bug)."""
+
+    def __enter__(self):
+        from howtotrainyourmamlpytorch_tpu_torch.parallel import collectives
+
+        self.cls = collectives.CopyToShards
+        self.backward = self.cls.__dict__["backward"]
+        self.cls.backward = staticmethod(lambda ctx, grad: (grad, None))
+
+    def __exit__(self, *exc):
+        self.cls.backward = self.backward
+
+
+def _state_leaves(states, tags):
+    """``(name, (leaf of each state))`` over ``tags`` of theta, the LSLR
+    rates, the Adam moments and the BN state, the leaves of ``states``
+    (whole, gathered) side by side; a frozen leaf's moments skipped."""
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map_with_path
+
+    out = []
+    for tag in tags:
+        trees = [getattr(st.opt_state if tag in ("mu", "nu") else st, tag) for st in states]
+        if tag == "bn_state":
+            trees = [{k: dict(v._asdict()) for k, v in t.items()} for t in trees]
+        tree_map_with_path(lambda path, leaves: None if leaves is None else out.append(
+            (tag + "/" + "/".join(path), leaves)), _zip_trees(*trees))
+    return out
+
+
+def tp_float64_gaps(got, got_losses, want, want_losses) -> dict:
+    """A float64 state and losses after meta-updates against one process's:
+    the worst gap over its bar (F64_*) and where it is, over the losses and
+    every leaf of theta, the LSLR rates, the Adam moments and the BN
+    state."""
+    worst = {"over_bar": 0.0, "at": None}
+
+    def see(name, gap, bar):
+        if gap / bar >= worst["over_bar"]:
+            worst.update(over_bar=gap / bar, at=name, gap=gap)
+
+    for step, (a, b) in enumerate(zip(got_losses, want_losses)):
+        see(f"loss/{step}", abs(a - b), F64_LOSS_RTOL * abs(b))
+    for name, (a, b) in _state_leaves((got, want), ("theta", "lslr", "bn_state", "mu", "nu")):
+        b = b.detach().cpu()
+        see(name, float((a.detach().cpu() - b).abs().max()),
+            F64_ATOL + F64_RTOL * float(b.abs().max()))
+    return worst
+
+
+def _held_bytes(learner, whole, blocks) -> dict:
+    """Bytes of the sharded leaves of a whole state and of a rank's blocks
+    of it (each block in storage of its own), of theta and the Adam moments
+    whole and held, and the sharded leaves not held at exactly 1/mp."""
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.sharding import (
+        is_sharded,
+        map_with_specs,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_leaves
+
+    specs = []
+    map_with_specs(lambda _, spec: specs.append(spec), whole,
+                   learner.state_shardings(whole))
+    nbytes = lambda a: a.numel() * a.element_size()  # noqa: E731
+    out = {"sharded_whole": 0, "sharded_held": 0, "not_half": []}
+    for i, (spec, w, b) in enumerate(zip(specs, tree_leaves(whole), tree_leaves(blocks))):
+        if is_sharded(spec):
+            held = b.untyped_storage().nbytes()
+            out["sharded_whole"] += nbytes(w)
+            out["sharded_held"] += held
+            if held * learner.mp != nbytes(w):
+                out["not_half"].append((i, list(w.shape), held))
+    parts = lambda st: (st.theta, st.opt_state.mu, st.opt_state.nu)  # noqa: E731
+    out["theta_adam_whole"] = sum(nbytes(a) for a in tree_leaves(parts(whole)))
+    out["theta_adam_held"] = sum(nbytes(a) for a in tree_leaves(parts(blocks)))
+    return out
+
+
+def tp_rank_main(rank: int, address: str, work: str) -> int:
+    """One rank of ``tensor_parallel_phase``'s pair (``python3 chip_smoke.py
+    --tp-rank <rank> <address> <work>``): the fused flagship learner at dp x
+    mp = 1 x 2 on this card over gloo. Its first meta-gradient, gathered
+    whole; then ``TP_STEPS`` eager meta-updates, timed, the kernels'
+    launches counted from 0 just before them and read just after; the
+    collectives they issued and their seconds; the bytes it holds; the
+    state after them, gathered whole; every (shape, slope) a kernel ran
+    at. Written to ``<work>/rank<rank>.pt``."""
+    import torch
+
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+    from howtotrainyourmamlpytorch_tpu_torch.ops import fused_norm as fn
+    from howtotrainyourmamlpytorch_tpu_torch.parallel import collectives, distributed, make_mesh
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.sharding import gather_leaf, map_with_specs
+    from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if not distributed.initialize_distributed(address, 2, rank, 120.0):
+        fail("[tensor_parallel] the rank did not join its group")
+    try:
+        mesh = make_mesh(model_parallel=2)
+        learner = MAMLFewShotLearner(fused_and_plain(FLAGSHIP)[0].cfg, mesh=mesh)
+        whole = learner.init_state(torch.Generator().manual_seed(104), mesh.device)
+        state0 = learner.replicate(whole)
+        held = _held_bytes(learner, whole, state0)
+        batches = _tp_batches()
+        loss, grads, bn = first_step(learner, state0, batches[0], with_bn=True)
+        grads = {"theta": map_with_specs(lambda g, spec: gather_leaf(mesh, spec, g),
+                                         grads["theta"], learner.layout().theta),
+                 "lslr": tree_map(lambda g: g.detach().cpu(), grads["lslr"])}
+        torch.cuda.synchronize()
+        counts, seconds = (dict(c) for c in (collectives.collective_counts,
+                                             collectives.collective_seconds))
+        fn.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = eager_steps(learner, state0, batches, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fn.launch_counts)
+        per_iter = {k: (collectives.collective_counts[k] - counts.get(k, 0)) / TP_STEPS
+                    for k in collectives.collective_counts}
+        ms = {k: 1e3 * (collectives.collective_seconds[k] - seconds.get(k, 0.0)) / TP_STEPS
+              for k in collectives.collective_seconds}
+        out = {
+            "first_loss": float(loss),
+            "grads": grads, "bn": tree_map(lambda a: a.cpu(), bn),
+            "losses": metrics["loss"].cpu().tolist(),
+            "state": learner.gather_state(state),
+            "launches": launches, "launches_per_iter": {
+                k: v / TP_STEPS for k, v in launches.items()},
+            "shapes": {k: sorted(v, key=repr) for k, v in fn.launch_shapes.items()},
+            "meta_iters_per_s": TP_STEPS / wall,
+            "collectives_per_iter": per_iter, "collective_ms_per_iter": ms,
+            "held": held, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        # The same meta-updates in float64, on the plain-norm learner (the
+        # kernels take float32 and bfloat16), and again under a planted
+        # fault.
+        tp64 = MAMLFewShotLearner(fused_and_plain(FLAGSHIP)[1].cfg, mesh=mesh)
+        for key, plant in (("f64", contextlib.nullcontext()),
+                           ("f64_planted", unsummed_replicated_gradients())):
+            with plant:
+                st, losses = steps_in_dtype(tp64, tp64.replicate(tp64.init_state(
+                    torch.Generator().manual_seed(104), mesh.device)), batches, torch.float64)
+            out[key] = {"state": tp64.gather_state(st), "losses": losses}
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown_distributed()
+    return 0
+
+
+def _zip_trees(*trees):
+    """Dict trees of the same keys as one of tuples of their leaves
+    (``None`` where the first has ``None``)."""
+    if isinstance(trees[0], dict):
+        return {k: _zip_trees(*(t[k] for t in trees)) for k in trees[0]}
+    return None if trees[0] is None else trees
+
+
+def _tp_state_gaps(got, want, others, tags=("theta", "lslr", "bn_state", "mu", "nu")) -> dict:
+    """The pair's state after ``TP_STEPS`` meta-updates, gathered, against
+    one process's, leaf by leaf over theta, the LSLR rates, the Adam
+    moments and the BN state. The flagship's binary episodes tie pool
+    windows and LeakyReLU inputs, a rounding difference routes them
+    differently, and Adam turns a gradient near 0 into a full step either
+    way: over 3 meta-updates two float32 paths that differ only in rounding
+    part by more than the GRAD bar. So each leaf is held to the GRAD bar (the
+    BN state to the fleet's), or to SENSITIVITY_FACTOR times the largest gap
+    between one process's state and ``others``' (the plain-norm learner's,
+    and the fused one's from weights moved by one ulp), where that is
+    larger. The counters equal."""
+    out = {"worst_over_bar": 0.0, "sensitivity_bound_leaves": []}
+
+    def excess(a, b, bn):
+        diff = (a.to(b.device) - b).abs()
+        return float((diff - FLEET_BN_RTOL * b.abs()).max()) if bn else float(diff.max())
+
+    for name, (a, b, *refs) in _state_leaves((got, want, *others), tags):
+        bn = name.startswith("bn_state/")
+        gap = excess(a, b, bn)
+        own = max(excess(r, b, bn) for r in refs)
+        floor = FLEET_BN_ATOL if bn else GRAD_ATOL + GRAD_RTOL * float(b.abs().max())
+        bar = max(floor, SENSITIVITY_FACTOR * own)
+        out["worst_over_bar"] = max(out["worst_over_bar"], gap / bar)
+        if gap > floor:
+            out["sensitivity_bound_leaves"].append((name, gap, own))
+        if gap > bar:
+            fail(f"[tensor_parallel] {name} after {TP_STEPS} steps off by {gap}; "
+                 f"the bar {floor}, or {SENSITIVITY_FACTOR} x the rounding paths' "
+                 f"{own}")
+    if int(got.iteration) != int(want.iteration) or int(got.opt_state.count) != int(
+            want.opt_state.count):
+        fail("[tensor_parallel] the counters differ from one process's")
+    return out
+
+
+def _tp_cli(torch, dataset_dir, work) -> dict:
+    """The command line at mp 2: the dispatcher's two-rank fleet
+    (``--num_processes 2``, the config's ``model_parallel_devices`` 2), one
+    epoch of ``TP_CLI_ITERS`` iterations, then the same experiment resumed
+    on one process for a second epoch in this process: the state it loads
+    from ``train_model_latest`` held bitwise to the archive's leaves."""
+    from howtotrainyourmamlpytorch_tpu_torch.data import MetaLearningSystemDataLoader
+    from howtotrainyourmamlpytorch_tpu_torch.experiment_builder import ExperimentBuilder
+    from howtotrainyourmamlpytorch_tpu_torch.models import MAMLFewShotLearner
+    from howtotrainyourmamlpytorch_tpu_torch.utils.parser_utils import (
+        args_to_maml_config,
+        get_args,
+    )
+
+    exp = os.path.join(work, "tp_cli")
+    paths = {}
+    for name, overrides in (("fleet", {"total_epochs": 1, "model_parallel_devices": 2}),
+                            ("resume", {"total_epochs": 2, "model_parallel_devices": 1})):
+        paths[name] = os.path.join(work, f"tp_cli_{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(fleet_config(experiment_name=exp, total_iter_per_epoch=TP_CLI_ITERS,
+                                   data_parallel_devices=1, **overrides), f)
+    env = {**os.environ, "DATASET_DIR": dataset_dir,
+           "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    env.pop("MAML_FAULTS", None)
+    log = os.path.join(work, "tp_cli.log")
+    rc, fleet_s = _run_logged([
+        sys.executable, "-u", "-m",
+        "howtotrainyourmamlpytorch_tpu_torch.train_maml_system_dispatch",
+        paths["fleet"], "--num_processes", "2", "--fleet_grace_s", "25", *FUSED_ARGV],
+        env, log)
+    if rc:
+        with open(log) as f:
+            print("[tensor_parallel] tail of the mp 2 command line:\n" + f.read()[-6000:],
+                  flush=True)
+        fail(f"[tensor_parallel] the mp 2 command line exited {rc}")
+    latest = os.path.join(exp, "saved_models", "train_model_latest")
+    with np.load(latest) as archive:
+        leaves = [archive[f"leaf_{i}"] for i in range(sum(
+            k.startswith("leaf_") for k in archive.files))]
+    t0 = time.perf_counter()
+    os.environ["DATASET_DIR"] = dataset_dir
+    args, device = get_args(["--name_of_args_json_file", paths["resume"], *FUSED_ARGV])
+    model = MAMLFewShotLearner(args_to_maml_config(args))
+    builder = ExperimentBuilder(args=args, data=MetaLearningSystemDataLoader, model=model,
+                                device=device)
+    loaded = [a.detach().cpu().numpy() for _, a in
+              model._path_leaves(model._archived(builder.train_state))]
+    if builder.state["current_iter"] != TP_CLI_ITERS or len(loaded) != len(leaves) or not all(
+            a.shape == b.shape and np.array_equal(a, b) for a, b in zip(loaded, leaves)):
+        fail(f"[tensor_parallel] the one-process resume at iteration "
+             f"{builder.state['current_iter']} did not load the mp 2 archive bitwise")
+    test = builder.run_experiment()
+    # The ensemble reloads the epochs' checkpoints: read the run's end from
+    # its files.
+    with open(os.path.join(exp, "logs", "summary_statistics.json")) as f:
+        losses = json.load(f)["train_loss_mean"]
+    with np.load(latest) as archive:
+        end = json.loads(bytes(archive["__experiment_state__"]).decode())["current_iter"]
+    if end != 2 * TP_CLI_ITERS or len(losses) != 2 or not np.all(np.isfinite(losses)):
+        fail(f"[tensor_parallel] the resume ended at iteration {end} with train losses "
+             f"{losses}")
+    return {"fleet_s": fleet_s, "resume_s": time.perf_counter() - t0,
+            "leaves_bitwise": len(leaves), "train_loss_mean": losses,
+            "test_accuracy": float(test["test_accuracy_mean"])}
+
+
+def tensor_parallel_phase(torch, fn, dataset_dir) -> dict:
+    """[tensor_parallel]: the fused flagship (64 filters, meta-batch 8,
+    second order, fused norm and pool) as two ranks at dp x mp = 1 x 2 on
+    this card over gloo (``tp_rank_main``; NCCL refuses two ranks on one
+    device), against one process in this one: the first loss and
+    meta-gradient under the train bars, the state after ``TP_STEPS``
+    meta-updates (``_tp_state_gaps``), the same meta-updates in float64 on
+    the plain-norm learner under the F64 bars and a planted fault across
+    them (``tp_float64_gaps``), each rank holding exactly half the
+    bytes of every sharded leaf, its launches per iteration exactly one
+    process's eager step's (on the channel shards, at shapes [coverage]
+    holds to the plain versions); each rank's eager meta-iterations/s and
+    collectives per iteration against one process's eager rate. Then the
+    command line at mp 2 and its resume on one process (``_tp_cli``)."""
+    import tempfile
+
+    from howtotrainyourmamlpytorch_tpu_torch.parallel.distributed import find_free_port
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as work:
+        address = f"127.0.0.1:{find_free_port()}"
+        env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+        logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in (0, 1)]
+        procs = [subprocess.Popen([sys.executable, "-u", os.path.abspath(__file__),
+                                   "--tp-rank", str(r), address, work], env=env, cwd=REPO,
+                                  stdout=logs[r], stderr=subprocess.STDOUT) for r in (0, 1)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for log in logs:
+                log.close()
+        if any(rcs):
+            for r in (0, 1):
+                with open(os.path.join(work, f"rank{r}.log")) as f:
+                    print(f"[tensor_parallel] tail of rank {r}:\n" + f.read()[-6000:],
+                          flush=True)
+            fail(f"[tensor_parallel] the ranks exited {rcs}")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in (0, 1)]
+        # One process, once the ranks are done: the same first step and
+        # meta-updates, timed, the launches of its eager steps counted.
+        learner, plain = fused_and_plain(FLAGSHIP)
+        state0 = learner.init_state(torch.Generator().manual_seed(104))
+        batches = _tp_batches()
+        *one_first, one_bn = first_step(learner, state0, batches[0], with_bn=True)
+        torch.cuda.synchronize()
+        fn.reset_launch_counts()
+        t0 = time.perf_counter()
+        one_state, one_metrics = eager_steps(learner, state0, batches, 0)
+        torch.cuda.synchronize()
+        out["one_process_meta_iters_per_s"] = TP_STEPS / (time.perf_counter() - t0)
+        one_launches = {k: v / TP_STEPS for k, v in fn.launch_counts.items()}
+        # The train path's three kernels run on the shards (the any-order
+        # ops' backward is PyTorch's, so bn_act_bwd does not).
+        if not all(one_launches[k] for k in ("bn_stats", "bn_stats_act", "bn_act_pool_apply")):
+            fail(f"[tensor_parallel] one process's eager step launched {one_launches}")
+        # Two paths that differ from it only in float32 rounding: the
+        # plain-norm learner, and the fused one from weights one ulp away.
+        others = [(plain, state0)] + [
+            (learner, state0._replace(theta=one_ulp(torch, state0.theta, seed)))
+            for seed in SENSITIVITY_SEEDS]
+        other_bn = [first_step(lrn, st, batches[0], with_bn=True)[2] for lrn, st in others]
+        other_runs = [eager_steps(lrn, st, batches, 0) for lrn, st in others]
+        other_states = [st for st, _ in other_runs]
+        out["rounding_path_losses"] = [m["loss"].cpu().tolist() for _, m in other_runs]
+        one64 = steps_in_dtype(plain, plain.init_state(torch.Generator().manual_seed(104)),
+                               batches, torch.float64)
+        out["one_process_f64_losses"] = one64[1]
+        from howtotrainyourmamlpytorch_tpu_torch.utils.trees import tree_map
+
+        to_card = lambda tree: tree_map(lambda a: a.cuda(), tree)  # noqa: E731
+        for rank, r in enumerate(ranks):
+            tag = f"[tensor_parallel] rank {rank}"
+            r["first_step"] = compare_with_plain(
+                (torch.tensor(r["first_loss"]), to_card(r["grads"])), tuple(one_first), tag)
+            with_bn = lambda bn: one_state._replace(bn_state=bn)  # noqa: E731
+            first = _tp_state_gaps(with_bn(to_card(r["bn"])), with_bn(one_bn),
+                                   [with_bn(bn) for bn in other_bn], tags=("bn_state",))
+            r["first_step"]["bn_state_worst_over_bar"] = first["worst_over_bar"]
+            r["state_gaps"] = _tp_state_gaps(r["state"], one_state, other_states)
+            f64_losses = r["f64"]["losses"]
+            for key in ("f64", "f64_planted"):
+                r[key] = tp_float64_gaps(r[key]["state"], r[key]["losses"], *one64)
+            r["f64"]["losses"] = f64_losses
+            if r["f64"]["over_bar"] > 1:
+                fail(f"{tag}: in float64 after {TP_STEPS} steps {r['f64']['at']} off by "
+                     f"{r['f64']['gap']}, {r['f64']['over_bar']:.3g} of its bar")
+            if r["f64_planted"]["over_bar"] <= 1:
+                fail(f"{tag}: the planted fault (replicated gradients unsummed) stayed "
+                     f"within the float64 bars: {r['f64_planted']}")
+            if r["held"]["not_half"] or r["held"]["sharded_held"] * 2 != r["held"][
+                    "sharded_whole"]:
+                fail(f"{tag}: sharded leaves not held at exactly half: {r['held']}")
+            if r["launches_per_iter"] != one_launches:
+                fail(f"{tag}: launches per iteration {r['launches_per_iter']}, one "
+                     f"process's eager step {one_launches}")
+            del r["grads"], r["state"], r["bn"]
+        shapes = [r.pop("shapes") for r in ranks]
+        out["shapes"] = {name: {k for sh in shapes for k in sh[name]} for name in fn.KERNELS}
+        out["ranks"] = ranks
+        out["one_process_launches_per_iter"] = one_launches
+        out["one_process_losses"] = one_metrics["loss"].cpu().tolist()
+        with phase_timer("tensor_parallel_cli"):
+            out["cli"] = _tp_cli(torch, dataset_dir, work)
+    out["launches"] = {k: sum(r["launches"][k] for r in ranks) for k in fn.KERNELS}
+    return out
+
+
+def print_tensor_parallel(r, smi) -> None:
+    ranks, cli = r["ranks"], r["cli"]
+    rates = " ".join(f"{x['meta_iters_per_s']:.3f}" for x in ranks)
+    coll = ranks[0]["collectives_per_iter"]
+    ms = sum(ranks[0]["collective_ms_per_iter"].values())
+    held = ranks[0]["held"]
+    print(f"[tensor_parallel] flagship, 2 ranks at dp x mp = 1 x 2 on one card over "
+          f"gloo against one process: first loss gap "
+          f"{max(x['first_step']['first_loss_rel_gap_vs_plain'] for x in ranks):.2e}, "
+          f"worst meta-gradient leaf at "
+          f"{max(x['first_step']['worst_grad_gap_over_tolerance'] for x in ranks):.3f} of "
+          f"its bar, its BN state at "
+          f"{max(x['first_step']['bn_state_worst_over_bar'] for x in ranks):.3f} of its "
+          f"bar; after {TP_STEPS} steps the worst leaf at "
+          f"{max(x['state_gaps']['worst_over_bar'] for x in ranks):.3f} of its bar "
+          f"({max(len(x['state_gaps']['sensitivity_bound_leaves']) for x in ranks)} "
+          f"leaves past the GRAD bar, within {SENSITIVITY_FACTOR}x the rounding paths'); "
+          f"in float64 (plain norm) the {TP_STEPS} losses and the state at worst "
+          f"{max(x['f64']['over_bar'] for x in ranks):.3g} of the F64 bars "
+          f"({ranks[0]['f64']['at']}), the planted fault (replicated gradients "
+          f"unsummed) at {min(x['f64_planted']['over_bar'] for x in ranks):.3g} "
+          f"({ranks[0]['f64_planted']['at']}); "
+          f"held bytes of the sharded leaves {held['sharded_held']} of "
+          f"{held['sharded_whole']}, theta and Adam {held['theta_adam_held']} of "
+          f"{held['theta_adam_whole']}; launches per rank iteration "
+          f"{json.dumps(ranks[0]['launches_per_iter'])} = one process's; eager "
+          f"meta-iters/s per rank {rates} against one process "
+          f"{r['one_process_meta_iters_per_s']:.3f}; collectives per iteration "
+          f"{json.dumps(coll)} in {ms:.1f} ms; losses of the {TP_STEPS} steps per rank "
+          f"{ranks[0]['losses']}, one process {r['one_process_losses']}, the rounding "
+          f"paths {r['rounding_path_losses']} | {smi}", flush=True)
+    print(f"[tensor_parallel] command line at mp 2, 1 epoch of {TP_CLI_ITERS}, "
+          f"{cli['fleet_s']:.1f} s; resumed on one process from its archive "
+          f"({cli['leaves_bitwise']} leaves bitwise), epoch 2 in {cli['resume_s']:.1f} s, "
+          f"train losses {cli['train_loss_mean']} | {smi}", flush=True)
+    print(f"[tensor_parallel] {json.dumps({k: v for k, v in r.items() if k != 'shapes'})}",
+          flush=True)
+
+
 def print_feedback(r, smi) -> None:
     """The feedback phase's lines, with the card's name and power limit
     beside the times."""
@@ -5252,9 +5750,14 @@ def main() -> int:
           flush=True)
     fleet["killhost"] = killhost.result()
     beside.shutdown()
-    tree_dir.cleanup()
     print_fleet(fleet, smi)
-    # 15. The ledger-guided autotuner, now that no trainer process is alive
+    # 15. Tensor-parallel meta-training: the flagship's channels over two
+    # ranks, and its command line resumed on one process, on the same tree.
+    with phase_timer("tensor_parallel"):
+        tensor_parallel = tensor_parallel_phase(torch, fn, tree)
+    print_tensor_parallel(tensor_parallel, smi)
+    tree_dir.cleanup()
+    # 16. The ledger-guided autotuner, now that no trainer process is alive
     # (a live one marks every probe contended).
     with phase_timer("autotune"):
         autotune = autotune_phase(torch, fn)
@@ -5276,6 +5779,8 @@ def main() -> int:
     # workers.
     ran = {name: set(keys) for name, keys in fn.launch_shapes.items()}
     for name, keys in serve_pool["workers"]["worker_shapes"].items():
+        ran[name].update(keys)
+    for name, keys in tensor_parallel["shapes"].items():
         ran[name].update(keys)
     unchecked = {k: sorted(v - checked[k]) for k, v in ran.items() if v - checked[k]}
     if unchecked:
@@ -5300,7 +5805,7 @@ def main() -> int:
     # the bf16 shapes, and the bf16 CLI's launches.
     paths = [serve, resnet_serve, serve_http, serve_north, serve_pool, train, *cli.values(),
              cli_bf16_f32, *augmented.values(), chaos["telemetry"], control, feedback,
-             chunked, lane_pad, autotune]
+             chunked, lane_pad, tensor_parallel, autotune]
     kernels = []
     for name in fn.KERNELS:
         if name == "bn_act_pool_apply":
@@ -5326,6 +5831,7 @@ def main() -> int:
             "fleet_launches_per_rank_iter": {
                 prog: launches[name]
                 for prog, launches in fleet["launches_per_rank_iter"].items()},
+            "tp_launches_per_rank_iter": tensor_parallel["ranks"][0]["launches_per_iter"][name],
         })
     print(f"[seconds] each phase: {json.dumps(PHASE_SECONDS)}", flush=True)
     print(json.dumps({"kernels": kernels}))
@@ -5338,4 +5844,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -22,7 +22,8 @@ spawned processes, with prefetch (``howtotrainyourmamlpytorch_tpu/data/loader.py
   the train stream: every ``replay_every``-th global episode slot draws the
   next mined seed. Validation and test streams never replay.
 * The per-host shard of a multi-process run (``data_shard_index`` of
-  ``data_shard_count``, stamped by ``get_args`` from the process group):
+  ``data_shard_count``, stamped by ``get_args`` from the process group's
+  dp index and extent; the ranks of an mp group load the same shard):
   the loader synthesises only the contiguous ``[shard_lo, shard_lo +
   shard_size)`` slice of every batch's episode indices. Seeds stay keyed
   to the global episode index, so the shards of one batch, concatenated in

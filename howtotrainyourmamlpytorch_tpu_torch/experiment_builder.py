@@ -60,24 +60,27 @@ The operations plane:
 * The fault points of ``utils/faultinject.py`` sit where the JAX builder's
   do.
 
-A data-parallel fleet (``process_count`` > 1, stamped by ``get_args``
-from the process group; ``parallel/``) runs one builder per rank:
+A fleet (``process_count`` > 1, stamped by ``get_args`` from the process
+group; ``parallel/``) of ``data_parallel_devices x model_parallel_devices``
+ranks runs one builder per rank:
 
 * rank 0 is the chief, the single writer of the checkpoints, the summary
-  CSV/JSON and ``test_summary.csv`` (every rank holds the same replicated
-  state, so one writer loses nothing); audit rows and telemetry stay per
+  CSV/JSON and ``test_summary.csv``; audit rows and telemetry stay per
   rank, with the rank on every event and in ``interruptions.csv``;
-* the state is rank 0's on every rank after init and after every load
+* the state is rank 0's on every rank after init and after every load,
+  laid out as the learner's mesh says
   (``models/common.CheckpointableLearner.replicate``), the experiment
-  state too;
+  state too; on a tensor-parallel layout every rank all-gathers the whole
+  state before a save (``gather_state``), so the chief writes the archive
+  one process would;
 * barriers come before a rollback's reload and before the ensemble, so no
   rank reads a checkpoint the chief is still publishing;
-* validation and test batches are sharded like train batches; the learner
-  reduces the metrics over ranks, and the ensemble gathers every rank's
-  per-task logits and targets.
+* validation and test batches are sharded over the dp index like train
+  batches; the learner reduces the metrics over ranks, and the ensemble
+  gathers one rank's per-task logits and targets of each dp index.
 
 Only the MAML learners split a meta-batch over ranks; the sequential
-learners and ``--model_parallel_devices > 1`` raise (ROADMAP A10.2).
+learners raise.
 """
 
 from __future__ import annotations
@@ -95,7 +98,6 @@ import torch
 from .data.device_prefetch import AUTO_DEPTH, DevicePrefetcher
 from .models.common import StagedBatch, dispatch_multiplier, prepare_batch
 from .parallel import multihost
-from .parallel.mesh import refuse_tensor_parallel
 from .telemetry.device import OOM_EXIT_CODE, is_resource_exhausted, write_oom_report
 from .telemetry.runtime import TrainTelemetry
 from .tune.space import fingerprint_from_args
@@ -137,25 +139,34 @@ class _RollbackSignal(Exception):
 
 def _check_topology(args, model) -> tuple[int, int]:
     """``(process_index, process_count)`` of ``args``, refusing what the
-    port does not run: a policy it does not know, tensor parallelism
-    (A10.2), a fleet whose size is not the config's ``num_processes`` or
-    ``data_parallel_devices``, and a learner that cannot split its
-    meta-batch over the fleet's ranks."""
+    port does not run: a policy it does not know, an mp below 1, a fleet
+    whose size is not the config's ``num_processes`` or
+    ``data_parallel_devices x model_parallel_devices``, and a learner that
+    cannot split its meta-batch over the fleet's ranks."""
     policy = str(getattr(args, "on_nonfinite", "halt") or "halt").lower()
     if policy not in ("halt", "skip", "rollback"):
         raise ValueError(f"on_nonfinite must be halt|skip|rollback, got {policy!r}")
-    refuse_tensor_parallel(int(getattr(args, "model_parallel_devices", 1) or 1))
+    mp = int(getattr(args, "model_parallel_devices", 1) or 1)
+    if mp < 1:
+        raise ValueError(f"model_parallel_devices must be >= 1, got {mp}")
     index = int(getattr(args, "process_index", 0) or 0)
     count = max(int(getattr(args, "process_count", 1) or 1), 1)
-    for key in ("num_processes", "data_parallel_devices"):
-        want = int(getattr(args, key, 0) or 0)
+    dp = int(getattr(args, "data_parallel_devices", 0) or 0)
+    wants = {"num_processes": int(getattr(args, "num_processes", 0) or 0),
+             "data_parallel_devices": dp * mp,
+             # dp 0 fills the group: mp must divide it.
+             "model_parallel_devices": mp if dp <= 0 and count % mp else 0}
+    for key, want in wants.items():
         if want > 1 and want != count:
+            what = f"{key} {getattr(args, key)}"
+            if key == "data_parallel_devices" and mp > 1:
+                what += f" x model_parallel_devices {mp}"
             raise ValueError(
-                f"{key} {want} needs a process group of {want} ranks "
-                f"(--num_processes {want}, or the dispatcher); this run has "
-                f"{count} process(es)"
+                f"{what} needs a process group of {want} ranks (--num_processes "
+                f"{want}, or the dispatcher); this run has {count} process(es)"
             )
-    if count > 1 and getattr(model, "dp", 1) != count:
+    ranks = getattr(model, "dp", 1) * getattr(model, "mp", 1)
+    if count > 1 and ranks != count:
         raise ValueError(
             "multi-host training requires a learner that declares a dp batch "
             "sharding for its step programs (MAML's dp path); this "
@@ -203,6 +214,8 @@ class ExperimentBuilder:
         # Rank 0 writes; every rank keeps its own audit rows and events.
         self._is_chief = self.process_index == 0
         self._multihost = self.process_count > 1
+        # The ranks of one dp index hold the same tasks' results.
+        self._mp = int(getattr(args, "model_parallel_devices", 1) or 1)
         self.args, self.model = args, model
         self._data_cls = data
         self.device = resolve_device(device)
@@ -542,7 +555,7 @@ class ExperimentBuilder:
         with a pending non-finite loss; ``halt`` raises then), the audit
         row, exit 75. ``write_checkpoint=False`` is the ensemble test's
         form: its state is a reloaded epoch, and the phase reruns whole."""
-        if self._shutdown_signum is None:
+        if not self._shutdown_agreed():
             return
         self.telemetry.event("preemption", signal=int(self._shutdown_signum),
                              iter=int(self.state["current_iter"]))
@@ -569,8 +582,10 @@ class ExperimentBuilder:
             print("WARNING: non-finite meta-loss pending at shutdown; not "
                   "overwriting train_model_latest (the requeued run resumes "
                   "from the last epoch checkpoint)", file=sys.stderr)
-        elif self._is_chief:
-            self.model.save_model(path, self.train_state, self.state)
+        else:
+            archived = self.model.gather_state(self.train_state)
+            if self._is_chief:
+                self.model.save_model(path, archived, self.state)
         self._write_interruption_row()
         print(("emergency checkpoint written to " + path if not trips
                else "emergency checkpoint skipped (poisoned state)")
@@ -579,6 +594,21 @@ class ExperimentBuilder:
                              emergency_checkpoint=not bool(trips))
         self.telemetry.shutdown()
         sys.exit(REQUEUE_EXIT_CODE)
+
+    def _shutdown_agreed(self) -> bool:
+        """Whether a shutdown is pending. On a tensor-parallel layout the
+        emergency checkpoint gathers the state over every rank, so the
+        ranks agree at each dispatch boundary: a signal that reached any
+        rank (one rank alone, or one before the boundary and another after
+        it) stops them all at the same boundary. A signal landing after the
+        agreement waits for the next boundary on every rank."""
+        if self._mp <= 1:
+            return self._shutdown_signum is not None
+        pending = int(multihost.allgather_host(
+            np.array([self._shutdown_signum or 0], dtype=np.int64)).max())
+        if pending and self._shutdown_signum is None:
+            self._shutdown_signum = pending
+        return bool(pending)
 
     @staticmethod
     def _config_fingerprint(args) -> str | None:
@@ -830,7 +860,7 @@ class ExperimentBuilder:
         # test-set logits. A fleet's ranks each hold their tasks' logits:
         # every rank gathers the whole batch's.
         per_model_per_batch_preds[model_idx].extend(
-            list(multihost.gather_global(per_task_preds))
+            list(multihost.gather_global(per_task_preds, self._mp))
         )
         return per_model_per_batch_preds
 
@@ -844,13 +874,14 @@ class ExperimentBuilder:
         unless ``checkpoint_async`` is off, when the loop pays it all."""
         epoch_path = self._checkpoint_path(int(epoch))
         latest = self._checkpoint_path("latest")
+        archived = model.gather_state(self.train_state)
         if not self._is_chief:
-            # Rank 0 is the single writer of the replicated state.
+            # Rank 0 is the single writer of the whole state.
             self._last_ckpt_t = time.monotonic()
             return
         t0 = time.perf_counter()
         if self._ckpt_writer is not None:
-            snapshot = model.snapshot_model(self.train_state, state)
+            snapshot = model.snapshot_model(archived, state)
             self._ckpt_writer.submit(
                 epoch_path, snapshot, alias_dst=latest, publish_marker=True
             )
@@ -860,11 +891,18 @@ class ExperimentBuilder:
                 stall_s=time.perf_counter() - t0, pending=self._ckpt_writer.pending,
             )
         else:
-            model.save_model(epoch_path, self.train_state, state)
+            model.save_model(epoch_path, archived, state)
             publish_alias(epoch_path, latest)
             publish_done_marker(epoch_path)
         self._last_ckpt_t = time.monotonic()
         print("saved models to", self.saved_models_filepath)
+
+    def _interval_due(self) -> bool:
+        """Whether ``checkpoint_interval_s`` has passed since the last
+        checkpoint: the chief's clock on a tensor-parallel layout, where
+        every rank gathers the state for the write."""
+        due = time.monotonic() - self._last_ckpt_t >= self.checkpoint_interval_s
+        return multihost.broadcast_object(due) if self._mp > 1 else due
 
     def _interval_checkpoint(self) -> None:
         """The mid-epoch checkpoint of ``checkpoint_interval_s``: the full
@@ -875,18 +913,20 @@ class ExperimentBuilder:
         if self.on_nonfinite != "skip" and self._pending_nonfinite_trips():
             print("WARNING: non-finite meta-loss pending at the checkpoint "
                   "interval; skipping the interval write", file=sys.stderr)
-        elif self._is_chief:
+        else:
             path = self._checkpoint_path("latest")
             t0 = time.perf_counter()
-            if self._ckpt_writer is not None:
-                self._ckpt_writer.submit(
-                    path, self.model.snapshot_model(self.train_state, self.state)
-                )
-            else:
-                self.model.save_model(path, self.train_state, self.state)
-            self.telemetry.event("checkpoint_interval",
-                                 iter=int(self.state["current_iter"]),
-                                 stall_s=time.perf_counter() - t0)
+            archived = self.model.gather_state(self.train_state)
+            if self._is_chief:
+                if self._ckpt_writer is not None:
+                    self._ckpt_writer.submit(
+                        path, self.model.snapshot_model(archived, self.state)
+                    )
+                else:
+                    self.model.save_model(path, archived, self.state)
+                self.telemetry.event("checkpoint_interval",
+                                     iter=int(self.state["current_iter"]),
+                                     stall_s=time.perf_counter() - t0)
         self._last_ckpt_t = time.monotonic()
 
     def pack_and_save_metrics(self, start_time, create_summary_csv, train_losses,
@@ -949,7 +989,7 @@ class ExperimentBuilder:
                 # A fleet's loader yields this rank's shard: the targets of
                 # the whole batch match the gathered logits.
                 per_model_per_batch_targets[idx].extend(
-                    multihost.allgather_host(np.array(test_sample[3])))
+                    multihost.allgather_host(np.array(test_sample[3]), self._mp))
                 per_model_per_batch_preds = self.test_evaluation_iteration(
                     val_sample=test_sample, model_idx=idx,
                     per_model_per_batch_preds=per_model_per_batch_preds,
@@ -1127,9 +1167,7 @@ class ExperimentBuilder:
                 self._run_epoch_boundary()
             self._epoch_data_wait_s = self._epoch_stage_wait_s = 0.0
             self._epoch_train_t0 = time.perf_counter()
-        elif (self.checkpoint_interval_s > 0
-              and time.monotonic() - self._last_ckpt_t
-              >= self.checkpoint_interval_s):
+        elif self.checkpoint_interval_s > 0 and self._interval_due():
             self._interval_checkpoint()
         faultinject.sigterm_due(self.state["current_iter"])
         self._maybe_emergency_exit()

@@ -30,9 +30,11 @@ def init_lslr(
 
 
 def lslr_update(params: Tree, grads: Tree, lslr: Tree, step: int) -> Tree:
-    """``w' = w - lslr[step] * g`` per leaf, in float32, cast back to the
-    leaf's dtype (the identity for float32 leaves)."""
-    return tree_map(
-        lambda w, g, lr: (w.float() - lr[step] * g.float()).to(w.dtype),
-        params, grads, lslr,
-    )
+    """``w' = w - lslr[step] * g`` per leaf, in float32 (float64 for a
+    float64 leaf), cast back to the leaf's dtype (the identity for float32
+    leaves)."""
+    def update(w, g, lr):
+        wide = torch.promote_types(w.dtype, torch.float32)
+        return (w.to(wide) - lr[step] * g.to(wide)).to(w.dtype)
+
+    return tree_map(update, params, grads, lslr)

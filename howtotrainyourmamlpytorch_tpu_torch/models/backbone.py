@@ -29,6 +29,19 @@ into channels: the activation is ``(N, T·C, H, W)``, the per-task convs are
 one grouped convolution (``groups=T``), and per-task batch norm over
 ``(N, H, W)`` is per-channel batch norm of the folded tensor, so the norm
 kernels never mix tasks. The head is one batched matmul.
+
+Tensor parallel (``shard``, a ``parallel.collectives.ModelShard``). The
+parameters are a rank's blocks (``parallel/sharding.MP_STATE_RULES``): each
+conv computes its own output channels of every task, ``(N, T*C/mp, H,
+W)``; the per-channel norm, LeakyReLU and pool run on that block unchanged
+(the fused-norm kernels need no collective: their statistics are per
+channel); the next conv gets its whole input from an all-gather per task
+over the mp group; the head runs row-parallel on the rank's span of the
+features and all-reduces its partial logits; the layer norm all-reduces
+its sums. A layer whose width does not divide mp is replicated
+(``guard_divisible``): it computes every channel. The running statistics
+come back as the rank's channel block of each sharded site; the learner
+gathers them.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from ..ops.norm import (
     layer_norm,
     step_row,
     update_running,
+    wide,
 )
 from ..ops.pool import avg_pool2d, max_pool2d
 from ..utils.trees import tree_map_with_path
@@ -165,9 +179,10 @@ def _unfold(a: torch.Tensor, tasks: int) -> torch.Tensor:
 
 
 class VGGBackbone:
-    """``init`` makes the trees, ``apply`` runs them."""
+    """``init`` makes the trees, ``apply`` runs them; ``shard``: this rank's
+    ``ModelShard`` on a tensor-parallel layout, else ``None``."""
 
-    def __init__(self, cfg: BackboneConfig):
+    def __init__(self, cfg: BackboneConfig, shard=None):
         if cfg.block_order not in ("conv_norm", "norm_conv"):
             raise ValueError(f"unknown block_order {cfg.block_order!r}")
         if cfg.norm_layer not in ("batch_norm", "layer_norm"):
@@ -184,6 +199,7 @@ class VGGBackbone:
                 f"argument; got {cfg.norm_layer!r}/{cfg.block_order!r})"
             )
         self.cfg = cfg
+        self.shard = shard
 
     def _norm_spatial_shape(self, stage: int) -> tuple[int, int]:
         """(H, W) the norm of ``stage`` sees: the conv output for
@@ -279,12 +295,18 @@ class VGGBackbone:
         variant = resolve_fused_variant(cfg, fused)
         if cfg.block_order != "conv_norm":
             variant = "off"
+        shard = self.shard
         tasks, n = x.shape[:2]
         out = x.transpose(0, 1).reshape(n, tasks * x.shape[2], *x.shape[3:])
         new_bn_state: Params | None = None if bn_state is None else {}
+        # Whether ``out`` holds this rank's channel block (images do not),
+        # and whether each conv's does.
+        sharded = False
+        conv_sharded = shard is not None and shard.divides(cfg.conv_channels)
 
-        def conv(out, stage):
+        def conv(out, sharded, stage):
             weight = stage["conv"]["weight"]
+            out = conv_input(shard, out, sharded, tasks, cfg.conv_channels)
             return conv2d(
                 out,
                 weight.reshape(-1, *weight.shape[2:]),
@@ -294,26 +316,35 @@ class VGGBackbone:
                 groups=tasks,
             )
 
-        def norm(out, stage, i, activate, pool=False):
+        def norm(out, sharded, stage, i, activate, pool=False):
+            width = out.shape[1] // tasks * (shard.size if sharded else 1)
+            want = shard is not None and shard.divides(width)
+            out = match_layout(shard, out, sharded, want, tasks)
             if cfg.norm_layer == "layer_norm":
-                out = task_layer_norm(out, stage["norm"], tasks, cfg.bn_eps)
-                return leaky_relu(out) if activate else out
+                out = task_layer_norm(out, stage["norm"], tasks, cfg.bn_eps,
+                                      shard if want else None)
+                return leaky_relu(out) if activate else out, want
             state = None if bn_state is None else bn_state[f"conv{i}"]
+            if want and state is not None:
+                state = local_state(shard, state, out.shape[1] // tasks)
             out, state = norm_act(
                 out, stage["norm"], state, step, cfg, tasks,
                 variant=variant, activate=activate, pool=pool,
             )
             if new_bn_state is not None:
                 new_bn_state[f"conv{i}"] = state
-            return out
+            return out, want
 
         for i in range(cfg.num_stages):
             stage = params[f"conv{i}"]
             pool = False
             if cfg.block_order == "norm_conv":
-                out = leaky_relu(conv(norm(out, stage, i, activate=False), stage))
+                out, sharded = norm(out, sharded, stage, i, activate=False)
+                out = leaky_relu(conv(out, sharded, stage))
+                sharded = conv_sharded
             else:
-                out = conv(out, stage)
+                out = conv(out, sharded, stage)
+                sharded = conv_sharded
                 # Fuse the 2x2 max pool into the norm where it is exact:
                 # floor-mode pooling drops an odd trailing row or column
                 # that the statistics still cover (JAX backbone.py:369-386).
@@ -323,15 +354,13 @@ class VGGBackbone:
                     and cfg.norm_layer == "batch_norm"
                     and out.shape[2] % 2 == 0 and out.shape[3] % 2 == 0
                 )
-                out = norm(out, stage, i, activate=True, pool=pool)
+                out, _ = norm(out, sharded, stage, i, activate=True, pool=pool)
             if cfg.max_pooling and not pool:
                 out = max_pool2d(out, 2, 2)
         if not cfg.max_pooling:
             out = avg_pool2d(out, out.shape[2])
-        features = real_features(out, tasks, cfg.num_filters)
-        logits = linear(
-            features, params["linear"]["weight"], params["linear"]["bias"]
-        )
+        logits = head(shard, out, sharded, params["linear"], tasks,
+                      cfg.num_filters, cfg.conv_channels, cfg.feature_dim)
         return logits, new_bn_state
 
     def inner_loop_mask(self, params: Params) -> Params:
@@ -352,6 +381,61 @@ def real_features(out: torch.Tensor, tasks: int, channels: int) -> torch.Tensor:
     return out.reshape(n, tasks, -1).transpose(0, 1)
 
 
+def conv_input(shard, x, sharded: bool, tasks: int, width: int) -> torch.Tensor:
+    """The whole input of a conv of ``width`` output channels, from a
+    sharded or a replicated activation: all-gathered for a sharded conv
+    (or for a replicated one, keeping each rank's own gradient block), a
+    replicated input entering a sharded conv through the copy."""
+    if shard is None:
+        return x
+    if sharded:
+        return shard.gather(x, tasks) if shard.divides(width) else shard.gather_replicated(x, tasks)
+    return shard.copy(x) if shard.divides(width) else x
+
+
+def match_layout(shard, x, sharded: bool, want: bool, tasks: int) -> torch.Tensor:
+    """``x`` as a sharded (``want``) or replicated activation, for a local
+    op whose parameters have that layout."""
+    if shard is None or sharded == want:
+        return x
+    return shard.split(x, tasks) if want else shard.gather_replicated(x, tasks)
+
+
+def local_state(shard, state: BatchNormState, width: int) -> BatchNormState:
+    """This rank's block of ``width`` channels of running statistics ``(T,
+    [S,] C)``: sliced from whole ones (the step's input), as they are when
+    an earlier forward of the step already returned the block."""
+    if state.running_mean.shape[-1] == width:
+        return state
+    lo, hi = shard.block(state.running_mean.shape[-1])
+    return BatchNormState(*(a[..., lo:hi] for a in state))
+
+
+def head(shard, out, sharded: bool, linear_params: Params, tasks: int,
+         channels: int, width: int, feature_dim: int) -> torch.Tensor:
+    """Logits ``(T, N, classes)`` of the folded last activation ``out``
+    (``width`` channels a task, ``channels`` of them real). On a
+    tensor-parallel layout whose head is sharded (``feature_dim`` divides
+    mp) it runs row-parallel: a rank's channel block is one contiguous span
+    of the features where nothing is lane-padded, else its span is sliced
+    from the gathered features; the partial logits are all-reduced and the
+    replicated bias added after."""
+    weight, bias = linear_params["weight"], linear_params["bias"]
+    if shard is None or not shard.divides(feature_dim):
+        if shard is not None and sharded:
+            out = shard.gather_replicated(out, tasks)
+        return linear(real_features(out, tasks, channels), weight, bias)
+    if sharded and width == channels:
+        features = real_features(out, tasks, channels // shard.size)
+    else:
+        features = real_features(
+            shard.gather(out, tasks) if sharded else shard.copy(out), tasks, channels)
+        lo, hi = shard.block(features.shape[-1])
+        features = features[..., lo:hi]
+    logits = shard.reduce(linear(features, weight))
+    return logits + bias.to(logits.dtype).unsqueeze(-2)
+
+
 def norm_excluded_mask(cfg: BackboneConfig, params: Params) -> Params:
     """The inner-loop mask of both backbones (the reference's
     ``get_inner_loop_parameter_dict``): every leaf but those under a
@@ -362,16 +446,28 @@ def norm_excluded_mask(cfg: BackboneConfig, params: Params) -> Params:
     )
 
 
-def task_layer_norm(x, norm: Params, tasks: int, eps: float) -> torch.Tensor:
+def task_layer_norm(x, norm: Params, tasks: int, eps: float, shard=None) -> torch.Tensor:
     """Layer norm of the folded ``(N, T·C, H, W)`` activation over each
     task's own ``(C, H, W)``; ``norm``'s ``weight``/``bias`` are ``(T, C, H,
-    W)``."""
+    W)``. With ``shard`` the activation and the parameters are this rank's
+    channel block, and the statistics' sums (of ``x``, then of its squared
+    deviations) are all-reduced over the mp group."""
     n, _, h, w = x.shape
-    out = layer_norm(
-        x.reshape(n, tasks, -1, h, w), norm["weight"], norm["bias"],
-        eps=eps, normalized_ndim=3,
-    )
-    return out.reshape(x.shape)
+    if shard is None:
+        out = layer_norm(
+            x.reshape(n, tasks, -1, h, w), norm["weight"], norm["bias"],
+            eps=eps, normalized_ndim=3,
+        )
+        return out.reshape(x.shape)
+    in_dtype = x.dtype
+    xs = wide(x).reshape(n, tasks, -1, h, w)
+    count = xs[0, 0].numel() * shard.size
+    dims = (2, 3, 4)
+    mean = shard.copy(shard.reduce(xs.sum(dim=dims, keepdim=True))) / count
+    centered = xs - mean
+    var = shard.copy(shard.reduce(centered.square().sum(dim=dims, keepdim=True))) / count
+    out = centered * torch.rsqrt(var + eps) * norm["weight"] + norm["bias"]
+    return out.to(in_dtype).reshape(x.shape)
 
 
 def norm_act(x, norm: Params, state: BatchNormState | None, step, cfg, tasks,
@@ -447,13 +543,14 @@ def fused_norm_act(x, gamma, beta, state, step, *, eps, momentum, slope=SLOPE,
     )
 
 
-def build_backbone(cfg: BackboneConfig):
+def build_backbone(cfg: BackboneConfig, shard=None):
     """The backbone of ``cfg.architecture``: ``VGGBackbone`` or
-    ``ResNet12Backbone``."""
+    ``ResNet12Backbone``, on this rank's ``shard`` of a tensor-parallel
+    layout where one is given."""
     if cfg.architecture == "vgg":
-        return VGGBackbone(cfg)
+        return VGGBackbone(cfg, shard)
     if cfg.architecture == "resnet12":
         from .resnet import ResNet12Backbone
 
-        return ResNet12Backbone(cfg)
+        return ResNet12Backbone(cfg, shard)
     raise ValueError(f"unknown backbone architecture {cfg.architecture!r}")

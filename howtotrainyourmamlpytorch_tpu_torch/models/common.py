@@ -406,16 +406,84 @@ class CheckpointableLearner:
     """Checkpoint methods of the trainer contract
     (``howtotrainyourmamlpytorch_tpu/models/common.py:459``): a train state
     and the experiment state in one archive of the JAX package's format,
-    rebuilt on load from a fresh state of this learner's config. The state
-    is replicated on every rank, so nothing is gathered. The archive's
-    layout follows the state (``utils/checkpoint``); a learner with
-    serve-time state beyond the
-    checkpoint's prefix overrides ``load_inference_state``.
+    rebuilt on load from a fresh state of this learner's config. The
+    archive's layout follows the state (``utils/checkpoint``); a learner
+    with serve-time state beyond the checkpoint's prefix overrides
+    ``load_inference_state``.
+
+    Archives hold whole leaves, so they do not depend on the layout
+    (``parallel/sharding.py``). On a dp layout the state is replicated on
+    every rank. On a tensor-parallel one (``mesh.mp > 1``) a learner that
+    declares ``supports_model_sharding`` holds its rank's blocks
+    (``shard_state``); ``gather_state`` all-gathers them back to whole
+    host tensors, a collective every rank calls, and ``save_model`` and
+    ``snapshot_model`` take that whole state. Other learners keep a
+    replicated state on such a layout.
 
     Archives never hold lane padding (``ops/layout.py``): a learner whose
     backbone pads strips its state to the unpadded layout before a save
     and pads a restored state into its own fresh state after a load, so
     padded and unpadded learners read each other's checkpoints."""
+
+    #: Whether this learner's steps run on a tensor-parallel state layout
+    #: (``MP_STATE_RULES``); MAML's and ANIL's do.
+    supports_model_sharding = False
+
+    def _shards_model(self) -> bool:
+        mesh = getattr(self, "mesh", None)
+        return mesh is not None and mesh.mp > 1 and self.supports_model_sharding
+
+    def state_shardings(self, state):
+        """The spec tree of a whole ``state`` on this learner's mesh
+        (``parallel/sharding.state_shardings``: the ``MP_STATE_RULES``
+        layout where the mesh has mp > 1 and the learner supports it, every
+        leaf replicated otherwise), or ``None`` without a mesh."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is None:
+            return None
+        from ..parallel.sharding import state_shardings
+
+        return state_shardings(mesh, state, shard_model=self._shards_model())
+
+    def shard_state(self, state):
+        """This rank's blocks of a whole ``state``; the state itself where
+        nothing is sharded."""
+        if not self._shards_model():
+            return state
+        from ..parallel.sharding import make_shard_and_gather_fns, shard_tree
+
+        shard_fns, _ = make_shard_and_gather_fns(
+            self.mesh, self.state_shardings(state), state)
+        return shard_tree(state, shard_fns)
+
+    def layout(self):
+        """The spec tree of this learner's train state, from a whole state
+        of its config made once on the CPU."""
+        cache = self.__dict__.setdefault("_layout_cache", {})
+        if not cache:
+            from ..parallel.sharding import is_sharded, map_with_specs
+
+            template = self.init_state(torch.Generator().manual_seed(0), "cpu")
+            cache["specs"] = self.state_shardings(template)
+            cache["sharded_theta"] = map_with_specs(
+                lambda _, spec: is_sharded(spec), template.theta, cache["specs"].theta)
+        return cache["specs"]
+
+    def sharded_theta(self):
+        """True on the theta leaves a rank holds a block of."""
+        self.layout()
+        return self._layout_cache["sharded_theta"]
+
+    def gather_state(self, state):
+        """A rank's train state -> the whole state, leaves on the host, on
+        every rank of a tensor-parallel layout (a collective each calls);
+        the state itself where nothing is sharded."""
+        if not self._shards_model():
+            return state
+        from ..parallel.sharding import gather_tree, make_shard_and_gather_fns
+
+        _, gather_fns = make_shard_and_gather_fns(self.mesh, self.layout(), state)
+        return gather_tree(state, gather_fns)
 
     def _path_leaves(self, state) -> list:
         return checkpoint.train_state_paths(
@@ -487,17 +555,19 @@ class CheckpointableLearner:
         return self._load(checkpoint.load_checkpoint, filepath, "init_state", device)
 
     def replicate(self, state):
-        """``state`` replicated over the ranks of a multi-process learner:
-        rank 0's values on every rank (one broadcast per dtype bucket),
-        after init and after every load, so no rank trains from a state of
-        its own. The identity on one process. Checkpoints hold no layout:
-        a fleet's resumes on one process and the other way round."""
+        """A whole ``state`` laid out over the ranks of a multi-process
+        learner: rank 0's values on every rank (one broadcast per dtype
+        bucket), then this rank's blocks on a tensor-parallel layout
+        (``shard_state``); after init and after every load, so no rank
+        trains from a state of its own. The identity on one process.
+        Checkpoints hold no layout: a fleet's resumes on one process and
+        the other way round."""
         mesh = getattr(self, "mesh", None)
         if mesh is None or mesh.world <= 1:
             return state
         from ..parallel.collectives import broadcast_tree
 
-        return broadcast_tree(state)
+        return self.shard_state(broadcast_tree(state))
 
     def load_inference_state(self, filepath: str, device=None):
         """``(inference_state, experiment_state)``: the parameters, LSLR
@@ -529,8 +599,11 @@ class SharedWeightsLearner(CheckpointableLearner):
     #: The metrics ``run_validation_iter`` reports.
     eval_keys = ("loss", "accuracy")
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, mesh=None):
+        """``mesh``: the layout, whose state stays replicated (these
+        learners do not span processes), or None."""
         self.cfg = cfg
+        self.mesh = mesh
         self.backbone = build_backbone(cfg.backbone)
         self.tx = make_injected_adam(cfg.meta_learning_rate, cfg.clip_grad_value)
         self.current_epoch = 0

@@ -50,6 +50,23 @@ the reduced gradients, so the state stays replicated. Two ranks therefore
 add the same two gradient terms as the single-process step with
 ``task_chunk = B/2``, bit for bit. On a card the captured step is split
 at that seam (``models/step_graph.py``). ANIL inherits all of it.
+
+Tensor parallel (``mesh.mp > 1``, JAX's mp mesh axis). The state is this
+rank's blocks (``common.CheckpointableLearner.shard_state``, the
+``MP_STATE_RULES`` layout) and the backbone runs on its ``ModelShard``
+(``models/backbone.py``). The fast weights stay sharded through the inner
+loop: the LSLR update is elementwise, and the rates of a sharded leaf
+enter it through ``CopyToShards``, so their gradient is summed over the mp
+group once. (JAX re-anchors the inner gradients as replicated instead,
+``parallel/mesh.mp_grad_anchor``, a workaround for its partitioner.) The
+meta-gradient of a sharded leaf is its block's; of a replicated leaf,
+whole on every rank. ``_reduce`` sums over the dp group only, Adam runs on
+the blocks, so the moments stay sharded, the BN state is all-gathered over
+the mp group at the step's end (it stays replicated, as in JAX), and the
+sentinel's global norm sums the sharded leaves' squares over the group.
+Every backward runs on the calling thread, so every rank issues the
+backbone's collectives in one order. The card runs the eager step there
+(``models/step_graph.py``).
 """
 
 from __future__ import annotations
@@ -63,7 +80,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..inner_loop import init_lslr, lslr_update
 from ..ops.losses import masked_cross_entropy, nll
-from ..parallel.collectives import guard_task_chunk, reduce_fn
+from ..parallel.collectives import (
+    ModelShard,
+    all_gather_cat,
+    all_reduce_,
+    guard_task_chunk,
+    reduce_fn,
+)
 from ..utils import sanitize
 from ..utils.platform import resolve_device, set_f32_numerics
 from ..utils.trees import (
@@ -240,15 +263,21 @@ class MAMLFewShotLearner(CheckpointableLearner):
     """The MAML/MAML++ learner: the train and eval steps of the reference
     trainer contract, and the serving half."""
 
+    supports_model_sharding = True
+
     def __init__(self, cfg: MAMLConfig, mesh=None):
-        """``mesh``: a ``parallel.mesh.Mesh`` of ``dp`` ranks, or None on one
-        process."""
+        """``mesh``: a ``parallel.mesh.Mesh`` of ``dp x mp`` ranks, or None
+        on one process."""
         self.cfg = cfg
         self.mesh = mesh
         guard_task_chunk(mesh, cfg.task_chunk)
         #: The dp extent: the ranks the task axis is split over.
         self.dp = 1 if mesh is None else int(mesh.dp)
-        self.backbone = build_backbone(cfg.backbone)
+        #: The mp extent: the ranks each sharded leaf is split over.
+        self.mp = 1 if mesh is None else int(mesh.mp)
+        shard = (ModelShard(mesh.mp_group, mesh.mp, mesh.mp_index)
+                 if self.mp > 1 else None)
+        self.backbone = build_backbone(cfg.backbone, shard)
         self.tx = make_injected_adam(cfg.meta_learning_rate, cfg.clip_grad_value)
         self.current_epoch = 0
         # The captured train steps, made at the first dispatch on a card.
@@ -349,7 +378,7 @@ class MAMLFewShotLearner(CheckpointableLearner):
         (leading ``T`` axis). Without ``outer_grad`` (eval) no graph
         outlives a step."""
         cfg = self.cfg
-        theta, lslr = outer["theta"], outer["lslr"]
+        theta, lslr = outer["theta"], self._shard_rates(outer["lslr"])
         # The one boundary cast of the float32 masters (the identity in
         # float32); the LSLR table and the BN statistics stay float32.
         adapt0, frozen = partition(theta, self.adapt_mask(theta))
@@ -427,6 +456,41 @@ class MAMLFewShotLearner(CheckpointableLearner):
         accuracy = (logits.argmax(-1) == yt).float().mean(dim=-1)
         return weighted.mean(), dict(logits=logits, accuracy=accuracy, bn_state=bn)
 
+    def _shard_rates(self, lslr: Tree) -> Tree:
+        """The LSLR rates, those of sharded leaves entering the sharded
+        update through ``CopyToShards`` (the identity off a tensor-parallel
+        layout)."""
+        shard = self.backbone.shard
+        if shard is None:
+            return lslr
+        sharded = self.sharded_theta()
+        sharded, _ = partition(sharded, self.adapt_mask(sharded))
+        return tree_map(lambda lr, s: shard.copy(lr) if s else lr, lslr, sharded)
+
+    def _gather_bn(self, bn_state: Tree, whole: Tree) -> Tree:
+        """Running statistics of sharded sites, a rank's channel block,
+        all-gathered over the mp group to ``whole``'s shapes."""
+        mesh = self.mesh
+        return tree_map(
+            lambda a, w: a if a.shape == w.shape
+            else all_gather_cat(a, a.dim() - 1, mesh.mp_group, mesh.mp),
+            bn_state, whole,
+        )
+
+    def _global_norm(self, grads: Tree) -> torch.Tensor:
+        """``common.global_norm`` of the whole meta-gradient: the squares of
+        sharded leaves summed over the mp group, replicated leaves counted
+        once."""
+        if self.backbone.shard is None:
+            return global_norm(grads)
+        sq = lambda g: g.float().square().sum()  # noqa: E731
+        zero = torch.zeros((), device=tree_leaves(grads)[0].device)
+        own, rest = [zero], [zero] + [sq(g) for g in tree_leaves(grads["lslr"])]
+        tree_map(lambda g, s: (own if s else rest).append(sq(g)),
+                 grads["theta"], self.sharded_theta())
+        total = all_reduce_(torch.stack(own).sum(), self.mesh.mp_group)
+        return torch.sqrt(total + torch.stack(rest).sum())
+
     # ------------------------------------------------------------------
     # Meta step
     # ------------------------------------------------------------------
@@ -484,6 +548,8 @@ class MAMLFewShotLearner(CheckpointableLearner):
             bn_states.append(aux["bn_state"])
         bn_mean = tree_map(lambda *s: self._rank_share(_task_cat(s).mean(dim=0)),
                            *bn_states)
+        if self.mp > 1:
+            bn_mean = self._gather_bn(bn_mean, state.bn_state)
         return (
             sum(losses[1:], losses[0]), self._rank_share(_task_cat(accuracy).mean()),
             bn_mean, tree_unflatten(outer, grads),
@@ -494,11 +560,11 @@ class MAMLFewShotLearner(CheckpointableLearner):
         return value if self.dp == 1 else value / self.dp
 
     def _reduce(self, parts):
-        """The sum over ranks of a rank's metric and gradient parts (the
-        identity on one process)."""
+        """The sum over the dp group's ranks of a rank's metric and gradient
+        parts (the identity without dp ranks)."""
         if self.dp == 1:
             return parts
-        return reduce_fn(self.cfg.collective_fusion)(parts)
+        return reduce_fn(self.cfg.collective_fusion)(parts, self.mesh.dp_group)
 
     def _meta_grads(self, state: TrainState, batch, importance, *,
                     second_order, final_only):
@@ -535,7 +601,7 @@ class MAMLFewShotLearner(CheckpointableLearner):
         )
         # The classic second-order failure is a non-finite meta-gradient
         # under a finite loss, so both are checked.
-        nonfinite = nonfinite_flag(loss, global_norm(grads))
+        nonfinite = nonfinite_flag(loss, self._global_norm(grads))
         new_state = guard_nonfinite_update(
             self.cfg.skip_nonfinite_updates, nonfinite, new_state, state
         )
@@ -551,12 +617,13 @@ class MAMLFewShotLearner(CheckpointableLearner):
         losses, accuracy, logits = [], [], []
         for chunk in self._task_chunks(batch):
             share = chunk[0].shape[0] / tasks
-            loss, aux = self._meta_loss(
-                {"theta": state.theta, "lslr": state.lslr}, state.bn_state,
-                chunk, importance, cfg.number_of_evaluation_steps_per_iter,
-                False, None if final_only else self.serve_adapt_steps - 1,
-                final_only, outer_grad=False,
-            )
+            with torch.autograd.set_multithreading_enabled(self.mp == 1):
+                loss, aux = self._meta_loss(
+                    {"theta": state.theta, "lslr": state.lslr}, state.bn_state,
+                    chunk, importance, cfg.number_of_evaluation_steps_per_iter,
+                    False, None if final_only else self.serve_adapt_steps - 1,
+                    final_only, outer_grad=False,
+                )
             losses.append(loss.detach() if share == 1.0 else loss.detach() * share)
             accuracy.append(aux["accuracy"])
             logits.append(aux["logits"])
@@ -628,14 +695,16 @@ class MAMLFewShotLearner(CheckpointableLearner):
         """``len(group[0])`` meta-updates of ``epoch``'s program variant.
         Returns ``(new_state, metrics)`` with ``(K,)`` ``loss``,
         ``accuracy`` and ``nonfinite``. On a card each is a replay of the
-        captured step (the eager step under ``--debug_nans``); on the CPU
-        the eager step."""
+        captured step (the eager step under ``--debug_nans`` and on a
+        tensor-parallel layout); on the CPU the eager step."""
         importance = self._train_importance(epoch)
         lr = self._epoch_lr(epoch)
         branch = dict(second_order=self._use_second_order(epoch),
                       final_only=self._final_only(epoch))
         device = self._device(state)
-        if device.type == "cuda" and not sanitize.debug_nans_enabled():
+        # A tensor-parallel step's collectives go through the host on gloo,
+        # which a CUDA graph cannot capture: the eager step runs there.
+        if device.type == "cuda" and not sanitize.debug_nans_enabled() and self.mp == 1:
             if self._step_graphs is None:
                 self._step_graphs = StepGraphs(device)
             new_state, rows = self._step_graphs.run(

@@ -69,8 +69,8 @@ class MatchingNetsLearner(SharedWeightsLearner):
 
     state_type = MatchingNetsState
 
-    def __init__(self, cfg, parity_bug: bool = False):
-        super().__init__(cfg)
+    def __init__(self, cfg, mesh=None, parity_bug: bool = False):
+        super().__init__(cfg, mesh)
         self.parity_bug = parity_bug
 
     def _predictions(self, support_emb, target_emb, ys):

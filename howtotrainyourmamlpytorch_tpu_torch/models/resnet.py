@@ -43,10 +43,12 @@ from ..ops.pool import max_pool2d
 from .backbone import (
     BackboneConfig,
     Params,
+    conv_input,
+    head,
     leaky_relu,
+    local_state,
     norm_act,
     norm_excluded_mask,
-    real_features,
     resolve_fused_variant,
 )
 
@@ -60,7 +62,7 @@ class ResNet12Backbone:
     NUM_STAGES = 4
     CONVS_PER_STAGE = 3
 
-    def __init__(self, cfg: BackboneConfig):
+    def __init__(self, cfg: BackboneConfig, shard=None):
         if cfg.norm_layer != "batch_norm":
             raise ValueError(
                 "resnet12 supports norm_layer='batch_norm' only "
@@ -72,6 +74,7 @@ class ResNet12Backbone:
                 f"(got {cfg.resnet_widths!r})"
             )
         self.cfg = cfg
+        self.shard = shard
 
     @property
     def real_widths(self) -> tuple[int, int, int, int]:
@@ -157,9 +160,11 @@ class ResNet12Backbone:
         ``VGGBackbone.apply``'s, the running stats nested per stage."""
         cfg = self.cfg
         variant = resolve_fused_variant(cfg, fused)
+        shard = self.shard
         tasks, n = x.shape[:2]
         out = x.transpose(0, 1).reshape(n, tasks * x.shape[2], *x.shape[3:])
         new_bn_state: Params | None = None if bn_state is None else {}
+        sharded = False  # whether ``out`` holds this rank's channel block
 
         def conv(h, unit, padding):
             weight = unit["conv"]["weight"]
@@ -169,35 +174,39 @@ class ResNet12Backbone:
                 groups=tasks,
             )
 
-        def norm(h, stage, state, name, activate):
+        def norm(h, stage, state, name, activate, sharded):
+            state = None if state is None else state[name]
+            if sharded and state is not None:
+                state = local_state(shard, state, h.shape[1] // tasks)
             return norm_act(
-                h, stage[name]["norm"], None if state is None else state[name],
-                step, cfg, tasks, variant=variant, activate=activate,
-                slope=LEAKY_SLOPE,
+                h, stage[name]["norm"], state, step, cfg, tasks,
+                variant=variant, activate=activate, slope=LEAKY_SLOPE,
             )
 
-        for i in range(self.NUM_STAGES):
+        for i, width in enumerate(self.widths):
             stage = params[f"res{i}"]
             state = None if bn_state is None else bn_state[f"res{i}"]
             new_state: Params = {}
-            h = out
+            wide = shard is not None and shard.divides(width)
+            h = x_in = conv_input(shard, out, sharded, tasks, width)
             for j in range(self.CONVS_PER_STAGE):
                 name = f"conv{j}"
+                if j:
+                    h = conv_input(shard, h, wide, tasks, width)
                 h, new_state[name] = norm(
                     conv(h, stage[name], 1), stage, state, name,
-                    activate=j < self.CONVS_PER_STAGE - 1,
+                    j < self.CONVS_PER_STAGE - 1, wide,
                 )
             sc, new_state["shortcut"] = norm(
-                conv(out, stage["shortcut"], 0), stage, state, "shortcut", activate=False
+                conv(x_in, stage["shortcut"], 0), stage, state, "shortcut", False, wide
             )
             out = max_pool2d(leaky_relu(h + sc, LEAKY_SLOPE), 2, 2)
+            sharded = wide
             if new_bn_state is not None:
                 new_bn_state[f"res{i}"] = new_state
         features = out.float().mean(dim=(2, 3)).to(out.dtype)
-        features = real_features(features, tasks, self.real_widths[-1])
-        logits = linear(
-            features, params["linear"]["weight"], params["linear"]["bias"]
-        )
+        logits = head(shard, features, sharded, params["linear"], tasks,
+                      self.real_widths[-1], self.widths[-1], cfg.feature_dim)
         return logits, new_bn_state
 
     def inner_loop_mask(self, params: Params) -> Params:

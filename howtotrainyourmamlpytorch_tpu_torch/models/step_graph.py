@@ -64,6 +64,13 @@ reduction, B. The launches each graph captured are kept per graph
 seconds the reductions took, which each dispatch also emits as a
 ``reduce`` event (its seconds, its K and the bytes a rank reduces a
 step). One rank's step stays one graph.
+
+On a tensor-parallel learner (``mp`` > 1) nothing is captured: the card
+runs the eager step (``MAMLFewShotLearner._train_group``). Its
+collectives sit inside the forward and both backward passes, and on gloo
+each goes through the host, which no capture can hold; NCCL, which could
+be captured, refuses two ranks on one card. A captured tensor-parallel
+step over NCCL, one card a rank, waits for a cell of more than one card.
 """
 
 from __future__ import annotations

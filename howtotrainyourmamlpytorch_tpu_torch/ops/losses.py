@@ -5,10 +5,12 @@ from __future__ import annotations
 
 import torch
 
+from .norm import wide
+
 
 def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-row negative log-likelihood, shaped like ``labels``."""
-    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    log_probs = torch.log_softmax(wide(logits), dim=-1)
     return -log_probs.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
 
 

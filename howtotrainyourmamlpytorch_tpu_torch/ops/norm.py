@@ -17,6 +17,12 @@ from typing import NamedTuple
 import torch
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32 where it is narrower (bfloat16), else as it is: the
+    dtype statistics and softmaxes are taken in (float64 stays float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 class BatchNormState(NamedTuple):
     """Running statistics: ``(features,)`` or per-step ``(num_steps,
     features)`` arrays."""
@@ -76,13 +82,13 @@ def batch_norm(
     momentum: float = 0.1,
     eps: float = 1e-5,
 ) -> tuple[torch.Tensor, BatchNormState | None]:
-    """Batch norm over ``(N, C, H, W)`` with float32 statistics.
+    """Batch norm over ``(N, C, H, W)`` with float32 statistics (``wide``).
 
     ``gamma``/``beta``: ``(C,)`` or per-step ``(S, C)``. ``state``: running
     stats, or ``None`` to skip their update (the serve path, whose outputs
     they never reach). Returns ``(normalized, new_state)``."""
     in_dtype = x.dtype
-    x = x.float()
+    x = wide(x)
     n = x.shape[0] * x.shape[2] * x.shape[3]
     var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
     gamma, beta = step_row(gamma, step), step_row(beta, step)
@@ -104,7 +110,7 @@ def layer_norm(
     eps: float = 1e-5,
     normalized_ndim: int | None = None,
 ) -> torch.Tensor:
-    """Layer norm with float32 statistics over the trailing
+    """Layer norm with float32 statistics (``wide``) over the trailing
     ``normalized_ndim`` dims of ``x`` (``weight.ndim`` by default, as in
     JAX), then ``* weight + bias``, both broadcast against ``x``'s trailing
     dims. A leading task axis on ``weight``/``bias`` takes
@@ -112,7 +118,7 @@ def layer_norm(
     ndim = weight.dim() if normalized_ndim is None else normalized_ndim
     dims = tuple(range(x.dim() - ndim, x.dim()))
     in_dtype = x.dtype
-    x = x.float()
+    x = wide(x)
     var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
     out = (x - mean) * torch.rsqrt(var + eps)
     return (out * weight + bias).to(in_dtype)

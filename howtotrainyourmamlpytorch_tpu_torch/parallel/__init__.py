@@ -1,15 +1,18 @@
-"""Data-parallel meta-training across processes
-(``howtotrainyourmamlpytorch_tpu/parallel/``, its dp half).
+"""Data- and tensor-parallel meta-training across processes
+(``howtotrainyourmamlpytorch_tpu/parallel/``).
 
 The reference trains with single-process ``nn.DataParallel``; the JAX
 package shards the task axis of the meta-batch over a device mesh's
-``dp`` axis. Here a rank is a process: each adapts its own slice of the
-tasks, and the meta-gradient is all-reduced as one flat buffer per dtype.
-The tensor-parallel half (``mp``) is ROADMAP A10.2.
+``dp`` axis and, optionally, the conv channels over its ``mp`` axis. Here
+a rank is a process: a layout has ``dp x mp`` of them. Each mp group
+adapts its own slice of the tasks, each rank of it holding one channel
+block of every sharded leaf (``sharding.py``); the meta-gradient is
+all-reduced over the dp group as one flat buffer per dtype.
 """
 
 from .collectives import (
     BucketSpec,
+    ModelShard,
     broadcast_tree,
     flatten_buckets,
     fused_psum,
@@ -35,6 +38,7 @@ from .mesh import (
     degraded_process_count,
     host_batch_bounds,
     make_mesh,
+    param_shardings,
 )
 from .multihost import allgather_host, barrier, gather_global, is_multiprocess
 
@@ -61,6 +65,8 @@ __all__ = [
     "initialize_distributed_from_argv",
     "is_multiprocess",
     "make_mesh",
+    "ModelShard",
+    "param_shardings",
     "per_leaf_psum",
     "process_count",
     "process_index",

@@ -1,24 +1,44 @@
-"""Flat-bucket cross-rank reductions
-(``howtotrainyourmamlpytorch_tpu/parallel/collectives.py``).
+"""Cross-rank reductions of the dp half and the differentiable collectives
+of the tp half (``howtotrainyourmamlpytorch_tpu/parallel/collectives.py``).
 
-A per-leaf all-reduce of the meta-gradient is one collective per
-parameter tensor, each paying the transport's latency floor. The bucketed
-form concatenates the leaves into one flat buffer per dtype and reduces
-each buffer once: the payload is the same, the latency is paid once per
-dtype. ``fused_psum`` is that reduction; ``per_leaf_psum`` the per-leaf
-form (``MAMLConfig.collective_fusion = "per_leaf"``). Both are the same
-elementwise sums, so leaf values are bit-identical between them.
+Data parallel. A per-leaf all-reduce of the meta-gradient is one
+collective per parameter tensor, each paying the transport's latency
+floor. The bucketed form concatenates the leaves into one flat buffer per
+dtype and reduces each buffer once: the payload is the same, the latency
+is paid once per dtype. ``fused_psum`` is that reduction; ``per_leaf_psum``
+the per-leaf form (``MAMLConfig.collective_fusion = "per_leaf"``). Both
+are the same elementwise sums, so leaf values are bit-identical between
+them.
+
+Tensor parallel. Four ``torch.autograd.Function``s over the mp group, each
+of whose backward calls its partner, so they compose to any order under
+``create_graph=True`` (the torch form of a recursive ``custom_jvp``):
+
+* ``AllGather``: this rank's block -> the blocks of every rank
+  concatenated on an axis; backward ``ReduceScatter``;
+* ``ReduceScatter``: the sum over ranks, this rank's block of it;
+  backward ``AllGather``;
+* ``AllReduce``: the sum of partial sums; backward ``CopyToShards``;
+* ``CopyToShards``: the identity on a replicated input entering sharded
+  work; backward ``AllReduce``, so its gradient is summed over the ranks
+  once.
+
+``ModelShard`` applies them to the task-folded ``(N, T*C, H, W)``
+activations of the backbones, gathering per task.
 
 Where the group's backend is gloo and a buffer lies on a card, the buffer
-is reduced through the host: copied to the CPU (which waits for the
-work queued on the card before it), all-reduced there, and copied back.
-``collective_counts`` counts the collectives this process issued, by kind.
+goes through the host: copied to the CPU (which waits for the work queued
+on the card before it), reduced there, and copied back. ``ReduceScatter`` is an all-reduce and a
+slice on every backend (gloo has no reduce-scatter).
+``collective_counts`` counts the collectives this process issued, by kind,
+and ``collective_seconds`` the host seconds they took.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any
 
 import torch
@@ -28,8 +48,11 @@ from .mesh import DEFAULT_DATA_AXIS, Mesh
 
 Tree = Any
 
-#: Collectives this process issued, by kind (``all_reduce``, ``broadcast``).
+#: Collectives this process issued, by kind (``all_reduce``, ``broadcast``,
+#: ``all_gather``, ``reduce_scatter``).
 collective_counts: collections.Counter = collections.Counter()
+#: Host seconds the collectives took, by kind (host copies included).
+collective_seconds: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,13 +118,49 @@ def all_reduce_(tensor: torch.Tensor, group=None) -> torch.Tensor:
     import torch.distributed as dist
 
     collective_counts["all_reduce"] += 1
+    t0 = time.perf_counter()
     if _through_host(tensor, group):
         host = tensor.cpu()
         dist.all_reduce(host, group=group)
         tensor.copy_(host)
     else:
         dist.all_reduce(tensor, group=group)
+    collective_seconds["all_reduce"] += time.perf_counter() - t0
     return tensor
+
+
+def all_gather_cat(tensor: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """Every rank's ``tensor`` of the group concatenated on ``dim`` in rank
+    order (a new tensor on ``tensor``'s device)."""
+    import torch.distributed as dist
+
+    collective_counts["all_gather"] += 1
+    t0 = time.perf_counter()
+    src = tensor.detach().contiguous()
+    if _through_host(src, group):
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim).to(tensor.device)
+    collective_seconds["all_gather"] += time.perf_counter() - t0
+    return out
+
+
+def reduce_scatter_block(tensor: torch.Tensor, dim: int, group, size: int,
+                         index: int) -> torch.Tensor:
+    """Block ``index`` (of ``size`` on ``dim``) of the sum of ``tensor`` over
+    the group's ranks: an all-reduce and a slice, on any backend."""
+    import torch.distributed as dist
+
+    collective_counts["reduce_scatter"] += 1
+    t0 = time.perf_counter()
+    src = tensor.detach()
+    summed = src.cpu() if _through_host(src, group) else src.clone()
+    dist.all_reduce(summed, group=group)
+    block = summed.shape[dim] // size
+    out = summed.narrow(dim, index * block, block).contiguous().to(tensor.device)
+    collective_seconds["reduce_scatter"] += time.perf_counter() - t0
+    return out
 
 
 def broadcast_(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
@@ -116,6 +175,119 @@ def broadcast_(tensor: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     else:
         dist.broadcast(tensor, src=src, group=group)
     return tensor
+
+
+class AllGather(torch.autograd.Function):
+    """This rank's block -> every rank's blocks concatenated on ``dim``;
+    backward: ``ReduceScatter`` of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size, index):
+        ctx.args = (dim, group, size, index)
+        return all_gather_cat(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ReduceScatter.apply(grad, *ctx.args), None, None, None, None
+
+
+class ReduceScatter(torch.autograd.Function):
+    """The sum over ranks, this rank's block of it on ``dim``; backward:
+    ``AllGather`` of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, size, index):
+        ctx.args = (dim, group, size, index)
+        return reduce_scatter_block(x, dim, group, size, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return AllGather.apply(grad, *ctx.args), None, None, None, None
+
+
+class AllReduce(torch.autograd.Function):
+    """The sum over ranks of partial sums; backward: ``CopyToShards`` of
+    the gradient (every rank's partial gets the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.detach().clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return CopyToShards.apply(grad, ctx.group), None
+
+
+class CopyToShards(torch.autograd.Function):
+    """The identity on a replicated input of sharded work; backward:
+    ``AllReduce`` of the gradient (each rank's part of it is summed
+    once)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return AllReduce.apply(grad, ctx.group), None
+
+
+class ModelShard:
+    """A rank's place in its mp group, and the collectives of the sharded
+    backbones over it. Activations are task-folded ``(N, T*C, H, W)``; a
+    sharded one holds this rank's block of each task's channels, ``(N,
+    T*C/mp, H, W)``, so gathers and splits run per task."""
+
+    def __init__(self, group, size: int, index: int):
+        self.group, self.size, self.index = group, int(size), int(index)
+
+    def divides(self, width: int) -> bool:
+        """Whether a layer of ``width`` output channels is sharded
+        (``sharding.guard_divisible``); one that is not computes all of
+        its channels on every rank."""
+        return width % self.size == 0
+
+    def block(self, width: int) -> tuple[int, int]:
+        """``[lo, hi)`` of this rank's block of ``width`` channels."""
+        block = width // self.size
+        return self.index * block, (self.index + 1) * block
+
+    def gather(self, x: torch.Tensor, tasks: int) -> torch.Tensor:
+        """A sharded activation -> the whole one, for sharded work (each
+        rank's gradient of it is a partial sum: ``AllGather``)."""
+        n, _, *rest = x.shape
+        full = AllGather.apply(x.reshape(n, tasks, -1, *rest), 2, self.group,
+                               self.size, self.index)
+        return full.reshape(n, -1, *rest)
+
+    def gather_replicated(self, x: torch.Tensor, tasks: int) -> torch.Tensor:
+        """A sharded activation -> the whole one, for replicated work: every
+        rank's gradient of it is whole, so each keeps its own block's
+        (the other blocks enter without a graph; each rank differentiates
+        its own through the same replicated work)."""
+        n, _, *rest = x.shape
+        own = x.reshape(n, tasks, 1, -1, *rest)
+        full = all_gather_cat(own, 2, self.group, self.size)
+        full = torch.cat([full[:, :, :self.index], own, full[:, :, self.index + 1:]], 2)
+        return full.reshape(n, -1, *rest)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor entering sharded work."""
+        return CopyToShards.apply(x, self.group)
+
+    def split(self, x: torch.Tensor, tasks: int) -> torch.Tensor:
+        """This rank's block of each task's channels of a replicated
+        activation ``(N, T*C, ...)``, entering sharded work."""
+        n, _, *rest = x.shape
+        per_task = self.copy(x).reshape(n, tasks, -1, *rest)
+        lo, hi = self.block(per_task.shape[2])
+        return per_task[:, :, lo:hi].reshape(n, -1, *rest)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group of partial sums, for replicated work."""
+        return AllReduce.apply(x, self.group)
 
 
 def fused_psum(tree: Tree, group=None) -> Tree:

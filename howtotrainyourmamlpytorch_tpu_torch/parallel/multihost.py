@@ -58,7 +58,7 @@ def barrier(tag: str, timeout_s: float = DEFAULT_BARRIER_TIMEOUT_S) -> None:
         raise RuntimeError(f"barrier {tag!r} failed: {exc}") from exc
 
 
-def _allgather(tensor):
+def _allgather(tensor, replicas: int = 1):
     import torch
     import torch.distributed as dist
 
@@ -72,25 +72,28 @@ def _allgather(tensor):
     parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size())]
     collective_counts["all_gather"] += 1
     dist.all_gather(parts, tensor)
-    return torch.cat(parts).cpu().numpy()
+    return torch.cat(parts[::replicas]).cpu().numpy()
 
 
-def gather_global(tensor) -> np.ndarray:
+def gather_global(tensor, replicas: int = 1) -> np.ndarray:
     """This rank's shard of a task-split tensor -> every rank's shards
-    concatenated on axis 0, as host numpy, identical on every rank."""
+    concatenated on axis 0, as host numpy, identical on every rank. With
+    ``replicas`` consecutive ranks holding the same shard (an mp group),
+    one rank's of each."""
     if not is_multiprocess():
         return tensor.detach().cpu().numpy()
-    return _allgather(tensor)
+    return _allgather(tensor, replicas)
 
 
-def allgather_host(array) -> np.ndarray:
+def allgather_host(array, replicas: int = 1) -> np.ndarray:
     """A host-local numpy shard -> every rank's shards concatenated on axis
-    0, identical on every rank (the identity on one process)."""
+    0, identical on every rank (the identity on one process); ``replicas``
+    as in :func:`gather_global`."""
     if not is_multiprocess():
         return np.asarray(array)
     import torch
 
-    return _allgather(torch.from_numpy(np.ascontiguousarray(array)))
+    return _allgather(torch.from_numpy(np.ascontiguousarray(array)), replicas)
 
 
 def broadcast_object(obj, src: int = 0):

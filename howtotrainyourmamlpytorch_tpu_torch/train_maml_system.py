@@ -10,11 +10,14 @@ The experiment configs run unchanged; the run writes
 ``<experiment_name>/{saved_models,logs}``, resumes from ``latest`` by
 default, and ends with the top-5 ensemble test.
 
-A data-parallel fleet is one such process per rank, each with
-``--coordinator_address host:port --num_processes N --process_id k``
-(the dispatcher's ``--num_processes N`` starts them); each joins the
-process group before it picks its card, trains on its slice of the tasks,
-and rank 0 alone writes the checkpoints and the summaries.
+A fleet is one such process per rank, each with ``--coordinator_address
+host:port --num_processes N --process_id k`` (the dispatcher's
+``--num_processes N`` starts them); each joins the process group before it
+picks its card, trains on its dp index's slice of the tasks, and rank 0
+alone writes the checkpoints and the summaries. With
+``--model_parallel_devices M`` the N ranks are N/M mp groups of M
+consecutive ranks, each rank holding one channel block of the sharded
+parameters (``parallel/sharding.py``); the step runs eagerly there.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from .utils.parser_utils import args_to_maml_config, get_args
 
 def run(make_learner, argv=None) -> dict:
     """Trains, validates and tests the experiment ``argv`` names with the
-    learner ``make_learner(cfg, args, mesh)`` builds (``mesh``: the dp
+    learner ``make_learner(cfg, args, mesh)`` builds (``mesh``: the dp x mp
     layout of a fleet, else None); returns the ensemble's test losses.
     Raises without a CUDA device."""
     argv = list(sys.argv[1:] if argv is None else argv)

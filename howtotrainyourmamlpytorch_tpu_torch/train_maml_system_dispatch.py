@@ -32,8 +32,9 @@ else ``train_maml_system``; the port's modules) in phases until
 * any other rc counts a phase; two phases in a row without a new row of
   ``summary_statistics.csv`` abort.
 
-A phase of a fleet (the config's ``data_parallel_devices`` N > 1, or
-``--num_processes N``) starts N ranks of the entry point over a fresh
+A phase of a fleet (the config's ``data_parallel_devices`` N times its
+``model_parallel_devices`` M above 1, or ``--num_processes N``) starts N x
+M (or N) ranks of the entry point over a fresh
 loopback coordinator, each with ``--coordinator_address``,
 ``--num_processes`` and ``--process_id`` (flags beat the config's keys).
 Once any rank exits, the others get ``--fleet_grace_s`` to exit by
@@ -46,7 +47,9 @@ death time and the rank, and the run resumes on
 ``parallel/mesh.degraded_process_count`` ranks from the last checkpoint
 (rank 0 is the single writer, and checkpoints hold no layout); every rank
 exiting 75 is a preemption that requeues the same fleet; a clean degraded
-phase probes the full fleet again (``probe-promote:procs2``). Without
+phase probes the full fleet again (``probe-promote:procs2``). A
+tensor-parallel fleet degrades by its dp extent and keeps its mp groups:
+``procs4 -> procs2`` at mp 2. Without
 ``--num_processes`` the fleet's phase code is the blamed rank's and the
 ladder above decides. ``--fault_rank R`` passes ``MAML_FAULTS`` to rank R
 alone.
@@ -238,12 +241,18 @@ def main(argv=None) -> int:
         cfg_dict = json.load(f)
     dp = max(int(_pop_flag(extra, "--data_parallel_devices", None, int)
                   or cfg_dict.get("data_parallel_devices", 0) or 0), 1)
+    mp = max(int(_pop_flag(extra, "--model_parallel_devices", None, int)
+                  or cfg_dict.get("model_parallel_devices", 1) or 1), 1)
     # Fleet mode: --num_processes names the fleet, and a rank lost is a
-    # host lost. Otherwise a dp-N config is an N-rank fleet on the dp
-    # ladder. A rank is a process either way.
+    # host lost. Otherwise a dp-N config is an N x mp-rank fleet on the dp
+    # ladder. A rank is a process either way; a ladder halves dp and keeps
+    # mp, so ``current`` counts processes, mp of them a dp index.
     host_mode = num_processes > 1
-    current = num_processes if host_mode else dp
+    current = num_processes if host_mode else dp * mp
     ladder = "procs" if host_mode else "dp"
+
+    def rung(n: int) -> int:
+        return n if host_mode else n // mp
     global_batch = _global_batch(cfg_dict)
     task_chunk = int(cfg_dict.get("task_chunk", 0) or 0)
     exp_name = cfg_dict["experiment_name"]
@@ -264,7 +273,8 @@ def main(argv=None) -> int:
         return 0
 
     # Config keys go into a patched copy: the JSON wins over flags.
-    overrides: dict = {"data_parallel_devices": current}
+    overrides: dict = {"data_parallel_devices": current // mp,
+                       "model_parallel_devices": mp}
     if pause_every is not None:
         overrides["total_epochs_before_pause"] = pause_every
     run_cfg_path = patched_path = None
@@ -282,7 +292,8 @@ def main(argv=None) -> int:
 
     def resize(n: int) -> None:
         nonlocal current
-        current = overrides["data_parallel_devices"] = n
+        current = n
+        overrides["data_parallel_devices"] = n // mp
         write_patched()
 
     write_patched()
@@ -337,24 +348,26 @@ def main(argv=None) -> int:
                 if host_loss:
                     why = f"host-loss:rank{blamed}"
                     smaller = degraded_process_count(
-                        current, global_batch=global_batch, task_chunk=task_chunk)
+                        current // mp, global_batch=global_batch, task_chunk=task_chunk)
                     row = dict(process_index=blamed, process_count=current,
                                when=lost_at)
                 else:
                     why = "hang" if rc == HANG_EXIT_CODE else "repeated-signal-death"
                     smaller = degraded_dp_extent(
-                        current, global_batch=global_batch, task_chunk=task_chunk)
+                        current // mp, global_batch=global_batch, task_chunk=task_chunk)
                     row = {}
                 if smaller is None:
-                    _audit_row(exp_name, f"{why}-requeue:{ladder}{current}",
+                    _audit_row(exp_name, f"{why}-requeue:{ladder}{rung(current)}",
                                current_iter=hb_iter, epoch=hb_epoch, **row)
                     print(f"--- {cfg}: {why} (rc {rc}) with no smaller viable "
                           "topology; requeueing on the same one", flush=True)
                     continue
-                _audit_row(exp_name, f"{why}-degrade:{ladder}{current}->{ladder}{smaller}",
+                smaller *= mp
+                _audit_row(exp_name, f"{why}-degrade:{ladder}{rung(current)}->"
+                           f"{ladder}{rung(smaller)}",
                            current_iter=hb_iter, epoch=hb_epoch, **row)
-                print(f"--- {cfg}: {why} (rc {rc}); degrading {ladder}{current} -> "
-                      f"{ladder}{smaller}, resuming from the last valid checkpoint",
+                print(f"--- {cfg}: {why} (rc {rc}); degrading {ladder}{rung(current)} -> "
+                      f"{ladder}{rung(smaller)}, resuming from the last valid checkpoint",
                       flush=True)
                 promote_stack.append(current)
                 resize(smaller)
@@ -372,10 +385,10 @@ def main(argv=None) -> int:
                     # A clean degraded phase: probe one step back up; a
                     # re-hang degrades again, on the hang budget.
                     restored = promote_stack.pop()
-                    _audit_row(exp_name, f"probe-promote:{ladder}{restored}",
+                    _audit_row(exp_name, f"probe-promote:{ladder}{rung(restored)}",
                                process_count=restored if host_mode else "")
                     print(f"--- {cfg}: clean degraded phase; probing re-promotion "
-                          f"to {ladder}{restored}", flush=True)
+                          f"to {ladder}{rung(restored)}", flush=True)
                     resize(restored)
         if hangs >= max_hangs:
             print(f"--- {cfg}: hang budget ({max_hangs}) exhausted, aborting",

@@ -16,7 +16,9 @@ dispatcher and the chaos harness pass on to the runs they start). It runs
 after ``parallel.initialize_distributed_from_argv`` and stamps the process
 group's identity on ``args`` (``process_index``/``process_count``, and the
 loader's ``data_shard_index``/``data_shard_count`` unless the config sets
-them); a rank's card is ``cuda:<local rank mod device count>``.
+them: the rank's dp index of the dp extent, the ranks of an mp group
+sharing one shard); a rank's card is ``cuda:<local rank mod device
+count>``.
 ``load_maml_config`` reads a JSON alone (no command line, no
 ``DATASET_DIR``) for the entry points that take no data.
 
@@ -216,8 +218,11 @@ def get_args(argv=None, device=None):
             "reachable --coordinator_address and a --process_id?"
         )
     if int(getattr(args, "data_shard_count", 0) or 0) < 1:
-        args.data_shard_index = args.process_index
-        args.data_shard_count = args.process_count
+        # The ranks of an mp group share their dp index's tasks.
+        mp = int(getattr(args, "model_parallel_devices", 1) or 1)
+        mp = mp if mp > 0 and args.process_count % mp == 0 else 1
+        args.data_shard_index = args.process_index // mp
+        args.data_shard_count = args.process_count // mp
     sanitize.set_debug_nans(bool(args.debug_nans))
     device = device if device is not None else flags.device
     if args.process_count > 1:

@@ -297,9 +297,10 @@ def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
     ``on_nonfinite rollback`` (A12's, ported since) builds a run under that
     policy, and ``dataprovider_backend process`` (A5's, ported since)
     builds a run whose loader synthesises in spawned worker processes.
-    ``num_processes 2`` (A10's data-parallel half, ported since) needs a
-    process group of two ranks, which this one process is not: it raises
-    naming the flag; ``model_parallel_devices 2`` (A10.2) still raises."""
+    ``num_processes 2`` (A10's data-parallel half, ported since) and
+    ``model_parallel_devices 2`` (A10.2, the tensor-parallel half, ported
+    since) need a process group of two ranks, which this one process is
+    not: each raises naming the flag."""
     monkeypatch.setenv("DATASET_DIR", str(runs["tmp_path"]))
     args = _args(runs["tmp_path"], "refused", continue_from_epoch="from_scratch",
                  **{knob: value})
@@ -328,7 +329,7 @@ def test_unported_knobs_raise(runs, monkeypatch, knob, value, item):
         finally:
             builder.data.close()
         return
-    if knob == "num_processes":
+    if knob in ("num_processes", "model_parallel_devices"):
         with pytest.raises(ValueError, match="--num_processes 2"):
             build()
         return

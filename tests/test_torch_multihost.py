@@ -10,7 +10,8 @@ the JAX package (CPU; JAX ``tests/test_multihost.py:55-300``).
 * The heartbeat's per-rank paths are JAX's; the telemetry and the
   watchdog's ``hang`` event carry the rank.
 * The builder refuses what a fleet cannot run: tensor parallelism and the
-  sequential learners (ROADMAP A10.2), a learner without the fleet's dp.
+  sequential learners, a learner without the fleet's dp x mp; a
+  tensor-parallel fleet's layout.
 """
 
 import json
@@ -188,9 +189,22 @@ def test_the_builder_refuses_what_a_fleet_cannot_run():
         _check_topology(fleet, GradientDescentLearner(cfg))
     with pytest.raises(ValueError, match="cannot span 2 processes"):
         _check_topology(fleet, MAMLFewShotLearner(cfg))
-    with pytest.raises(NotImplementedError, match="A10.2"):
-        _check_topology(Bunch({**vars(fleet), "model_parallel_devices": 2}),
-                        MAMLFewShotLearner(cfg, mesh=mesh))
+    # A two-rank fleet at mp 2 is one mp group: its layout builds. dp 2 x
+    # mp 2 needs 4 ranks, an mp below 0 raises (0 reads as 1, as in JAX),
+    # and an mp of 4 exceeds the fleet, each naming what to change.
+    tp = Bunch({**vars(fleet), "data_parallel_devices": 1, "model_parallel_devices": 2})
+    tp_learner = MAMLFewShotLearner(cfg, mesh=Mesh(dp=1, mp=2, rank=1, world=2,
+                                                   device=torch.device("cpu")))
+    assert _check_topology(tp, tp_learner) == (1, 2)
+    assert _check_topology(Bunch({**vars(tp), "data_parallel_devices": 0}),
+                           tp_learner) == (1, 2)
+    with pytest.raises(ValueError, match="--num_processes 4"):
+        _check_topology(Bunch({**vars(fleet), "model_parallel_devices": 2}), tp_learner)
+    with pytest.raises(ValueError, match=">= 1, got -1"):
+        _check_topology(Bunch({**vars(tp), "model_parallel_devices": -1}), tp_learner)
+    with pytest.raises(ValueError, match="model_parallel_devices 4 needs .* 4 ranks"):
+        _check_topology(Bunch({**vars(tp), "data_parallel_devices": 0,
+                               "model_parallel_devices": 4}), tp_learner)
     with pytest.raises(ValueError, match="data_parallel_devices 4"):
         _check_topology(Bunch({**vars(fleet), "data_parallel_devices": 4}),
                         MAMLFewShotLearner(cfg, mesh=mesh))

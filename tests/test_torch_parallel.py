@@ -178,8 +178,15 @@ def test_backend_and_layout_rules():
     assert default_mesh_from_args(one, "cpu") is None
     with pytest.raises(ValueError, match="--num_processes 2"):
         default_mesh_from_args(Bunch({**vars(one), "data_parallel_devices": 2}), "cpu")
-    with pytest.raises(NotImplementedError, match="A10.2"):
+    # One process holds no mp group of 2 (JAX's "exceeds"); the error names
+    # the flag that starts one. As in JAX, an mp of 0 reads as 1 and one
+    # below 0 raises.
+    with pytest.raises(ValueError, match="exceeds the 1 process.*--num_processes 2"):
         default_mesh_from_args(Bunch({**vars(one), "model_parallel_devices": 2}), "cpu")
+    assert default_mesh_from_args(Bunch({**vars(one), "model_parallel_devices": 0}),
+                                  "cpu") is None
+    with pytest.raises(ValueError, match="must be >= 1, got -1"):
+        default_mesh_from_args(Bunch({**vars(one), "model_parallel_devices": -1}), "cpu")
 
 
 def test_bring_up_fails_fast_on_an_unreachable_coordinator():
